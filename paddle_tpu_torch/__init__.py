@@ -9,9 +9,13 @@ of the same math.
 Entry points run on CUDA unless the caller passes device="cpu"; without
 a GPU and without that argument they raise (core/place.py).
 
-This slice ports the serving path: models/gpt.py, models/generation.py
+Slice 1 ports the serving path: models/gpt.py, models/generation.py
 and inference/serving/ (paged KV cache, scheduler, fused decode chunk,
-LLMEngine) over the ragged paged-attention kernel.
+LLMEngine) over the ragged paged-attention kernel. Slice 2 ports the
+GPT train step: nn/ (layers, functionals, fused cross-entropy, global-
+norm clip), distributed/tp_layers.py, optimizer/ (AdamW with master
+weights), amp.decorate, jit.TrainStep and the training side of
+models/gpt.py, over the flash-attention kernels K1 and K2.
 """
 from .core.place import resolve_device
 

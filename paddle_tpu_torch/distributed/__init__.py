@@ -1,0 +1,5 @@
+from .tp_layers import (ColumnParallelLinear, RowParallelLinear,
+                        VocabParallelEmbedding)
+
+__all__ = ["ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding"]

@@ -1,3 +1,3 @@
-from .gpt import GPT, GPTConfig
+from .gpt import GPT, GPTConfig, gpt_loss_fn
 
-__all__ = ["GPT", "GPTConfig"]
+__all__ = ["GPT", "GPTConfig", "gpt_loss_fn"]

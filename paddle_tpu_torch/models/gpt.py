@@ -6,11 +6,15 @@ JAX package's: a linear weight is [in, out] (Paddle's layout), so
 A parameter dict therefore moves between the packages unchanged
 (`GPT.load_jax_params`, no transposes).
 
-The forward is the full-sequence causal forward, kept for parity with
-the JAX Layer; serving runs the functional decode of
-models/generation.py over the same parameters. Tensor/sequence/context
-parallelism, MoE and remat are not ported in this slice: their config
-fields exist so configs read the same, and setting them raises.
+The forward is the full-sequence causal forward of training: attention
+goes through nn.functional.scaled_dot_product_attention, which routes to
+flash kernel K1 (heads-major, any ported head dim) or, at head dim 64,
+to the packed-pair kernel K2 (`sliced_qkv(pack_pairs=True)`), and
+`GPT.loss` / `gpt_loss_fn` add the fused hard-label cross-entropy.
+Serving runs the functional decode of models/generation.py over the
+same parameters. Tensor/sequence/context parallelism, MoE and remat are
+not ported in this slice: their config fields exist so configs read the
+same, and setting them raises.
 """
 from __future__ import annotations
 
@@ -21,11 +25,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ..core.place import DeviceLike, resolve_device
+from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
+                                     VocabParallelEmbedding)
+from ..nn import functional as F
+from ..nn.layer import Dropout, Embedding, LayerNorm
+from ..ops.kernels import packed_flash
 
-__all__ = ["GPTConfig", "GPT"]
+__all__ = ["GPTConfig", "GPT", "GPTAttention", "sliced_qkv", "gpt_loss_fn"]
 
 
 @dataclass
@@ -64,61 +72,72 @@ class GPTConfig:
                 self.hidden_size // self.num_heads, self.max_seq_len)
 
 
-class Linear(nn.Module):
-    """y = x @ weight + bias with weight [in, out] (Paddle's layout)."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias \
-            else None
-
-    def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+def sliced_qkv(x, qkv_layer, num_heads: int, head_dim: int,
+               pack_pairs: bool = False):
+    """q/k/v from a fused qkv projection as three linears against slices
+    of its weight (paddle_tpu/models/gpt.py:85-126, the tp == 1 path).
+    Each comes back as a strided view: heads-major [B, H, T, D], or with
+    pack_pairs [B, H/2, T, 2D] (adjacent head pairs merged, K2's
+    layout). The flash kernels read these views in place."""
+    B, T = x.shape[0], x.shape[1]
+    HD = num_heads * head_dim
+    w, bias = qkv_layer.weight, qkv_layer.bias
+    out = []
+    for i in range(3):
+        o = F.linear(x, w[:, i * HD:(i + 1) * HD],
+                     bias[i * HD:(i + 1) * HD])
+        if pack_pairs:
+            o = o.reshape(B, T, num_heads // 2, 2 * head_dim)
+        else:
+            o = o.reshape(B, T, num_heads, head_dim)
+        out.append(o.transpose(1, 2))
+    return out
 
 
 class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
+        self.cfg = cfg
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv = Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out = Linear(cfg.hidden_size, cfg.hidden_size)
-        self.dropout = cfg.dropout
+        self.qkv = ColumnParallelLinear(cfg.hidden_size, 3 * cfg.hidden_size)
+        self.out = RowParallelLinear(cfg.hidden_size, cfg.hidden_size)
+
+    def _pack_gate(self, T: int) -> bool:
+        return packed_flash.route_gate(
+            self.head_dim, self.num_heads, T, T,
+            dropout_active=self.cfg.dropout > 0.0 and self.training)
 
     def forward(self, x):
-        B, T, C = x.shape
-        qkv = self.qkv(x).reshape(B, T, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)          # [B, H, T, D]
-        scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(self.head_dim))
-        causal = torch.ones(T, T, dtype=torch.bool,
-                            device=x.device).tril()
-        scores = scores.masked_fill(~causal, -1e30)
-        probs = F.dropout(torch.softmax(scores, dim=-1), self.dropout,
-                          self.training)
-        out = (probs @ v).transpose(1, 2).reshape(B, T, C)
-        return self.out(out)
+        B, T = x.shape[0], x.shape[1]
+        pack = self._pack_gate(T)
+        q, k, v = sliced_qkv(x, self.qkv, self.num_heads, self.head_dim,
+                             pack_pairs=pack)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.cfg.dropout,
+            training=self.training, _heads_major=True, _packed_pairs=pack)
+        # [B, H, T, D] or packed [B, H/2, T, 2D] -> [B, T, C], heads in
+        # natural order either way
+        return self.out(out.transpose(1, 2).reshape(B, T, -1))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         inner = cfg.ffn_mult * cfg.hidden_size
-        self.up = Linear(cfg.hidden_size, inner)
-        self.down = Linear(inner, cfg.hidden_size)
+        self.up = ColumnParallelLinear(cfg.hidden_size, inner)
+        self.down = RowParallelLinear(inner, cfg.hidden_size)
 
     def forward(self, x):
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        return self.down(F.gelu(self.up(x), approximate=True))
 
 
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.ln1 = LayerNorm(cfg.hidden_size)
         self.attn = GPTAttention(cfg)
-        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.ln2 = LayerNorm(cfg.hidden_size)
         self.mlp = GPTMLP(cfg)
 
     def forward(self, x):
@@ -139,13 +158,14 @@ class GPT(nn.Module):
         cfg = cfg or GPTConfig(**kwargs)
         _check_supported(cfg)
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
+        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size)
+        self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList(GPTBlock(cfg)
                                     for _ in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.ln_f = LayerNorm(cfg.hidden_size)
+        self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
+                                            has_bias=False)
         self._init_weights(seed)
         self.to(resolve_device(device))
 
@@ -178,6 +198,13 @@ class GPT(nn.Module):
             x = blk(x)
         return self.lm_head(self.ln_f(x))
 
+    def loss(self, input_ids, labels):
+        """Mean hard-label cross-entropy of the next-token logits."""
+        logits = self(input_ids)
+        labels = torch.as_tensor(labels, device=self.device)
+        return F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+                               labels.reshape(-1))
+
     @classmethod
     def load_jax_params(cls, cfg: GPTConfig, params: Dict[str, np.ndarray],
                         device: DeviceLike = None) -> "GPT":
@@ -199,6 +226,11 @@ class GPT(nn.Module):
                         f"{name}: shape {src.shape} != {tuple(p.shape)}")
                 p.copy_(torch.from_numpy(np.array(src)))
         return model
+
+
+def gpt_loss_fn(model, input_ids, labels):
+    """loss_fn signature for jit.TrainStep."""
+    return model.loss(input_ids, labels)
 
 
 def _check_supported(cfg: GPTConfig) -> None:

@@ -1,0 +1,32 @@
+"""Common functionals (port of paddle_tpu/nn/functional/common.py and
+activation.py, the parts the GPT train step calls).
+
+`linear` keeps Paddle's [in, out] weight layout."""
+from __future__ import annotations
+
+from torch.nn import functional as F
+
+__all__ = ["linear", "embedding", "dropout", "gelu"]
+
+
+def linear(x, weight, bias=None):
+    """x @ weight (+ bias), weight [in, out]."""
+    return F.linear(x, weight.t(), bias)
+
+
+def embedding(x, weight):
+    """Rows of `weight` at the ids in x."""
+    return F.embedding(x.long(), weight)
+
+
+def dropout(x, p=0.5, training=True):
+    """Paddle's default upscale_in_train dropout over torch's random
+    stream (the JAX stream cannot be matched, so no draw is compared
+    with it)."""
+    if not training or p == 0.0:
+        return x
+    return F.dropout(x, p, training=True)
+
+
+def gelu(x, approximate=False):
+    return F.gelu(x, approximate="tanh" if approximate else "none")

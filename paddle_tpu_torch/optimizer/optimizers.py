@@ -1,0 +1,65 @@
+"""Adam and AdamW (port of paddle_tpu/optimizer/optimizers.py:49-105).
+
+Paddle's formula, which torch.optim.AdamW does not compute:
+  m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+  beta1_pow *= b1;  beta2_pow *= b2   (per-parameter state)
+  lr_t = lr sqrt(1 - beta2_pow) / (1 - beta1_pow)
+  p -= lr_t m / (sqrt(v) + eps)      (eps is not bias-corrected)
+AdamW first scales p by (1 - lr coeff) (decoupled decay, coeff 0.01 by
+default, every parameter).
+All of it in place on the parameter (or its f32 master) and its state.
+"""
+from __future__ import annotations
+
+import torch
+
+from .optimizer import Optimizer
+
+__all__ = ["Adam", "AdamW"]
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, grad_clip=None):
+        super().__init__(learning_rate, parameters, grad_clip)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _init_state(self, param):
+        return {
+            "moment1": torch.zeros_like(param),
+            "moment2": torch.zeros_like(param),
+            "beta1_pow": torch.ones([], dtype=param.dtype,
+                                    device=param.device),
+            "beta2_pow": torch.ones([], dtype=param.dtype,
+                                    device=param.device),
+        }
+
+    def _update(self, p, g, state, lr):
+        g = g.to(p.dtype)
+        b1, b2 = self._beta1, self._beta2
+        m, v = state["moment1"], state["moment2"]
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        b1p = state["beta1_pow"].mul_(b1)
+        b2p = state["beta2_pow"].mul_(b2)
+        lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+        p.sub_(lr_t * m / (torch.sqrt(v) + self._epsilon))
+        return p, state
+
+
+class AdamW(Adam):
+    """Decoupled weight decay: p *= (1 - lr coeff) before the Adam step."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 grad_clip=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         grad_clip)
+        self._coeff = float(weight_decay)
+
+    def _update(self, p, g, state, lr):
+        if self._coeff:
+            p.mul_(1.0 - lr * self._coeff)
+        return super()._update(p, g, state, lr)

@@ -14,7 +14,16 @@ PyTorch is installed:
   CPU (through the plain version): tokens and flags exactly, pools
   within 1e-5;
 - the engine on CUDA: ragged (K3) and bucketed (gather) routes give the
-  same greedy tokens, and K3 launches layers x k x chunks times.
+  same greedy tokens, and K3 launches layers x k x chunks times;
+- K1 (ops/kernels/flash_attention) and K2 (ops/kernels/packed_flash),
+  forward (out, lse) and backward (dq, dk, dv), against their plain
+  versions at T 128, 640, 1024 and 2176, causal and not, in f32 (within
+  1e-4 of each tensor's largest entry: blocked sums in another order)
+  and bf16 (within 2e-2: both round f32 results to bf16, 2**-8
+  relative, and the inputs of the gradients' products differ by that);
+- a tiny GPT TrainStep on CUDA (through K1 and K2) against the same
+  step on the CPU (through their plain versions): losses within 1e-4
+  relative over 3 steps, in f32.
 
 float32 matmuls run in full float32 (TF32 off, set by the fixture).
 """
@@ -27,6 +36,8 @@ from paddle_tpu_torch.inference.serving import (PACK_COLS, EngineConfig,
                                                 fused_decode_chunk, pack_f32)
 from paddle_tpu_torch.models import generation as gen
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from paddle_tpu_torch.ops.kernels import flash_attention as k1
+from paddle_tpu_torch.ops.kernels import packed_flash as k2
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_attention_reference, ragged_decode_attention)
 
@@ -148,3 +159,100 @@ def test_engine_ragged_matches_bucketed_and_counts_launches(cuda):
     for rid in res["ragged"]:
         np.testing.assert_array_equal(res["ragged"][rid],
                                       res["bucketed"][rid])
+
+
+# ------------------------------------------------------------- K1 and K2
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _flash_case(kernel, cuda, T, causal, dtype, seed=0):
+    """(kernel outputs, plain outputs) for out, lse, dq, dk, dv."""
+    b, h, d = 2, 2, 64 if kernel == "k1_d64" else 128
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, T, d, generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    if kernel.startswith("k1"):
+        fwd, bwd, ref = (k1.flash_attention_fwd, k1.flash_attention_bwd,
+                         k1.flash_attention_reference)
+        scale = 1.0 / d ** 0.5
+    else:
+        fwd, bwd, ref = (k2.packed_flash_fwd, k2.packed_flash_bwd,
+                         k2.packed_flash_reference)
+        scale = 0.125
+    before = (fwd.launches, bwd.launches)
+    o, lse = fwd(q, k, v, causal, scale)
+    grads = bwd(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ro, rlse = ref(qr, kr, vr, causal, scale, return_lse=True)
+    rgrads = torch.autograd.grad(ro, (qr, kr, vr), do)
+    return (o, lse, *grads), (ro, rlse, *rgrads)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k1_d64", "k2"])
+@pytest.mark.parametrize("T", [128, 640, 1024, 2176])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernels_match_plain(cuda, kernel, T, causal, dtype, tol):
+    got, want = _flash_case(kernel, cuda, T, causal, dtype)
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """sliced_qkv's views ([B, T, H, D] storage read as [B, H, T, D])
+    go to the kernel without a copy and give the contiguous result."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 256, 3, 4, 64, generator=g).to(cuda)   # B T 3 H D
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    got = k1.flash_attention(q, k, v, causal=True, heads_major=True)
+    want = k1.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True, heads_major=True)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError):
+        k1.launch_fwd(q[:, :, :100], k[:, :, :100], v[:, :, :100], True,
+                      0.125)
+    with pytest.raises(TypeError):
+        k1.launch_fwd(q.half(), k.half(), v.half(), True, 0.125)
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_train_step_cuda_matches_cpu(cuda, heads):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import attention as A
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=heads, max_seq_len=128)
+    rng = np.random.RandomState(4)
+    x = rng.randint(0, 256, (2, 128)).astype(np.int32)
+    y = rng.randint(0, 256, (2, 128)).astype(np.int32)
+    prev = flags.flag("flash_attention_min_seq")
+    flags.set_flags({"FLAGS_flash_attention_min_seq": 128})
+    try:
+        losses = {}
+        for dev in ("cpu", cuda):
+            model = GPT(cfg, device="cpu", seed=3).to(dev)
+            step = jit.TrainStep(model, gpt_loss_fn, AdamW(
+                1e-3, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0)))
+            before = k1.flash_attention_bwd.launches + \
+                k2.packed_flash_bwd.launches
+            losses[str(dev)] = [step(x, y).item() for _ in range(3)]
+            assert A.LAST_PATH == "flash"
+            after = k1.flash_attention_bwd.launches + \
+                k2.packed_flash_bwd.launches
+            assert after - before == (0 if dev == "cpu" else 3 * 2)
+    finally:
+        flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
