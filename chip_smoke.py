@@ -8,8 +8,9 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from this checkout's sources (K3 of the
-   serving path, K1/K2 of the train step; one nvcc per source, started
-   together) and print what `ptxas -v` reports;
+   serving path, K1/K2 of the GPT train step, K4 of the ResNet block
+   boundary; one nvcc per source, started together) and print what
+   `ptxas -v` reports;
 3. hold K3 against its plain PyTorch version on the card at the shapes
    the serving path gives it (f32 within 1e-5, bf16 within 1e-2);
 4. time K3, its plain version and the one-call PyTorch yardstick
@@ -40,11 +41,32 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    launches per step, the first step's loss within 1e-4 relative of the
    same forward with use_flash_attention off (composed attention), and
    every parameter's gradient on the first GRAD_B rows of the batch
-   within GRAD_TOL (relative L2) of the composed route's.
+   within GRAD_TOL (relative L2) of the composed route's;
+10. K4 (fused BN-apply + ReLU (+ residual) -> 1x1-conv matmul) against
+   its plain version at the five ResNet-50 block-boundary geometries of
+   paddle_tpu_torch/tools/fused_conv_proto.py (batch 128, its input
+   recipe from --seed), to the limits of K4_TOL, and timed (CUDA events,
+   cold L2) beside its bound, its plain version, the composed torch path
+   and torch.matmul alone;
+11. K4 on the port's own ResNet-50 (one training-mode bf16 forward at
+   batch 128 x 224^2): at the five sites hooks launch it on the captured
+   pre-BN conv output, the BN's batch-statistics fold, the identity and
+   the next 1x1 conv's weight; its result within K4_MODEL_TOL (relative
+   L2) of the model's own next-conv output and within K4_TOL of its
+   plain version; 5 launches in the forward;
+12. the ResNet-50 train step at the geometry of bench.py's bench_resnet
+   (batch 128 of 3 x 224^2 images cast to bf16 once, labels in [0,
+   1000), AMP O2 with f32 masters, Momentum(0.1), jit.TrainStep; 2
+   warm-up + 10 timed steps): the first step's loss and per-parameter
+   gradients on ROUTE_B images with FLAGS_fuse_bn_act on and off within
+   ROUTE_TOL, the running stats all moved and float32 after step 1,
+   every loss finite, the loss falls; imgs/s, MFU, step times and peak
+   memory printed.
 
-The last three lines are: one JSON object with each kernel's numbers,
-the card's name and power limit, and {"ok": true, "device": {...}}.
-float32 matmuls run in full float32 (TF32 off) throughout.
+The last three lines are: one JSON object with each kernel's numbers
+(K4's times summed over the five geometries), the card's name and power
+limit, and {"ok": true, "device": {...}}. float32 matmuls and
+convolutions run in full float32 (TF32 off) throughout.
 """
 from __future__ import annotations
 
@@ -135,32 +157,13 @@ def check_k3(device, seed: int) -> float:
     return errs[torch.float32]
 
 
-def cold_ms(fn, iters: int) -> float:
-    """Mean device ms of fn() with L2 flushed before each call (the
-    engine finds each layer's pools cold)."""
-    import torch
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
-
-
 def time_k3(device, seed: int) -> dict:
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.inference.serving import gather_block_kv
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
         ragged_attention_reference, ragged_decode_attention)
+    from paddle_tpu_torch.tools.measure import cold_ms
     q, kp, vp, tables, lengths = k3_inputs(device, torch.float32, seed)
     ms = cold_ms(lambda: ragged_decode_attention(q, kp, vp, tables,
                                                  lengths), 50)
@@ -305,7 +308,6 @@ def flash_inputs(kernel, b, dtype, device, seed):
 # bf16 limits: the kernel's delta = rowsum(do * o) reads the bf16 output,
 # as FA2 does, while the plain version's autograd uses the f32 one (a
 # plain FA2 backward with that delta reads the same errors on the CPU)
-BF16_ULP = 2.0 ** -7
 _F32_TOL = dict(l2=1e-5, peak=1e-4)
 _BF16_TIGHT = dict(l2=5e-4, excess=1e-3)
 _BF16_DELTA = dict(l2=4e-3, excess=0.5)
@@ -315,25 +317,12 @@ FLASH_TOL = {
                  "dq": _BF16_DELTA, "dk": _BF16_DELTA, "dv": _BF16_TIGHT}}
 
 
-def agreement(a, w) -> dict:
-    """How far a lies from w: relative L2 error, max |err| (also over
-    max |w|), and the worst excess of |err| over one bf16 ulp of |w| in
-    units of rms(w)."""
-    a, w = a.float(), w.float()
-    d = (a - w).abs()
-    wn = w.norm()
-    rms = wn / w.numel() ** 0.5
-    return {"l2": ((a - w).norm() / wn).item(), "abs": d.max().item(),
-            "peak": (d.max() / w.abs().max()).item(),
-            "excess": ((d - BF16_ULP * w.abs()).clamp_min(0).max()
-                       / rms).item()}
-
-
 def check_flash(kernel, device, seed: int) -> dict:
     """Kernel vs plain at the train step's shape (B 32): out, lse, dq, dk
     and dv in f32 and in bf16, the main path's dtype. Returns bf16 max
     |err| of the forward (out, lse) and of the backward (dq, dk, dv)."""
     import torch
+    from paddle_tpu_torch.tools.measure import agreement
     fwd, bwd, ref = _flash_fns(kernel)
     sc = FLASH[kernel]["scale"]
     for dtype in (torch.float32, torch.bfloat16):
@@ -375,6 +364,7 @@ def time_flash(kernel, device, seed: int):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.packed_flash import _unpack
+    from paddle_tpu_torch.tools.measure import cold_ms
     fwd, bwd, ref = _flash_fns(kernel)
     c = FLASH[kernel]
     sc = c["scale"]
@@ -510,6 +500,214 @@ def drive_train(num_heads: int, warmup: int, steps: int, device,
     return res
 
 
+# ------------------------------------------------------------ phase 10
+# K4 against its plain version. Both round one f32 sum per element to
+# bf16 (summed in different orders), so a sound kernel differs from it
+# by rare one-ulp flips: relative L2 error, and the worst excess of |err|
+# over one bf16 ulp of the plain value in units of its rms (sound
+# readings on the H100 at the five geometries: l2 1.4e-5 to 8.4e-5,
+# excess 1.6e-7 to 2.0e-6)
+K4_TOL = dict(l2=3e-4, excess=1e-4)
+K4_SOURCE = "paddle_tpu_torch/ops/kernels/csrc/fused_conv.cu"
+
+
+def _k4_bad(agree) -> list:
+    return [f"{m} {agree[m]:.3e} > {lim:g}" for m, lim in K4_TOL.items()
+            if agree[m] > lim]
+
+
+def check_k4(device, seed: int) -> list:
+    """K4 vs its plain version and timed (kernel, plain, composed path,
+    torch.matmul alone, bound) at the five block-boundary geometries of
+    the A/B tool, from its input recipe."""
+    import torch
+    from paddle_tpu_torch.tools import fused_conv_proto as proto
+    rows = []
+    for geom in proto.inputs(seed, device):
+        r = proto.measure(*geom)
+        del geom
+        a = r["agreement"]
+        print(f"[k4] {r['name']} (M {r['m']}, K {r['k']}, N {r['n']}): "
+              f"kernel vs plain l2 {a['l2']:.2e} abs {a['abs']:.2e} excess "
+              f"{a['excess']:.2e} (limits {K4_TOL}); cold L2 mean: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, composed "
+              f"{r['composed_ms']:.4f}, torch.matmul alone "
+              f"{r['matmul_ms']:.4f}, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({r['mbytes']:.1f} MB, {r['gflop']:.2f} "
+              f"GFLOP); kernel {r['mbytes'] / r['ms'] / 1e3:.3f} TB/s")
+        bad = _k4_bad(a)
+        _require(not bad, f"K4 disagrees with its plain version at "
+                          f"{r['name']}: {bad}")
+        rows.append(r)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase 11
+# K4 on ResNet-50's own block-boundary tensors against the model's next
+# convolution: K4 rounds its f32 transform to bf16 once, the model
+# applies scale and shift in bf16 (as the JAX package does) and rounds
+# after each op, so the two differ by a few bf16 ulps of the next conv's
+# input; relative L2 limit on the next conv's output (sound readings on
+# the H100: 4.0e-3 to 4.4e-3 at the five sites)
+K4_MODEL_TOL = 1e-2
+
+
+def check_k4_on_model(device, seed: int) -> int:
+    """One training-mode bf16 forward of the port's ResNet-50 at batch 128
+    x 224^2; at each of the five sites hooks capture the pre-BN
+    convolution output, the BN's batch-statistics fold, the identity and
+    the next 1x1 convolution's weight as [K, N], and launch K4 on them
+    (laid out as [N*H*W, C]) when the next convolution runs. K4's result
+    is held against the model's own next-conv output and against its
+    plain version. Returns K4's launches during the forward."""
+    import torch
+    from paddle_tpu_torch.nn.functional.norm import _bn_stats, _fold
+    from paddle_tpu_torch.ops.kernels.fused_conv import (
+        fused_scale_relu_matmul, fused_scale_relu_matmul_reference)
+    from paddle_tpu_torch.tools.measure import agreement
+    from paddle_tpu_torch.tools.train_bench import resnet_batch
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(num_classes=1000, device=device, seed=seed).to(
+        torch.bfloat16).train()
+    x, _ = resnet_batch(seed, device)
+    layers = (model.layer1, model.layer2, model.layer3, model.layer4)
+    sites = [(f"layer{i + 1}.0.bn3 + identity -> layer{i + 1}.1.conv1",
+              L[0].conv3, L[0].bn3, L[0].downsample, L[1].conv1)
+             for i, L in enumerate(layers)]
+    b = model.layer1[0]
+    sites.append(("layer1.0.bn2 -> layer1.0.conv3", b.conv2, b.bn2, None,
+                  b.conv3))
+
+    def rows(t):                           # [N, C, H, W] -> [N*H*W, C]
+        return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]).contiguous()
+
+    seen, results, hooks = {}, [], []
+    for name, src, bn, res, dst in sites:
+        def keep(key):
+            return lambda mod, inp, out: seen.__setitem__(key, out)
+
+        def run_k4(mod, inp, out, name=name, bn=bn, res=res, src=src):
+            pre = seen.pop(src)
+            mean, var = _bn_stats(pre, (0, 2, 3))
+            scale, shift = _fold(pre, mean, var, bn.weight, bn.bias,
+                                 bn._epsilon)
+            xs = rows(pre)
+            zs = None if res is None else rows(seen.pop(res))
+            w = mod.weight[:, :, 0, 0].t().contiguous()
+            got = fused_scale_relu_matmul(xs, zs, w, scale, shift)
+            results.append((name, tuple(xs.shape), w.shape[1],
+                            agreement(got, rows(out)),
+                            agreement(got, fused_scale_relu_matmul_reference(
+                                xs, zs, w, scale, shift))))
+        hooks.append(src.register_forward_hook(keep(src)))
+        if res is not None:
+            hooks.append(res.register_forward_hook(keep(res)))
+        hooks.append(dst.register_forward_hook(run_k4))
+    fused_scale_relu_matmul.launches = 0
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    launches = fused_scale_relu_matmul.launches
+    for h in hooks:
+        h.remove()
+    for name, shape, n, vs_model, vs_plain in results:
+        print(f"[k4 model] {name}: [{shape[0]}, {shape[1]}] -> {n}; vs the "
+              f"model's next conv l2 {vs_model['l2']:.3e} (limit "
+              f"{K4_MODEL_TOL:g}) peak {vs_model['peak']:.2e}; vs plain l2 "
+              f"{vs_plain['l2']:.2e} excess {vs_plain['excess']:.2e}")
+        _require(vs_model["l2"] <= K4_MODEL_TOL,
+                 f"K4 vs the model's next conv at {name}: "
+                 f"{vs_model['l2']} > {K4_MODEL_TOL}")
+        bad = _k4_bad(vs_plain)
+        _require(not bad, f"K4 vs plain on the model's tensors at {name}: "
+                          f"{bad}")
+    print(f"[k4 model] K4 launches during the forward: {launches} "
+          f"(want {len(sites)})")
+    _require(len(results) == len(sites) and launches == len(sites),
+             f"K4 launched {launches} times at {len(results)} sites")
+    del model, x, seen, results
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------ phase 12
+# the BN route check: first-step loss on the whole batch and every
+# parameter's gradient on the first ROUTE_B images, fused BN+ReLU
+# (`_bn_act_core`) against BN, add and ReLU as separate ops; limits on
+# the loss (relative) and the gradients (relative L2). The two routes do
+# the same bf16 operations (the H100 read 0 for both); the gradient limit
+# leaves room for cuDNN backward algorithms that sum in a run-dependent
+# order (one bf16 ulp is 2^-8 relative)
+ROUTE_B, ROUTE_TOL = 8, dict(loss=1e-5, grad=5e-3)
+
+
+def drive_resnet(device, seed: int, warmup: int = 2, steps: int = 10
+                 ) -> dict:
+    """The ResNet-50 train step at bench_resnet's geometry: the BN route
+    check, step 1 (the running stats move and become f32), then the
+    remaining warm-up and the timed steps through tools/train_bench.py."""
+    import math
+    import torch
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.tools import train_bench
+    built = train_bench.build_resnet(seed, device)
+    model, step, x, y = built
+    params = [p for p in model.parameters() if p.requires_grad]
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+
+    def route(fused: bool):
+        flags.set_flags({"FLAGS_fuse_bn_act": fused})
+        try:
+            with torch.no_grad():
+                loss = train_bench.resnet_loss_fn(model, x, y).item()
+            grads = torch.autograd.grad(train_bench.resnet_loss_fn(
+                model, x[:ROUTE_B], y[:ROUTE_B]), params)
+        finally:
+            flags.set_flags({"FLAGS_fuse_bn_act": True})
+        return loss, grads
+
+    composed, g_comp = route(False)
+    fused, g_fused = route(True)
+    gerr = max(((a.float() - w.float()).norm()
+                / w.float().norm().clamp_min(1e-30)).item()
+               for a, w in zip(g_fused, g_comp))
+    del g_comp, g_fused
+    lerr = abs(fused - composed) / abs(composed)
+    print(f"[resnet] BN route check: first loss fused {fused:.6f} vs "
+          f"composed {composed:.6f} ({lerr:.2e} relative, limit "
+          f"{ROUTE_TOL['loss']:g}); worst per-parameter gradient relative "
+          f"L2 error on {ROUTE_B} images {gerr:.3e} (limit "
+          f"{ROUTE_TOL['grad']:g})")
+    _require(lerr <= ROUTE_TOL["loss"], f"BN routes' loss: {lerr}")
+    _require(gerr <= ROUTE_TOL["grad"], f"BN routes' gradients: {gerr}")
+    # the route check's training-mode forwards moved the running stats
+    for k, b in model.named_buffers():
+        b.data = saved[k]
+    first = step(x, y).item()
+    moved = [k for k, b in model.named_buffers()
+             if not torch.equal(b.float(), saved[k].float())]
+    dtypes = {str(b.dtype) for b in model.buffers()}
+    print(f"[resnet] after step 1: {len(moved)} of {len(saved)} running "
+          f"stats moved; their dtypes {sorted(dtypes)} (were bf16)")
+    _require(len(moved) == len(saved), "running stats did not all move")
+    _require(dtypes == {"torch.float32"}, f"running stats {dtypes}")
+    res = train_bench.run_resnet(warmup - 1, steps, built=built)
+    losses = [first] + res["losses"]
+    res["losses"] = losses
+    print(f"[resnet] losses {[round(v, 5) for v in losses]}")
+    print(f"[resnet] step s {[round(t, 4) for t in res['step_s']]}; "
+          f"imgs/s {res['imgs_per_sec']:.1f}, MFU {res['mfu']:.4f} (3 x "
+          f"4.1 GFLOP/img over the bf16 peak 989 TFLOP/s), peak memory "
+          f"{res['peak_mem_gb']:.2f} GB")
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    del built, model
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6; returns K3's kernel entry."""
     import numpy as np
@@ -619,6 +817,27 @@ def main(argv=None) -> int:
                         "launches": counts[kernel][i],
                         "max_abs_err": errs[kernel][("fwd", "bwd")[i]],
                         **timing[kernel][i]})
+    k4 = check_k4(device, args.seed)
+    k4_launches = check_k4_on_model(device, args.seed)
+    drive_resnet(device, args.seed)
+    total = {key: sum(r[key] for r in k4)
+             for key in ("ms", "plain_ms", "bound_ms", "composed_ms",
+                         "matmul_ms")}
+    # times summed over the five block-boundary geometries; no single
+    # PyTorch call computes relu(x * scale + shift (+ z)) @ w, so
+    # library_ms is null (composed_ms and matmul_ms are the yardsticks)
+    kernels.append({"name": "fused_scale_relu_matmul", "route": "cuda",
+                    "source": K4_SOURCE,
+                    "replaces": "tools/fused_conv_proto.py:75",
+                    "launches": k4_launches,
+                    "max_abs_err": max(r["agreement"]["abs"] for r in k4),
+                    "ms": total["ms"], "plain_ms": total["plain_ms"],
+                    "bound_ms": total["bound_ms"],
+                    "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                                for r in k4)
+                                 else "operations"),
+                    "library_ms": None, "composed_ms": total["composed_ms"],
+                    "matmul_ms": total["matmul_ms"]})
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

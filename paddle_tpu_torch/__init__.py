@@ -15,7 +15,11 @@ LLMEngine) over the ragged paged-attention kernel. Slice 2 ports the
 GPT train step: nn/ (layers, functionals, fused cross-entropy, global-
 norm clip), distributed/tp_layers.py, optimizer/ (AdamW with master
 weights), amp.decorate, jit.TrainStep and the training side of
-models/gpt.py, over the flash-attention kernels K1 and K2.
+models/gpt.py, over the flash-attention kernels K1 and K2. Slice 3
+ports the ResNet-50 train step: conv2d, pooling, Paddle's batch norm
+(fused BN + ReLU route, f32 running stats under O2), vision/models/
+resnet.py and Momentum, beside kernel K4 (fused BN-apply + ReLU into a
+1x1 convolution) at the block boundaries.
 """
 from .core.place import resolve_device
 

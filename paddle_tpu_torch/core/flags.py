@@ -3,7 +3,8 @@
 Flags are plain Python values seeded from FLAGS_* environment variables,
 set with `set_flags({"FLAGS_name": value})` and read with `flag(name)`.
 The port defines the flags its ported modules read; the attention
-routing flags live here so that every module sees one registry.
+routing flags and fuse_bn_act live here so that every module sees one
+registry.
 """
 from __future__ import annotations
 
@@ -51,3 +52,8 @@ define_flag("flash_attention_min_seq", 512,
             "Below this query length the composed path is taken even when "
             "a flash kernel applies (the TPU crossover; kept so both "
             "packages route alike).")
+
+# nn/functional/norm.py's flag (paddle_tpu/nn/functional/norm.py:25-28)
+define_flag("fuse_bn_act", True,
+            "Use the fused bn+(add+)relu op (residual-light backward) in "
+            "models that call batch_norm_act.")

@@ -9,8 +9,10 @@ reads), bumps
 `optimizer._global_step` and returns the loss (detached, on the model's
 device).
 
-The JAX step compiles all of that into one XLA program with donated
-buffers. PyTorch runs eagerly, so there is nothing to compile and
+Buffers (BN running stats) are updated in place by the model's own
+training-mode forward, where the JAX step threads them through the
+compiled program and writes them back. The JAX step compiles all of
+that into one XLA program with donated buffers. PyTorch runs eagerly, so there is nothing to compile and
 donation means nothing. The jaxplan hooks, the obs gauges, the anomaly
 guard and MultiStepTrainStep are not ported yet. The parameter set is
 read once, at the first call.

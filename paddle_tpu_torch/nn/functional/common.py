@@ -1,12 +1,12 @@
-"""Common functionals (port of paddle_tpu/nn/functional/common.py and
-activation.py, the parts the GPT train step calls).
+"""Common functionals (port of paddle_tpu/nn/functional/common.py, the
+parts the GPT train step calls).
 
 `linear` keeps Paddle's [in, out] weight layout."""
 from __future__ import annotations
 
 from torch.nn import functional as F
 
-__all__ = ["linear", "embedding", "dropout", "gelu"]
+__all__ = ["linear", "embedding", "dropout"]
 
 
 def linear(x, weight, bias=None):
@@ -26,7 +26,3 @@ def dropout(x, p=0.5, training=True):
     if not training or p == 0.0:
         return x
     return F.dropout(x, p, training=True)
-
-
-def gelu(x, approximate=False):
-    return F.gelu(x, approximate="tanh" if approximate else "none")

@@ -32,8 +32,13 @@ def _rows_per_chunk(v: int) -> int:
     return max(1, _CHUNK_ELEMS // max(v, 1))
 
 
+def _acc_dtype(logits):
+    return torch.float64 if logits.dtype == torch.float64 else torch.float32
+
+
 class _HardCE(torch.autograd.Function):
-    """logits [N, V], lab [N] int64 in [0, V) -> per-row nll [N] f32."""
+    """logits [N, V], lab [N] int64 in [0, V) -> per-row nll [N] in f32
+    (f64 for f64 logits)."""
 
     @staticmethod
     def forward(ctx, logits, lab):
@@ -43,14 +48,15 @@ class _HardCE(torch.autograd.Function):
     @staticmethod
     def _forward(ctx, logits, lab):
         n, v = logits.shape
-        lse = torch.empty(n, dtype=torch.float32, device=logits.device)
+        acc = _acc_dtype(logits)
+        lse = torch.empty(n, dtype=acc, device=logits.device)
         step = _rows_per_chunk(v)
         for s in range(0, n, step):
-            x = logits[s:s + step].float()
+            x = logits[s:s + step].to(acc)
             m = x.amax(dim=-1)
             lse[s:s + step] = m + torch.log(
                 torch.exp(x - m[:, None]).sum(dim=-1))
-        label_logit = logits.gather(1, lab[:, None])[:, 0].float()
+        label_logit = logits.gather(1, lab[:, None])[:, 0].to(acc)
         ctx.save_for_backward(logits, lab, lse)
         return lse - label_logit
 
@@ -68,9 +74,9 @@ class _HardCE(torch.autograd.Function):
         rows = torch.arange(n, device=logits.device)
         for s in range(0, n, step):
             e = min(s + step, n)
-            p = torch.exp(logits[s:e].float() - lse[s:e, None])
+            p = torch.exp(logits[s:e].to(lse.dtype) - lse[s:e, None])
             p[rows[:e - s], lab[s:e]] -= 1.0
-            dx[s:e] = p * g[s:e, None].float()
+            dx[s:e] = p * g[s:e, None].to(lse.dtype)
         return dx, None
 
 

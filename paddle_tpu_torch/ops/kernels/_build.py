@@ -29,7 +29,7 @@ BUILD_DIR = KERNEL_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel source in csrc/, by name
-KERNELS = ("ragged_paged_attention", "flash_attention")
+KERNELS = ("ragged_paged_attention", "flash_attention", "fused_conv")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

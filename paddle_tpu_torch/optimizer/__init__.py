@@ -1,4 +1,4 @@
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import Adam, AdamW, Momentum
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]

@@ -10,15 +10,20 @@ returns them, so `apply_updates` keeps the JAX call shape. Under master
 weights (AMP O2) a bf16/fp16 parameter's update runs on its f32
 `master` copy, which is then cast back into the parameter.
 
-Not ported yet: LR schedulers, regularizers other than AdamW's
-decoupled decay, the eager `step()`/`minimize()` surface and state dicts
-(the train step drives `apply_updates`); a learning rate other than a
-number raises."""
+A float `weight_decay` becomes `L2Decay(weight_decay)` (optimizer.py:
+36-39), applied to the gradient as grad + coeff * param before the
+update, in the parameter's own dtype (optimizer.py:359-360).
+
+Not ported yet: LR schedulers, L1Decay and per-parameter regularizers,
+the eager `step()`/`minimize()` surface and state dicts (the train step
+drives `apply_updates`); a learning rate other than a number raises."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+
+from ..regularizer import L2Decay
 
 __all__ = ["Optimizer"]
 
@@ -27,7 +32,7 @@ _LOWP = (torch.bfloat16, torch.float16)
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 grad_clip=None):
+                 weight_decay=None, grad_clip=None):
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
                 "only a float learning rate is ported (LR schedulers come "
@@ -36,6 +41,8 @@ class Optimizer:
             else None
         self._learning_rate = float(learning_rate)
         self._grad_clip = grad_clip
+        self.regularization = L2Decay(weight_decay) \
+            if isinstance(weight_decay, float) else weight_decay
         self._global_step = 0
         # AMP O2 master weights (amp.decorate turns this on)
         self._multi_precision = False
@@ -83,5 +90,7 @@ class Optimizer:
             g = flat_grads.get(k)
             if g is None:
                 continue
+            if self.regularization is not None:
+                g = self.regularization.apply(p, g)
             self._apply_one(p, g, opt_state[k], lr)
         return flat_params, opt_state

@@ -1,4 +1,11 @@
-"""Adam and AdamW (port of paddle_tpu/optimizer/optimizers.py:49-105).
+"""Momentum, Adam and AdamW (port of paddle_tpu/optimizer/optimizers.py:
+27-105).
+
+Momentum (momentum_op.h):
+  g = rescale_grad * g;  v = mu v + g
+  p -= lr v,  or with use_nesterov  p -= lr (g + mu v)
+
+Adam and AdamW:
 
 Paddle's formula, which torch.optim.AdamW does not compute:
   m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
@@ -15,13 +22,35 @@ import torch
 
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Momentum", "Adam", "AdamW"]
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 rescale_grad=1.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+        self._rescale_grad = rescale_grad
+
+    def _init_state(self, param):
+        return {"velocity": torch.zeros_like(param)}
+
+    def _update(self, p, g, state, lr):
+        g = g.to(p.dtype) * self._rescale_grad
+        v = state["velocity"].mul_(self._momentum).add_(g)
+        if self._use_nesterov:
+            p.sub_(lr * (g + self._momentum * v))
+        else:
+            p.sub_(lr * v)
+        return p, state
 
 
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, grad_clip=None):
-        super().__init__(learning_rate, parameters, grad_clip)
+        super().__init__(learning_rate, parameters, grad_clip=grad_clip)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon

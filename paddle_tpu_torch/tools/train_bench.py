@@ -1,23 +1,34 @@
-"""The GPT train step at the geometry of bench.py's `bench_gpt`, on the GPU.
+"""The GPT and ResNet-50 train steps at the geometries of bench.py's
+`bench_gpt` and `bench_resnet`, on the GPU.
 
-    python -m paddle_tpu_torch.tools.train_bench [--heads 6|12] [--steps N]
-        [--warmup N] [--seed N] [--profile]
+    python -m paddle_tpu_torch.tools.train_bench [--model gpt|resnet50]
+        [--heads 6|12] [--steps N] [--warmup N] [--seed N] [--profile]
 
-Builds GPT(vocab 32768, hidden 768, 12 layers, max_seq_len 1024) with
-random weights from --seed, casts it with amp.decorate(level="O2",
-dtype="bfloat16") (bf16 parameters, f32 master weights), and trains it
-with AdamW(1e-4, grad_clip=ClipGradByGlobalNorm(1.0)) through
-jit.TrainStep on one random batch of 32 x 1024 tokens (the same batch
-every step, as bench_gpt does). With 6 heads of 128 attention runs
-through kernel K1, with 12 heads of 64 through K2.
+gpt (default): GPT(vocab 32768, hidden 768, 12 layers, max_seq_len 1024)
+with random weights from --seed, cast with amp.decorate(level="O2",
+dtype="bfloat16") (bf16 parameters, f32 master weights), trained with
+AdamW(1e-4, grad_clip=ClipGradByGlobalNorm(1.0)) through jit.TrainStep on
+one random batch of 32 x 1024 tokens (the same batch every step, as
+bench_gpt does). With 6 heads of 128 attention runs through kernel K1,
+with 12 heads of 64 through K2. MFU counts bench.py's FLOPs per token
+(6 x matmul parameters + 12 L h T, copied below).
 
-Prints per-step losses and times, tokens/s and MFU over the timed steps,
-peak device memory and the flash kernels' launches. MFU counts
-bench.py's FLOPs per token (6 x matmul parameters + 12 L h T, copied
-below) against the H100 SXM dense bf16 peak, 989 TFLOP/s (NVIDIA data
-sheet). --profile records 3 more steps with torch.profiler and prints
-the device time by group (flash kernels, GEMMs, cross-entropy, the
-optimizer's clip + AdamW per-parameter loop, the rest).
+resnet50: resnet50(num_classes=1000) with random weights from --seed,
+amp.decorate O2 bf16, Momentum(0.1), jit.TrainStep over the hard-label
+cross-entropy, on one random batch of 128 images of 3 x 224 x 224 (cast
+to bf16 once) with labels [128, 1] in [0, 1000) (bench_resnet, which
+times 40 steps). MFU counts bench.py's 3 x 4.1e9 FLOP per image.
+
+Both print one JSON line: per-step losses and times (host clock around
+each step, which ends in the loss's fetch), throughput and MFU over the
+timed steps against the H100 SXM dense bf16 peak, 989 TFLOP/s (NVIDIA
+data sheet), and peak device memory; gpt also the flash kernels'
+launches. --profile records 3 more steps with torch.profiler and prints
+the device busy time, the idle share and the device time by group: for
+gpt the flash kernels, GEMMs, cross-entropy, the optimizer range and the
+rest; for resnet50 the convolutions (cuDNN), batch norm (its range), the
+cross-entropy, the optimizer range and the rest (ReLU, residual adds,
+pooling, casts).
 """
 from __future__ import annotations
 
@@ -28,10 +39,16 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["bench_config", "flops_per_token", "run", "H100_BF16_FLOPS"]
+__all__ = ["bench_config", "flops_per_token", "build", "run",
+           "build_resnet", "run_resnet", "resnet_batch", "resnet_loss_fn",
+           "H100_BF16_FLOPS", "RESNET_FLOPS_PER_IMG"]
 
 H100_BF16_FLOPS = 989e12
 BATCH, SEQ = 32, 1024
+# bench_resnet's batch and image side, and its FLOPs per image (forward
+# 4.1 GFLOP at 224, fwd + bwd taken as 3x: bench.py:718-723)
+RESNET_BATCH, RESNET_SIDE = 128, 224
+RESNET_FLOPS_PER_IMG = 3 * 4.1e9
 
 
 def bench_config(num_heads: int = 6):
@@ -60,7 +77,7 @@ def flash_launches() -> Dict[str, int]:
 
 
 def build(num_heads: int = 6, seed: int = 0, device=None):
-    """(model, TrainStep, x, y) at the bench geometry."""
+    """(model, TrainStep, x, y) at the bench_gpt geometry."""
     import torch
     from .. import amp, jit
     from ..models.gpt import GPT, gpt_loss_fn
@@ -78,16 +95,40 @@ def build(num_heads: int = 6, seed: int = 0, device=None):
     return model, step, x.to(model.device), y.to(model.device)
 
 
-def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
-        seed: int = 0, built=None, profile: bool = False) -> dict:
-    """Warm-up and timed steps; returns losses, step times (host clock
-    around each step, which ends in the loss's fetch), tokens/s and MFU
-    over the timed steps, peak device memory and the flash kernels'
-    launches during the timed steps."""
+def resnet_loss_fn(model, x, y):
+    """loss_fn signature for jit.TrainStep: hard-label cross-entropy."""
+    from ..nn.functional import cross_entropy
+    return cross_entropy(model(x), y)
+
+
+def resnet_batch(seed: int, device):
+    """bench_resnet's batch from `seed`: images [128, 3, 224, 224] ~ N(0, 1)
+    cast to bf16 once, labels [128, 1] int64 in [0, 1000)."""
     import torch
-    from ..nn.functional import attention as A
-    model, step, x, y = built or build(num_heads, seed)
-    dev = model.device
+    rng = np.random.RandomState(seed)
+    x = rng.randn(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE).astype(
+        np.float32)
+    y = rng.randint(0, 1000, (RESNET_BATCH, 1)).astype(np.int64)
+    return (torch.from_numpy(x).to(device, torch.bfloat16),
+            torch.from_numpy(y).to(device))
+
+
+def build_resnet(seed: int = 0, device=None):
+    """(model, TrainStep, x, y) at the bench_resnet geometry."""
+    from .. import amp, jit
+    from ..optimizer import Momentum
+    from ..vision.models import resnet50
+    model = resnet50(num_classes=1000, device=device, seed=seed)
+    optim = Momentum(0.1, parameters=model.parameters())
+    model, optim = amp.decorate(model, optim, level="O2", dtype="bfloat16")
+    step = jit.TrainStep(model, resnet_loss_fn, optim)
+    return (model, step, *resnet_batch(seed, model.device))
+
+
+def _time_steps(step, x, y, warmup: int, steps: int, dev) -> dict:
+    """Warm-up and timed steps: losses, host-clock step times (each ends
+    in the loss's fetch) and peak device memory over the timed steps."""
+    import torch
     cuda = dev.type == "cuda"
     losses, times = [], []
 
@@ -102,42 +143,79 @@ def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    before = flash_launches()
     for _ in range(steps):
         one()
-    launches = {k: v - before[k] for k, v in flash_launches().items()}
     timed = times[warmup:]
-    tokens = x.numel()
-    tps = tokens * len(timed) / sum(timed) if timed else None
+    return {"losses": losses, "step_s": times,
+            "timed_s": sum(timed) if timed else None,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if cuda else None)}
+
+
+def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
+        seed: int = 0, built=None, profile: bool = False) -> dict:
+    """The GPT step: losses, step times, tokens/s and MFU over the timed
+    steps, peak device memory and the flash kernels' launches during the
+    timed steps."""
+    from ..nn.functional import attention as A
+    model, step, x, y = built or build(num_heads, seed)
+    dev = model.device
+    t = _time_steps(step, x, y, warmup, 0, dev)
+    before = flash_launches()
+    t2 = _time_steps(step, x, y, 0, steps, dev)
+    launches = {k: v - before[k] for k, v in flash_launches().items()}
+    tps = x.numel() * steps / t2["timed_s"] if steps else None
     out = {"num_heads": num_heads, "num_layers": model.cfg.num_layers,
            "batch": int(x.shape[0]), "seq": int(x.shape[1]),
-           "losses": losses, "step_s": times, "tokens_per_sec": tps,
+           "losses": t["losses"] + t2["losses"],
+           "step_s": t["step_s"] + t2["step_s"], "tokens_per_sec": tps,
            "mfu": (tps * flops_per_token(model.cfg) / H100_BF16_FLOPS
-                   if tps and cuda else None),
-           "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                           if cuda else None),
+                   if tps and dev.type == "cuda" else None),
+           "peak_mem_gb": t2["peak_mem_gb"],
            "last_path": A.LAST_PATH, "launches": launches}
     if profile:
-        out["profile"] = profile_steps(step, x, y, 3)
+        out["profile"] = profile_steps(step, x, y, 3, _GPT_GROUPS,
+                                       ("cross_entropy", "optimizer"))
     return out
 
 
-# device kernels by name: the flash kernels and cuBLAS's GEMMs
-_KERNEL_GROUPS = (("flash (K1/K2)", ("fa_fwd", "fa_bwd", "fa_delta")),
-                  ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "xmma")))
-# profiler ranges the port opens: nn/functional/loss.py (forward and
-# backward of the fused CE) and jit.TrainStep (clip + AdamW loop)
-_RANGES = ("cross_entropy", "optimizer")
+def run_resnet(warmup: int = 2, steps: int = 10, seed: int = 0,
+               built=None, profile: bool = False) -> dict:
+    """The ResNet-50 step: losses, step times, imgs/s and MFU over the
+    timed steps, peak device memory."""
+    model, step, x, y = built or build_resnet(seed)
+    dev = model.device
+    t = _time_steps(step, x, y, warmup, steps, dev)
+    ips = x.shape[0] * steps / t["timed_s"] if steps else None
+    out = {"model": "resnet50", "batch": int(x.shape[0]),
+           "image": list(x.shape[1:]), "losses": t["losses"],
+           "step_s": t["step_s"], "imgs_per_sec": ips,
+           "mfu": (ips * RESNET_FLOPS_PER_IMG / H100_BF16_FLOPS
+                   if ips and dev.type == "cuda" else None),
+           "peak_mem_gb": t["peak_mem_gb"]}
+    if profile:
+        out["profile"] = profile_steps(
+            step, x, y, 3, _RESNET_GROUPS,
+            ("batch_norm", "cross_entropy", "optimizer"))
+    return out
 
 
-def profile_steps(step, x, y, n: int = 3) -> dict:
+# device kernels by name: the flash kernels and cuBLAS's GEMMs (GPT);
+# cuDNN's convolutions and their layout transforms (ResNet)
+_GPT_GROUPS = (("flash (K1/K2)", ("fa_fwd", "fa_bwd", "fa_delta")),
+               ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "xmma")))
+_RESNET_GROUPS = (("conv (cuDNN)", ("xmma", "implicit", "cudnn", "wgrad",
+                                    "dgrad", "fprop", "cutlass", "convolve",
+                                    "conv2d", "nchwToNhwc", "nhwcToNchw")),)
+
+
+def profile_steps(step, x, y, n: int, kernel_groups, ranges) -> dict:
     """torch.profiler over n steps: wall, device busy time, idle share,
-    and device time by group: the flash kernels and the GEMMs by kernel
-    name, cross-entropy and the optimizer (global-norm clip + the AdamW
-    per-parameter loop) by the profiler ranges the port opens, and the
-    rest (LayerNorm, GELU, residual adds, casts, embedding); and each
+    and device time by group: kernels by name (`kernel_groups`), the
+    profiler ranges the port opens (`ranges`: the fused CE's, the batch
+    norms', and jit.TrainStep's clip + update loop), and the rest; each
     range's span on the device timeline (its kernels plus the idle gaps
-    between them)."""
+    between them); the 15 kernels with the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -153,18 +231,18 @@ def profile_steps(step, x, y, n: int = 3) -> dict:
     # shows on the device timeline as one row spanning its kernels and
     # the gaps between them)
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in _RANGES]
+            if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     spans = {r: sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA and e.key == r) / 1e6
-             for r in _RANGES}
-    groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
+             for r in ranges}
+    groups = {g: 0.0 for g, _ in kernel_groups}
     for e in rows:
-        for g, keys in _KERNEL_GROUPS:
+        for g, keys in kernel_groups:
             if any(k in e.key for k in keys):
                 groups[g] += e.self_device_time_total / 1e6
                 break
-    for r in _RANGES:
+    for r in ranges:
         groups[r] = sum(e.device_time_total for e in prof.events()
                         if e.name == r and e.device_type == DeviceType.CPU
                         ) / 1e6
@@ -179,6 +257,7 @@ def profile_steps(step, x, y, n: int = 3) -> dict:
 
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("gpt", "resnet50"), default="gpt")
     ap.add_argument("--heads", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
@@ -187,8 +266,12 @@ def main(argv: Optional[list] = None) -> int:
     args = ap.parse_args(argv)
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = run(args.heads, args.warmup, args.steps, args.seed,
-              profile=args.profile)
+    if args.model == "gpt":
+        res = run(args.heads, args.warmup, args.steps, args.seed,
+                  profile=args.profile)
+    else:
+        res = run_resnet(args.warmup, args.steps, args.seed,
+                         profile=args.profile)
     res["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(res))
     return 0

@@ -1,0 +1,4 @@
+"""vision of the port (paddle_tpu/vision): the model zoo's ResNets."""
+from . import models
+
+__all__ = ["models"]

@@ -23,9 +23,26 @@ PyTorch is installed:
   relative, and the inputs of the gradients' products differ by that);
 - a tiny GPT TrainStep on CUDA (through K1 and K2) against the same
   step on the CPU (through their plain versions): losses within 1e-4
-  relative over 3 steps, in f32.
+  relative over 3 steps, in f32;
+- K4 (ops/kernels/fused_conv) against its plain version at M 1, 97,
+  300, 512 and 6272, K 16 to 2048, N 16 to 512, with and without the
+  residual: each element within one bf16 ulp of the plain value plus
+  1e-3 of the output's rms (both round one f32 sum to bf16; the sums run
+  in different orders, which near a cancellation moves the f32 value by
+  more than a bf16 ulp of the small result); its launch counter and the
+  inputs it refuses;
+- the batch-norm autograd Functions (`_BNCore`, `_BNActCore` with no,
+  full and broadcast z) on the card in f32 against torch autograd of the
+  same formulas written as plain ops (within 1e-4 of each tensor's
+  largest entry: the statistics are summed in other orders) and against
+  the same Functions on the CPU (within 1e-5);
+- a ResNet-18 TrainStep (Momentum, batch 4 at 64x64, f32) on CUDA
+  against the same step on the CPU: losses within 1e-4 relative over 3
+  steps and running stats within 1e-4 of their largest entry; and one
+  AMP O2 step on CUDA: finite loss, bf16 parameters, f32 running stats.
 
-float32 matmuls run in full float32 (TF32 off, set by the fixture).
+float32 matmuls and convolutions run in full float32 (TF32 off for
+cuBLAS and cuDNN, set by the fixture).
 """
 import numpy as np
 import pytest
@@ -38,6 +55,8 @@ from paddle_tpu_torch.models import generation as gen
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.ops.kernels import flash_attention as k1
 from paddle_tpu_torch.ops.kernels import packed_flash as k2
+from paddle_tpu_torch.ops.kernels.fused_conv import (
+    fused_scale_relu_matmul, fused_scale_relu_matmul_reference)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_attention_reference, ragged_decode_attention)
 
@@ -49,6 +68,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -256,3 +276,135 @@ def test_train_step_cuda_matches_cpu(cuda, heads):
     finally:
         flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ------------------------------------------------------------------- K4
+def _k4_args(device, m, k, n, res, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g)
+    z = torch.randn(m, k, generator=g) if res else None
+    w = torch.randn(k, n, generator=g) / k ** 0.5
+    scale = torch.rand(k, generator=g) + 0.5
+    shift = torch.randn(k, generator=g) * 0.1
+    bf = [None if t is None else t.to(device, torch.bfloat16)
+          for t in (x, z, w)]
+    return (*bf, scale.to(device), shift.to(device))
+
+
+def _within_bf16_ulp(got, want, rms_frac=1e-3):
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+    rms = want.square().mean().sqrt()
+    excess = ((got - want).abs() - ulp).clamp_min(0).max()
+    return excess.item() <= rms_frac * rms.item()
+
+
+@pytest.mark.parametrize("m,k,n,res", [
+    (1, 16, 16, True), (97, 64, 256, False), (300, 48, 80, True),
+    (512, 256, 128, True), (6272, 2048, 512, True), (1000, 64, 256, False)])
+def test_k4_matches_plain(cuda, m, k, n, res):
+    args = _k4_args(cuda, m, k, n, res)
+    before = fused_scale_relu_matmul.launches
+    got = fused_scale_relu_matmul(*args)
+    torch.cuda.synchronize()
+    assert fused_scale_relu_matmul.launches == before + 1
+    want = fused_scale_relu_matmul_reference(*args)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _within_bf16_ulp(got, want)
+
+
+def test_k4_refuses_what_it_cannot_take(cuda):
+    x, z, w, scale, shift = _k4_args(cuda, 64, 64, 64, True)
+    with pytest.raises(ValueError):
+        fused_scale_relu_matmul(x.t(), z, w, scale, shift)   # not contiguous
+    with pytest.raises(ValueError):
+        fused_scale_relu_matmul(x, z.cpu(), w, scale, shift)
+    with pytest.raises(ValueError):
+        fused_scale_relu_matmul(x[:, :56].contiguous(), None,
+                                w[:56].contiguous(), scale[:56], shift[:56])
+    buf = torch.empty(64 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    odd = buf[1:1 + 64 * 64].view(64, 64)                   # 2-byte offset
+    odd.copy_(x)
+    with pytest.raises(ValueError):                         # misaligned
+        fused_scale_relu_matmul(odd, z, w, scale, shift)
+
+
+# ------------------------------------------------------------ batch norm
+def _bn_formula(x, z, weight, bias, eps):
+    """relu(bn(x) (+ z)) written as plain differentiable ops."""
+    mean = x.mean(dim=(0, 2, 3), keepdim=True)
+    var = (x - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+    out = ((x - mean) * torch.rsqrt(var + eps) * weight[None, :, None, None]
+           + bias[None, :, None, None])
+    return out if z is False else torch.relu(out if z is None else out + z)
+
+
+@pytest.mark.parametrize("fused,z_shape", [
+    (False, None), (True, None), (True, (8, 16, 6, 5)), (True, (1, 16, 1, 1))])
+def test_bn_functions_on_card(cuda, fused, z_shape):
+    from paddle_tpu_torch.nn.functional.norm import _BNActCore, _BNCore
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 16, 6, 5, generator=g) * 2 + 0.5
+    w = torch.rand(16, generator=g) + 0.5
+    b = torch.randn(16, generator=g)
+    gy = torch.randn(8, 16, 6, 5, generator=g)
+    z = None if z_shape is None else torch.randn(*z_shape, generator=g)
+    results = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in (x, w, b) + (() if z is None else (z,))]
+        lx, lw, lb = leaves[:3]
+        lz = leaves[3] if z is not None else None
+        if fused:
+            out = _BNActCore.apply(lx, lz, lw, lb, 1e-5, 1)[0]
+        else:
+            out = _BNCore.apply(lx, lw, lb, 1e-5, 1)[0]
+        grads = torch.autograd.grad(out, leaves, gy.to(dev))
+        results[str(dev)] = [out.detach().cpu()] + [t.cpu() for t in grads]
+        if dev == cuda:
+            want_out = _bn_formula(lx, lz if fused else False, lw, lb, 1e-5)
+            want = [want_out] + list(torch.autograd.grad(
+                want_out, leaves, gy.to(dev)))
+            for a, e in zip(results[str(dev)], want):
+                e = e.detach().cpu()
+                assert (a - e).abs().max() <= 1e-4 * e.abs().max()
+    for a, e in zip(results[str(cuda)], results["cpu"]):
+        assert (a - e).abs().max() <= 1e-5 * e.abs().max()
+
+
+# ------------------------------------------------------- ResNet TrainStep
+def test_resnet_train_step_cuda_matches_cpu(cuda):
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    def loss_fn(m, x, y):
+        return cross_entropy(m(x), y)
+
+    rng = np.random.RandomState(6)
+    x = rng.randn(4, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, (4, 1)).astype(np.int64)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = resnet18(num_classes=10, device=dev, seed=3)
+        step = jit.TrainStep(model, loss_fn, Momentum(
+            0.01, parameters=model.parameters()))
+        losses = [step(x, y).item() for _ in range(3)]
+        runs[str(dev)] = (losses, {k: b.cpu() for k, b in
+                                   model.named_buffers()})
+    np.testing.assert_allclose(runs[str(cuda)][0], runs["cpu"][0],
+                               rtol=1e-4, atol=0)
+    for k, b in runs["cpu"][1].items():
+        got = runs[str(cuda)][1][k]
+        assert (got - b).abs().max() <= 1e-4 * b.abs().max(), k
+
+    model = resnet18(num_classes=10, device=cuda, seed=3)
+    optim = Momentum(0.1, parameters=model.parameters())
+    model, optim = amp.decorate(model, optim, level="O2", dtype="bfloat16")
+    step = jit.TrainStep(model, loss_fn, optim)
+    loss = step(torch.from_numpy(x).to(cuda, torch.bfloat16), y).item()
+    assert np.isfinite(loss)
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    assert all(b.dtype == torch.float32 for b in model.buffers())
