@@ -10,7 +10,10 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 2. build every CUDA kernel from this checkout's sources (K3 of the
    serving path, K1/K2 of the GPT train step, K4 of the ResNet block
    boundary; one nvcc per source, started together) and print what
-   `ptxas -v` reports;
+   `ptxas -v` reports (for the flash kernels: registers and spills of
+   each), and the count of wgmma (HGMMA) and TMA / cp.async loads
+   (UTMALDG / LDGSTS) in the SASS of the bf16 flash kernels, which must
+   have both;
 3. hold K3 against its plain PyTorch version on the card at the shapes
    the serving path gives it (f32 within 1e-5, bf16 within 1e-2);
 4. time K3, its plain version and the one-call PyTorch yardstick
@@ -28,7 +31,8 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    pairs) against their plain versions at the train step's attention
    shape (B 32, T 1024, causal): out, lse, dq, dk and dv in f32 and in
    bf16, each held to the limits of FLASH_TOL (relative L2 error, and
-   per element against one bf16 ulp of the plain value);
+   per element against one bf16 ulp of the plain value; the bf16 limits
+   derived from the TPU reference kernels' own error);
 8. their forward and backward timed with CUDA events at that shape
    (bf16, cold L2) beside the plain versions, the
    F.scaled_dot_product_attention(is_causal=True) yardstick (forward,
@@ -72,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -104,16 +109,94 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------ phase 2
+def kernel_label(mangled: str) -> str:
+    """'fa_fwd_bf16_kernel<128>' or 'fa_delta_kernel<f32, 64>' from a
+    mangled flash kernel name."""
+    m = re.search(r"(fa_(?:fwd|bwd|delta)\w*?_kernel)I(.*?)EE", mangled)
+    if m is None:
+        return mangled
+    name, args = m.groups()
+    dtype = ("bf16, " if "bfloat16" in args
+             else "f32, " if args.startswith("f") else "")
+    return f"{name}<{dtype}{','.join(re.findall(r'Li(\d+)E', args + 'E'))}>"
+
+
+def ptxas_table(report: str) -> dict:
+    """{mangled entry: (registers, spill store bytes, spill load bytes)}
+    from a `ptxas -v` report."""
+    out, entry, spill = {}, None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), *spill)
+            entry = None
+    return out
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
+
+
+def sass_counts(library: str) -> dict:
+    """{mangled kernel: {op: count}} for SASS_OPS, from cuobjdump's
+    disassembly of a built library."""
+    from paddle_tpu_torch.ops.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", library],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    out[name][op] += 1
+    return out
+
+
 def build_kernels() -> None:
+    """Build every kernel; print what ptxas reports, and for the flash
+    kernels each one's registers and spills and, in the bf16 ones, the
+    count of wgmma (HGMMA) and of TMA (UTMALDG) / cp.async (LDGSTS)
+    loads in their SASS. Fails if a bf16 forward or backward kernel
+    issues no wgmma or loads its tiles by neither route."""
     from paddle_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     reports = _build.build()
     print(f"[build] {len(reports)} kernel(s) in "
           f"{time.perf_counter() - t0:.1f} s: {', '.join(reports)}")
     for name, report in reports.items():
+        if name == "flash_attention":
+            continue
         for line in report.splitlines():
             if "ptxas" in line:
                 print(f"[build] {name}: {line.strip()}")
+    for entry, (regs, st, ld) in sorted(
+            ptxas_table(reports["flash_attention"]).items(),
+            key=lambda kv: kernel_label(kv[0])):
+        print(f"[build] flash_attention: {kernel_label(entry)}: {regs} "
+              f"registers, spill stores {st} B, spill loads {ld} B")
+    counts = sass_counts(str(_build.library_path("flash_attention")))
+    hopper = {kernel_label(k): c for k, c in counts.items()
+              if "bf16_kernel" in k}
+    for label, c in sorted(hopper.items()):
+        print(f"[build] SASS {label}: " + ", ".join(
+            f"{op} {n}" for op, n in c.items()))
+    _require(len(hopper) == 6, f"bf16 flash kernels in the SASS: "
+                               f"{sorted(hopper)}")
+    for label, c in hopper.items():
+        _require(c["HGMMA"] > 0 and c["UTMALDG"] + c["LDGSTS"] > 0,
+                 f"{label} lacks wgmma or asynchronous loads: {c}")
 
 
 # ------------------------------------------------------------ phase 3-4
@@ -301,60 +384,193 @@ def flash_inputs(kernel, b, dtype, device, seed):
 
 
 # agreement limits per tensor. f32: relative L2 error and max |err| over
-# max |w|. bf16, where kernel and plain version each round an f32 result
-# once, so a sound element differs by about one bf16 ulp (2^-7 of its
-# magnitude) at most: relative L2 error, and the worst excess of |err|
-# over one ulp of |w| in units of the tensor's rms. dq and dk get wider
-# bf16 limits: the kernel's delta = rowsum(do * o) reads the bf16 output,
-# as FA2 does, while the plain version's autograd uses the f32 one (a
-# plain FA2 backward with that delta reads the same errors on the CPU)
+# max |w|. bf16: relative L2 error, and the worst excess of |err| over
+# one bf16 ulp of |w| in units of the tensor's rms. The plain version
+# keeps P and dS in f32; the kernels, like the TPU kernels, round them to
+# bf16 before the products that take them, and delta = rowsum(do * o)
+# reads the bf16 output, as FA2 does. So the bf16 limits come from the
+# reference's own error: FLASH_REF_MARGIN times the reading of the
+# reference's arithmetic against the plain version, cut to two
+# significant digits, and never below the limit each had before
+# (_BF16_FLOOR). The reference kernels are the JAX package's Pallas K1
+# (`_fa_core`) and K2 (`packed_flash_attention`); they run only in
+# interpret mode on a CPU, where [1, 2, 256, 128] is their largest
+# practical shape (FLASH_PALLAS_READINGS). The excess is a maximum over
+# elements and grows with their count (B 32 x 6 heads here against 1 x
+# 2 there: the Pallas readings fell under the check's readings by up to
+# 4x), so the limits are taken at the check's own shape and inputs from
+# reference_rounding, the reference's rounding points in plain PyTorch
+# (FLASH_REF_READINGS, phase 7 on the H100). tests/
+# test_torch_flash_attention.py recomputes the Pallas readings, holds
+# reference_rounding to them where both run, and checks each limit's
+# derivation; phase 7 requires reference_rounding's readings within the
+# limits on every run. lse is f32 in every version.
 _F32_TOL = dict(l2=1e-5, peak=1e-4)
-_BF16_TIGHT = dict(l2=5e-4, excess=1e-3)
-_BF16_DELTA = dict(l2=4e-3, excess=0.5)
+FLASH_REF_MARGIN = 2
+FLASH_PALLAS_READINGS = {
+    "k1": {"out": dict(l2=2.434e-3, excess=9.789e-3),
+           "lse": dict(l2=3.357e-8, excess=0.0),
+           "dq": dict(l2=2.663e-3, excess=1.761e-2),
+           "dk": dict(l2=2.713e-3, excess=2.458e-2),
+           "dv": dict(l2=2.440e-3, excess=1.412e-2)},
+    "k2": {"out": dict(l2=2.012e-3, excess=8.434e-3),
+           "lse": dict(l2=3.518e-8, excess=0.0),
+           "dq": dict(l2=2.669e-3, excess=1.505e-2),
+           "dk": dict(l2=2.593e-3, excess=1.598e-2),
+           "dv": dict(l2=2.448e-3, excess=2.021e-2)}}
+# reference_rounding at B 32, T 1024, causal, --seed 0 (NVIDIA H100 80GB
+# HBM3, 700 W)
+FLASH_REF_READINGS = {
+    "k1": {"out": dict(l2=2.095e-3, excess=1.966e-2),
+           "lse": dict(l2=0.0, excess=0.0),
+           "dq": dict(l2=2.759e-3, excess=9.071e-2),
+           "dk": dict(l2=2.726e-3, excess=8.992e-2),
+           "dv": dict(l2=2.531e-3, excess=6.073e-2)},
+    "k2": {"out": dict(l2=2.091e-3, excess=2.088e-2),
+           "lse": dict(l2=0.0, excess=0.0),
+           "dq": dict(l2=2.784e-3, excess=9.804e-2),
+           "dk": dict(l2=2.734e-3, excess=1.411e-1),
+           "dv": dict(l2=2.530e-3, excess=8.341e-2)}}
+_BF16_FLOOR = {"out": dict(l2=5e-4, excess=1e-3),
+               "lse": dict(l2=1e-6, excess=1e-3),
+               "dq": dict(l2=4e-3, excess=0.5),
+               "dk": dict(l2=4e-3, excess=0.5),
+               "dv": dict(l2=5e-4, excess=1e-3)}
+FLASH_NAMES = ("out", "lse", "dq", "dk", "dv")
 FLASH_TOL = {
-    "float32": dict.fromkeys(("out", "lse", "dq", "dk", "dv"), _F32_TOL),
-    "bfloat16": {"out": _BF16_TIGHT, "lse": dict(l2=1e-6, excess=1e-3),
-                 "dq": _BF16_DELTA, "dk": _BF16_DELTA, "dv": _BF16_TIGHT}}
+    "float32": {kernel: dict.fromkeys(FLASH_NAMES, _F32_TOL)
+                for kernel in ("k1", "k2")},
+    "bfloat16": {
+        "k1": {"out": dict(l2=4.1e-3, excess=3.9e-2),
+               "lse": dict(l2=1e-6, excess=1e-3),
+               "dq": dict(l2=5.5e-3, excess=0.5),
+               "dk": dict(l2=5.4e-3, excess=0.5),
+               "dv": dict(l2=5.0e-3, excess=0.12)},
+        "k2": {"out": dict(l2=4.1e-3, excess=4.1e-2),
+               "lse": dict(l2=1e-6, excess=1e-3),
+               "dq": dict(l2=5.5e-3, excess=0.5),
+               "dk": dict(l2=5.4e-3, excess=0.5),
+               "dv": dict(l2=5.0e-3, excess=0.16)}}}
 
 
-def check_flash(kernel, device, seed: int) -> dict:
-    """Kernel vs plain at the train step's shape (B 32): out, lse, dq, dk
-    and dv in f32 and in bf16, the main path's dtype. Returns bf16 max
-    |err| of the forward (out, lse) and of the backward (dq, dk, dv)."""
+def reference_rounding(q, k, v, do, causal: bool, scale: float):
+    """The TPU reference kernels' bf16 arithmetic in plain PyTorch over
+    heads-major bf16 [B, H, T, D]: f32 scores and softmax; P (against the
+    row max) rounded to bf16 before P V; the output rounded to bf16 and
+    delta = rowsum(do * o) read from it; P = exp(s - lse) and
+    dS = P (dP - delta) scale rounded to bf16 before dV = P^T dO,
+    dK = dS^T Q and dQ = dS K. Returns (out, lse, dq, dk, dv). It stands
+    in for the Pallas kernels, which run only in interpret mode on a CPU,
+    at the chip check's shape; tests/test_torch_flash_attention.py holds
+    it to their readings where both run."""
+    import torch
+    bf = torch.bfloat16
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = qf @ kf.transpose(-1, -2) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    out = ((e.to(bf).float() @ vf) / l).to(bf)
+    del e
+    lse = (m + l.log()).squeeze(-1)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    del s
+    delta = (out.float() * dof).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+    dv = (p.to(bf).float().transpose(-1, -2) @ dof).to(bf)
+    del p
+    dsb = ds.to(bf).float()
+    del ds
+    return (out, lse, (dsb @ kf).to(bf),
+            (dsb.transpose(-1, -2) @ qf).to(bf), dv)
+
+
+def _reference_rounding_of(kernel, q, k, v, do, scale):
+    """reference_rounding on K1's heads-major or K2's packed tensors."""
+    if kernel == "k1":
+        return reference_rounding(q, k, v, do, True, scale)
+    from paddle_tpu_torch.ops.kernels.packed_flash import _repack, _unpack
+    out, lse, dq, dk, dv = reference_rounding(
+        *(_unpack(t) for t in (q, k, v, do)), True, scale)
+    B, Hp, T = q.shape[0], q.shape[1], q.shape[2]
+    return (_repack(out), lse.reshape(B, Hp, 2, T), _repack(dq),
+            _repack(dk), _repack(dv))
+
+
+def flash_readings(kernel, dtype, device, seed: int):
+    """At the train step's shape (B 32, causal): {tensor: agreement} of
+    the kernel with the plain version for out, lse, dq, dk and dv, and in
+    bf16 also of reference_rounding with the plain version (else None)."""
     import torch
     from paddle_tpu_torch.tools.measure import agreement
     fwd, bwd, ref = _flash_fns(kernel)
     sc = FLASH[kernel]["scale"]
+    q, k, v, do = flash_inputs(kernel, TRAIN_B, dtype, device, seed)
+    o, lse = fwd(q, k, v, True, sc)
+    got = (o, lse, *bwd(q, k, v, o, lse, do, True, sc))
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ro, rlse = ref(qr, kr, vr, True, sc, return_lse=True)
+    want = (ro.detach(), rlse.detach(),
+            *torch.autograd.grad(ro, (qr, kr, vr), do))
+    del ro, rlse, qr, kr, vr
+    stats = {}
+    for name, a, w in zip(FLASH_NAMES, got, want):
+        _require(a.shape == w.shape and a.dtype == w.dtype,
+                 f"{kernel} {name}: {a.shape}/{a.dtype} vs "
+                 f"{w.shape}/{w.dtype}")
+        stats[name] = agreement(a, w)
+    del got
+    emulated = None
+    if dtype == torch.bfloat16:
+        emu = _reference_rounding_of(kernel, q, k, v, do, sc)
+        emulated = {name: agreement(a, w)
+                    for name, a, w in zip(FLASH_NAMES, emu, want)}
+        del emu
+    del want, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return stats, emulated
+
+
+def _over(stats: dict, tol: dict) -> list:
+    return [f"{name} {m} {stats[name][m]:.3e} > {lim:g}"
+            for name in FLASH_NAMES for m, lim in tol[name].items()
+            if stats[name][m] > lim]
+
+
+def _line(stats: dict) -> str:
+    return "; ".join(f"{n} l2 {st['l2']:.3e} abs {st['abs']:.2e} peak "
+                     f"{st['peak']:.1e} excess {st['excess']:.3e}"
+                     for n, st in stats.items())
+
+
+def check_flash(kernel, device, seed: int) -> dict:
+    """Kernel vs plain at the train step's shape (B 32): out, lse, dq, dk
+    and dv in f32 and in bf16, the main path's dtype, to FLASH_TOL; in
+    bf16 the reference rounding's own readings must lie within the limits
+    too (they were derived from them). Returns bf16 max |err| of the
+    forward (out, lse) and of the backward (dq, dk, dv)."""
+    import torch
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
-        tol = FLASH_TOL[dname]
-        q, k, v, do = flash_inputs(kernel, TRAIN_B, dtype, device, seed)
-        o, lse = fwd(q, k, v, True, sc)
-        got = (o, lse, *bwd(q, k, v, o, lse, do, True, sc))
-        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-        ro, rlse = ref(qr, kr, vr, True, sc, return_lse=True)
-        want = (ro.detach(), rlse.detach(),
-                *torch.autograd.grad(ro, (qr, kr, vr), do))
-        del ro, rlse, qr, kr, vr
-        stats, bad = {}, []
-        for name, a, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
-            _require(a.shape == w.shape and a.dtype == w.dtype,
-                     f"{kernel} {name}: {a.shape}/{a.dtype} vs "
-                     f"{w.shape}/{w.dtype}")
-            stats[name] = agreement(a, w)
-            bad += [f"{name} {m} {stats[name][m]:.3e} > {lim:g}"
-                    for m, lim in tol[name].items() if stats[name][m] > lim]
+        tol = FLASH_TOL[dname][kernel]
+        stats, emulated = flash_readings(kernel, dtype, device, seed)
         print(f"[{kernel}] kernel vs plain, {dname}, B {TRAIN_B} T "
-              f"{TRAIN_T} causal (limits FLASH_TOL): " + "; ".join(
-                  f"{n} l2 {st['l2']:.2e} abs {st['abs']:.2e} peak "
-                  f"{st['peak']:.1e} excess {st['excess']:.2e}"
-                  for n, st in stats.items()))
-        _require(not bad, f"{kernel} disagrees with its plain version in "
-                          f"{dname}: {bad}")
+              f"{TRAIN_T} causal (limits FLASH_TOL): {_line(stats)}")
+        _require(not _over(stats, tol), f"{kernel} disagrees with its plain "
+                                        f"version in {dname}: "
+                                        f"{_over(stats, tol)}")
+        if emulated is not None:
+            print(f"[{kernel}] reference rounding vs plain, {dname} "
+                  f"(FLASH_REF_READINGS): {_line(emulated)}")
+            _require(not _over(emulated, tol),
+                     f"{kernel}: the reference rounding's readings exceed "
+                     f"the limits derived from them: {_over(emulated, tol)}")
         errs = {"fwd": max(stats[n]["abs"] for n in ("out", "lse")),
                 "bwd": max(stats[n]["abs"] for n in ("dq", "dk", "dv"))}
-        del got, want, q, k, v, do, o, lse
-        torch.cuda.empty_cache()
     return errs
 
 

@@ -9,10 +9,12 @@ dv in the inputs' dtype.
 Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
 `_fa_core:176` / `_fa_fwd:186` / `_fa_bwd:203` (jax's upstream Pallas
 TPU flash kernel, public entry `flash_attention:243`) with the
-hand-written CUDA kernels of csrc/flash_attention.cu; its header says
-what bounds them and what the simple design leaves for later. The same
-source, at head dim 64 on the packed-pair layout, is kernel K2
-(packed_flash.py).
+hand-written CUDA kernels of csrc/flash_attention.cu: in bf16,
+warp-specialised Hopper kernels (TMA rings in shared memory feeding
+wgmma, P and dS rounded to bf16 where the TPU kernels round them); in
+f32, SIMT kernels. Its header says what bounds them and what the design
+still leaves. The same source, at head dim 64 on the packed-pair
+layout, is kernel K2 (packed_flash.py).
 
 `flash_attention_reference` is the plain PyTorch version: composed f32
 softmax attention with masked scores at -1e30 (the JAX package's `_sdpa`
@@ -42,7 +44,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64          # the kernels' q/kv tile rows
+_TILE = 128         # the bf16 kernels' q/kv tile rows (f32's divide it)
 
 
 def supported(q_seq: int, kv_seq: int, head_dim: int) -> bool:
@@ -90,10 +92,11 @@ def _layout(t: torch.Tensor, hsplit: int) -> Tuple[int, ...]:
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """The kernels move 16 bytes per thread: d contiguous, every other
-    stride a multiple of 8 elements, base 16-byte aligned. A tensor that
-    is not so (a gradient arriving with odd strides) is copied into a
-    contiguous one; the kernel runs either way."""
+    """The kernels move 16 bytes at a time (the f32 ones per thread, the
+    bf16 ones through TMA tensor maps): d contiguous, every other stride a
+    multiple of 8 elements, base 16-byte aligned. A tensor that is not so
+    (a gradient arriving with odd strides) is copied into a contiguous
+    one; the kernel runs either way."""
     ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
           and t.data_ptr() % 16 == 0)
     return t if ok else t.contiguous()
@@ -152,7 +155,7 @@ def launch_fwd(q, k, v, causal: bool, scale: float, hsplit: int = 1):
             int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention forward launch failed: "
-                           f"cudaError {err}")
+                           f"{_error(err)}")
     return o, lse
 
 
@@ -182,8 +185,14 @@ def launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
             float(scale), int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
-                           f"cudaError {err}")
+                           f"{_error(err)}")
     return dq, dk, dv
+
+
+def _error(err: int) -> str:
+    return {-2: "cuTensorMapEncodeTiled is unavailable",
+            -3: "an operand's TMA tensor map was refused"}.get(
+                err, f"cudaError {err}")
 
 
 def _on_cpu(*tensors) -> bool:

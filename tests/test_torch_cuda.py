@@ -21,6 +21,8 @@ PyTorch is installed:
   1e-4 of each tensor's largest entry: blocked sums in another order)
   and bf16 (within 2e-2: both round f32 results to bf16, 2**-8
   relative, and the inputs of the gradients' products differ by that);
+  also non-causal K1 with Tq != Tk, a grid of 8-16 CTAs (fewer than the
+  132 SMs), and bitwise-equal bf16 gradients from two runs (no atomics);
 - a tiny GPT TrainStep on CUDA (through K1 and K2) against the same
   step on the CPU (through their plain versions): losses within 1e-4
   relative over 3 steps, in f32;
@@ -187,12 +189,17 @@ def _rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def _flash_case(kernel, cuda, T, causal, dtype, seed=0):
-    """(kernel outputs, plain outputs) for out, lse, dq, dk, dv."""
-    b, h, d = 2, 2, 64 if kernel == "k1_d64" else 128
+def _flash_inputs(kernel, cuda, T, dtype, seed=0, b=2, h=2, tk=None):
+    d = 64 if kernel == "k1_d64" else 128
     g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(b, h, T, d, generator=g).to(cuda, dtype)
-                   for _ in range(4))
+    return [torch.randn(b, h, n, d, generator=g).to(cuda, dtype)
+            for n in (T, tk or T, tk or T, T)]
+
+
+def _flash_case(kernel, cuda, T, causal, dtype, seed=0, b=2, h=2, tk=None):
+    """(kernel outputs, plain outputs) for out, lse, dq, dk, dv."""
+    q, k, v, do = _flash_inputs(kernel, cuda, T, dtype, seed, b, h, tk)
+    d = q.shape[-1]
     if kernel.startswith("k1"):
         fwd, bwd, ref = (k1.flash_attention_fwd, k1.flash_attention_bwd,
                          k1.flash_attention_reference)
@@ -219,10 +226,53 @@ def _flash_case(kernel, cuda, T, causal, dtype, seed=0):
                                        (torch.bfloat16, 2e-2)])
 def test_flash_kernels_match_plain(cuda, kernel, T, causal, dtype, tol):
     got, want = _flash_case(kernel, cuda, T, causal, dtype)
+    _assert_flash_close(got, want, tol)
+
+
+def _assert_flash_close(got, want, tol):
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.isfinite(a.float()).all(), name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tq,tk", [(256, 640), (640, 256)])
+def test_flash_k1_query_and_key_lengths_differ(cuda, tq, tk, dtype, tol):
+    """Non-causal K1 with Tq != Tk, which `supported` admits."""
+    got, want = _flash_case("k1", cuda, tq, False, dtype, tk=tk)
+    _assert_flash_close(got, want, tol)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k1_d64", "k2"])
+def test_flash_kernels_with_fewer_ctas_than_sms(cuda, kernel):
+    """B * H * (T / 128) = 8 CTAs a kernel (16 for K2's two packed
+    heads), far under the H100's 132 SMs: the tile loops and rings do
+    not depend on a full grid."""
+    got, want = _flash_case(kernel, cuda, 1024, True, torch.bfloat16, b=1,
+                            h=1)
+    _assert_flash_close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k1_d64", "k2"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_gradients_are_deterministic(cuda, kernel, causal):
+    """dq and dk/dv come from separate kernels that each write their
+    outputs once (no atomics): the same inputs give bitwise-equal
+    gradients."""
+    q, k, v, do = _flash_inputs(kernel, cuda, 640, torch.bfloat16, seed=3)
+    if kernel.startswith("k1"):
+        fwd, bwd, scale = (k1.flash_attention_fwd, k1.flash_attention_bwd,
+                           1.0 / q.shape[-1] ** 0.5)
+    else:
+        fwd, bwd, scale = k2.packed_flash_fwd, k2.packed_flash_bwd, 0.125
+    o, lse = fwd(q, k, v, causal, scale)
+    first = bwd(q, k, v, o, lse, do, causal, scale)
+    second = bwd(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_kernel_reads_strided_views(cuda):

@@ -14,6 +14,16 @@ chip_smoke.py.
 Tolerance: float32, 2e-5 relative to each tensor's largest entry (the
 kernels sum blocks of the softmax and of the products in another order
 than the plain version; measured differences are a few 1e-7).
+
+In bf16 the same Pallas kernels anchor the CUDA kernels' bf16 limits
+(chip_smoke.FLASH_TOL): their agreement with the port's f32 plain
+versions on bf16 inputs at [1, 2, 256, 128], by tools/measure.agreement.
+The chip check runs at B 32, where the per-element maximum grows, so its
+limits come from chip_smoke.reference_rounding (the reference's rounding
+points in plain PyTorch) read at that shape; here the test recomputes the
+Pallas readings, holds reference_rounding to them, and checks that each
+limit lies between its chip reading and FLASH_REF_MARGIN times it (or at
+the limit it had before, which no limit goes below).
 """
 import math
 
@@ -28,12 +38,13 @@ import paddle_tpu as paddle
 from paddle_tpu.core import flags as jflags
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas import packed_flash as jpf
-from paddle_tpu.ops.pallas.flash_attention import _fa_core
+from paddle_tpu.ops.pallas.flash_attention import _fa_core, _fa_fwd
 
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.nn.functional import attention as A
 from paddle_tpu_torch.ops.kernels import flash_attention as k1
 from paddle_tpu_torch.ops.kernels import packed_flash as k2
+from paddle_tpu_torch.tools.measure import agreement
 
 TOL = 2e-5
 
@@ -176,3 +187,99 @@ def test_k2_is_k1_on_unpacked_heads():
             torch.testing.assert_close(out[:, pair:pair + 1, :, sl], o1)
             torch.testing.assert_close(lse[:, pair, half], l1[:, 0])
     assert k2.packed_flash_fwd.launches == 0
+
+
+def _bf16_inputs(seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(1, 2, 256, 128).astype(np.float32) for _ in range(4)]
+
+
+def _against_plain(kernel, causal, scale, got, arrs):
+    """{tensor: agreement} of (out, lse, dq, dk, dv) with the port's f32
+    plain version on the same bf16 inputs."""
+    ref = (k1.flash_attention_reference if kernel == "k1"
+           else k2.packed_flash_reference)
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    qr, kr, vr = (t.requires_grad_(True) for t in ts[:3])
+    ro, rlse = ref(qr, kr, vr, causal, scale, return_lse=True)
+    want = (ro, rlse, *torch.autograd.grad(ro, (qr, kr, vr), ts[3]))
+    return {n: agreement(g, w.detach()) for n, g, w in zip(
+        ("out", "lse", "dq", "dk", "dv"), got, want)}
+
+
+def _bf16_readings(kernel, causal):
+    """The Pallas reference kernel against the port's f32 plain version
+    on bf16 inputs at [1, 2, 256, 128] (K2: each row one packed pair of
+    heads of 64)."""
+    arrs = _bf16_inputs()
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    scale = 1.0 / math.sqrt(128 if kernel == "k1" else 64)
+    with pltpu.force_tpu_interpret_mode():
+        if kernel == "k1":
+            def fn(a, b, c):
+                return _fa_core(a, b, c, causal, scale)
+            _, res = _fa_fwd(jq, jk, jv, causal, scale)
+            lse = res[7] + jnp.log(res[6])             # m + log(l)
+        else:
+            def fn(a, b, c):
+                return jpf.packed_flash_attention(a, b, c, causal, scale)
+            _, lse = jpf._fwd_call(jq, jk, jv, causal, scale, with_lse=True)
+        out, vjp = jax.vjp(fn, jq, jk, jv)
+        grads = vjp(jdo)
+    got = [torch.from_numpy(np.array(g.astype(jnp.float32)))
+           for g in (out, lse, *grads)]
+    return _against_plain(kernel, causal, scale, got, arrs)
+
+
+def _emulated_readings(kernel, causal):
+    """chip_smoke.reference_rounding (the reference's rounding points in
+    plain PyTorch) on the same inputs, against the same plain version."""
+    import chip_smoke
+    arrs = _bf16_inputs()
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    scale = 1.0 / math.sqrt(128 if kernel == "k1" else 64)
+    if kernel == "k1":
+        got = chip_smoke.reference_rounding(*ts, causal, scale)
+    else:
+        out, lse, dq, dk, dv = chip_smoke.reference_rounding(
+            *(k2._unpack(t) for t in ts), causal, scale)
+        got = (k2._repack(out), lse.reshape(1, 2, 2, 256), k2._repack(dq),
+               k2._repack(dk), k2._repack(dv))
+    return _against_plain(kernel, causal, scale, got, arrs)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_limits_derive_from_reference_kernels(kernel, causal):
+    """Each bf16 limit of chip_smoke.FLASH_TOL holds the Pallas reference
+    kernel's own reading; reference_rounding, which gives the readings at
+    the chip check's shape, reproduces the Pallas readings here (relative
+    L2 within 25 %, the excess, a maximum and noisier, within 2x; lse
+    aside: reference_rounding keeps the plain f32 lse); at the causal
+    mask, where the limits were derived (the chip check's), each limit is
+    at least its chip reading and at most FLASH_REF_MARGIN <= 2 times it,
+    or the limit it had before, and the pinned Pallas reading is this
+    one."""
+    import chip_smoke
+    assert chip_smoke.FLASH_REF_MARGIN <= 2
+    pallas = _bf16_readings(kernel, causal)
+    emulated = _emulated_readings(kernel, causal)
+    for name, limits in chip_smoke.FLASH_TOL["bfloat16"][kernel].items():
+        for metric, limit in limits.items():
+            got = pallas[name][metric]
+            assert got <= limit, (name, metric, got, limit)
+            if name != "lse":
+                ratio = emulated[name][metric] / got
+                lo, hi = (0.8, 1.25) if metric == "l2" else (0.5, 2.0)
+                assert lo <= ratio <= hi, (name, metric, ratio)
+            if not causal:
+                continue
+            floor = chip_smoke._BF16_FLOOR[name][metric]
+            chip = chip_smoke.FLASH_REF_READINGS[kernel][name][metric]
+            assert limit >= floor, (name, metric)
+            assert chip <= limit, (name, metric, chip, limit)
+            assert (limit <= chip_smoke.FLASH_REF_MARGIN * chip
+                    or limit == floor), (name, metric, chip, limit)
+            pinned = chip_smoke.FLASH_PALLAS_READINGS[kernel][name][metric]
+            assert got == pytest.approx(pinned, rel=0.05, abs=1e-9), \
+                (name, metric, got, pinned)
