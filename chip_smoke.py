@@ -13,11 +13,15 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    `ptxas -v` reports (for the flash kernels: registers and spills of
    each), and the count of wgmma (HGMMA) and TMA / cp.async loads
    (UTMALDG / LDGSTS) in the SASS of the bf16 flash kernels, which must
-   have both;
-3. hold K3 against its plain PyTorch version on the card at the shapes
-   the serving path gives it (f32 within 1e-5, bf16 within 1e-2);
+   have both; for K3 each instance's registers, spills and shared
+   memory;
+3. hold K3 against both plain PyTorch versions (the one-pass stream
+   and the kernel's split-and-merge order) on the card at the shapes the
+   serving path gives it (f32 within 1e-5, bf16 within 1e-2; the dead
+   row exact zeros);
 4. time K3, its plain version and the one-call PyTorch yardstick
-   with CUDA events, cold L2, beside the bytes/operations bound;
+   with CUDA events, cold L2, beside the bytes/operations bound, at the
+   mixed lengths of phase 3 and at full context (8 rows of 1024);
 5. one full-width paged_decode_step through the kernel against the dense
    decode_step, logits within 1e-4 * max|logit|;
 6. the serving engine at the full width of the serving bench (GPT 768
@@ -82,18 +86,20 @@ import sys
 import time
 from pathlib import Path
 
+from paddle_tpu_torch.tools.engine_bench import K3_SHAPE
+from paddle_tpu_torch.tools.measure import K3_MIXED_LENGTHS
+
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor
 # FLOP/s, bf16 dense tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
-# the serving slice's kernel shapes: the engine's max_num_seqs rows, the
-# model's heads and head_dim, the engine's block size and pool, and
-# max_seq_len / block_size table columns
-N, H, D, BS, NB = 8, 6, 128, 32, 512
-MB = 1024 // BS
-LENGTHS = (0, 1, 31, 32, 33, 300, 1023, 1024)
+# the serving slice's kernel shapes, those of the engine that phase 6
+# drives: max_num_seqs rows, the model's heads and head_dim, the engine's
+# block size and pool, and max_seq_len / block_size table columns
+N, H, D, BS, NB, MB = K3_SHAPE
+LENGTHS = K3_MIXED_LENGTHS
 
 
 def _require(ok: bool, what: str) -> None:
@@ -122,8 +128,8 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_table(report: str) -> dict:
-    """{mangled entry: (registers, spill store bytes, spill load bytes)}
-    from a `ptxas -v` report."""
+    """{mangled entry: (registers, spill store bytes, spill load bytes,
+    static shared memory bytes)} from a `ptxas -v` report."""
     out, entry, spill = {}, None, (0, 0)
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -136,7 +142,9 @@ def ptxas_table(report: str) -> dict:
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            out[entry] = (int(m.group(1)), *spill)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry] = (int(m.group(1)), *spill,
+                          int(smem.group(1)) if smem else 0)
             entry = None
     return out
 
@@ -181,7 +189,17 @@ def build_kernels() -> None:
         for line in report.splitlines():
             if "ptxas" in line:
                 print(f"[build] {name}: {line.strip()}")
-    for entry, (regs, st, ld) in sorted(
+    for entry, (regs, st, ld, smem) in sorted(
+            ptxas_table(reports["ragged_paged_attention"]).items()):
+        dtype = "bf16" if "bfloat16" in entry else "f32"
+        dmax = 32 * int(re.search(r"ragged_split_kernelI\w+?Li(\d+)E",
+                                  entry).group(1))
+        ring = (f" + the ring's {k3_ring_bytes(4 if dtype == 'f32' else 2)}"
+                f" B dynamic at D {D}, block {BS}" if dmax == D else "")
+        print(f"[build] ragged_paged_attention: ragged_split_kernel<{dtype}, "
+              f"D <= {dmax}>: {regs} registers, spill stores {st} B, spill "
+              f"loads {ld} B, static shared memory {smem} B{ring}")
+    for entry, (regs, st, ld, _) in sorted(
             ptxas_table(reports["flash_attention"]).items(),
             key=lambda kv: kernel_label(kv[0])):
         print(f"[build] flash_attention: {kernel_label(entry)}: {regs} "
@@ -200,78 +218,89 @@ def build_kernels() -> None:
 
 
 # ------------------------------------------------------------ phase 3-4
-def k3_inputs(device, dtype, seed: int):
-    import numpy as np
-    import torch
-    rng = np.random.RandomState(seed)
-    need = [-(-n // BS) for n in LENGTHS]
-    blocks = rng.permutation(NB)[:sum(need)]
-    tables = np.zeros((N, MB), np.int32)
-    at = 0
-    for i, n in enumerate(need):
-        tables[i, :n] = blocks[at:at + n]
-        at += n
-    g = torch.Generator().manual_seed(seed)
-    q = torch.randn(N, H, D, generator=g)
-    kp = torch.randn(NB, BS, H, D, generator=g)
-    vp = torch.randn(NB, BS, H, D, generator=g)
-    return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
-            torch.from_numpy(tables).to(device),
-            torch.tensor(LENGTHS, dtype=torch.int32, device=device))
+FULL_LENGTHS = (MB * BS,) * N
+
+
+def k3_ring_bytes(elem: int) -> int:
+    """K3's dynamic shared memory at the serving shape: 2 stages of K and
+    V tiles (up to 16 KB each), or the 8 warps' f32 accumulators if
+    larger."""
+    tile = min(BS, 16384 // (D * elem))
+    return max(2 * 2 * tile * D * elem, 8 * D * 4)
+
+
+def k3_inputs(device, dtype, seed: int, lengths=LENGTHS):
+    from paddle_tpu_torch.tools.measure import k3_inputs as inputs
+    return inputs(device, dtype, seed, lengths, N, H, D, BS, NB, MB)
 
 
 def check_k3(device, seed: int) -> float:
+    """K3 against both plain versions in f32 and bf16; returns the f32
+    max |err| (the larger of the two comparisons)."""
     import torch
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
-        ragged_attention_reference, ragged_decode_attention)
+        default_blocks_per_split, ragged_attention_reference,
+        ragged_attention_split_reference, ragged_decode_attention, sm_count)
+    bps = default_blocks_per_split(N, H, MB, sm_count(torch.device(device)))
     errs = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         args = k3_inputs(device, dtype, seed)
         got = ragged_decode_attention(*args)
         torch.cuda.synchronize()
-        want = ragged_attention_reference(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        errs[dtype] = err
-        print(f"[k3] kernel vs plain, {str(dtype)[6:]} pools: max |err| "
-              f"{err:.3e} (tolerance {tol:g})")
-        _require(err <= tol, f"K3 disagrees with its plain version in "
-                             f"{dtype}: {err} > {tol}")
+        for name, want in (
+                ("plain", ragged_attention_reference(*args)),
+                (f"split plain ({bps} blocks a split)",
+                 ragged_attention_split_reference(*args, bps))):
+            err = (got.float() - want.float()).abs().max().item()
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            print(f"[k3] kernel vs {name}, {str(dtype)[6:]} pools: max "
+                  f"|err| {err:.3e} (tolerance {tol:g})")
+            _require(err <= tol, f"K3 disagrees with its {name} version "
+                                 f"in {dtype}: {err} > {tol}")
         _require(bool(torch.all(got[0] == 0)), "K3 dead row is not zero")
     return errs[torch.float32]
 
 
-def time_k3(device, seed: int) -> dict:
+def k3_bound(lengths) -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, flops) of one K3 call:
+    the live K and V once, q and out, the live table entries and the
+    lengths; 4 flops per live (position, head, d)."""
+    from paddle_tpu_torch.tools.measure import bound
+    live = sum(lengths)
+    nbytes = (live * H * D * 2 * 4 + 2 * N * H * D * 4
+              + sum(-(-n // BS) for n in lengths) * 4 + N * 4)
+    flops = 4 * live * H * D
+    return (*bound(nbytes, flops, F32_FLOPS), nbytes, flops)
+
+
+def time_k3(device, seed: int, lengths=LENGTHS, label="mixed") -> dict:
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.inference.serving import gather_block_kv
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
         ragged_attention_reference, ragged_decode_attention)
     from paddle_tpu_torch.tools.measure import cold_ms
-    q, kp, vp, tables, lengths = k3_inputs(device, torch.float32, seed)
+    q, kp, vp, tables, lengths_t = k3_inputs(device, torch.float32, seed,
+                                             lengths)
     ms = cold_ms(lambda: ragged_decode_attention(q, kp, vp, tables,
-                                                 lengths), 50)
+                                                 lengths_t), 50)
     plain_ms = cold_ms(lambda: ragged_attention_reference(
-        q, kp, vp, tables, lengths), 10)
+        q, kp, vp, tables, lengths_t), 10)
     # yardstick only (never called by the port): SDPA over the context
     # gathered beforehand, masked by length; the gather is not timed
     kc, vc = gather_block_kv(kp, tables), gather_block_kv(vp, tables)
     mask = (torch.arange(MB * BS, device=device)[None, :]
-            < lengths[:, None])[:, None, None, :]
+            < lengths_t[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     library_ms = cold_ms(lambda: F.scaled_dot_product_attention(
         q4, kc, vc, attn_mask=mask), 50)
-    live = sum(LENGTHS)
-    nbytes = (live * H * D * 2 * 4 + 2 * N * H * D * 4
-              + sum(-(-n // BS) for n in LENGTHS) * 4 + N * 4)
-    flops = 4 * live * H * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    bound_ms, bound_by, nbytes, flops = k3_bound(lengths)
     out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    print(f"[k3] timing (cold L2, mean): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA yardstick {library_ms:.4f} ms, bound "
-          f"{out['bound_ms']:.4f} ms by {out['bound_by']} "
-          f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[k3] timing, {label} lengths (cold L2, mean): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, SDPA yardstick {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} "
+          f"MB, {flops / 1e9:.3f} GFLOP); {bound_ms / ms:.1%} of the bound")
     return out
 
 
@@ -928,28 +957,20 @@ def run_serving(device, seed: int) -> dict:
     """Phases 3-6; returns K3's kernel entry."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.inference.serving import EngineConfig
-    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
         ragged_decode_attention)
+    from paddle_tpu_torch.tools.engine_bench import serving_setup
     from paddle_tpu_torch.tools.serving_traffic import (bench_traffic,
                                                         drive_engine)
     max_err = check_k3(device, seed)
     timing = time_k3(device, seed)
+    full = time_k3(device, seed, FULL_LENGTHS, "full-context")
 
-    cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=12,
-                    num_heads=6, max_seq_len=1024)
-    model = GPT(cfg, device=device, seed=seed)
-    model.eval()
+    # the serving bench's model and engine (K3_SHAPE), warmed up on two
+    # short requests
+    model, ecfg = serving_setup(device, seed)
+    cfg = model.cfg
     check_logits(model, device, seed)
-
-    ecfg = EngineConfig(block_size=BS, num_blocks=NB, max_num_seqs=N,
-                        max_prefill_tokens=2048, decode_chunk_size=8,
-                        kernel="ragged", prefill_chunk_threshold=128)
-    # warm-up on two short requests (library init, allocator), not counted
-    drive_engine(model, ecfg, bench_traffic(cfg.vocab_size, seed + 1,
-                                            n_req=2, t_lo=16, t_hi=17),
-                 device)
     specs = bench_traffic(cfg.vocab_size, seed)
     ragged_decode_attention.launches = 0
     torch.cuda.synchronize()
@@ -989,7 +1010,8 @@ def run_serving(device, seed: int) -> dict:
         "source": "paddle_tpu_torch/ops/kernels/csrc/"
                   "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:127",
-        "launches": launches, "max_abs_err": max_err, **timing}
+        "launches": launches, "max_abs_err": max_err, **timing,
+        "full_context": full}
 
 
 FLASH_SOURCE = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
@@ -1010,7 +1032,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")

@@ -18,17 +18,28 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
 
 
 class ColumnParallelLinear(Linear):
-    """Weight [in, out] (sharded on out columns under tp > 1)."""
+    """Weight [in, out] (sharded on out columns under tp > 1).
+    gather_output only names the output's layout across a mesh; on one
+    device both values give the same result, as in the JAX package run
+    without a mesh."""
 
-    def __init__(self, in_features, out_features, has_bias=True):
-        super().__init__(in_features, out_features, bias=has_bias)
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, gather_output=True, name=None):
+        super().__init__(in_features, out_features, weight_attr,
+                         None if has_bias else False)
+        self.gather_output = gather_output
 
 
 class RowParallelLinear(Linear):
-    """Weight [in, out] (sharded on in rows under tp > 1)."""
+    """Weight [in, out] (sharded on in rows under tp > 1).
+    input_is_parallel only names the input's layout across a mesh; on
+    one device both values give the same result."""
 
-    def __init__(self, in_features, out_features, has_bias=True):
-        super().__init__(in_features, out_features, bias=has_bias)
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False, name=None):
+        super().__init__(in_features, out_features, weight_attr,
+                         None if has_bias else False)
+        self.input_is_parallel = input_is_parallel
 
 
 class VocabParallelEmbedding(Embedding):

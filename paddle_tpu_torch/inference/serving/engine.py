@@ -43,6 +43,7 @@ import torch
 
 from ...core.anomaly import any_not_finite_host
 from ...core.place import DeviceLike, resolve_device
+from ...core.unported import require_defaults
 from ...models import generation as gen
 from .attention import KERNELS, PACK_COLS, fused_decode_chunk, pack_f32
 from .paged_cache import PagedKVCache
@@ -54,10 +55,17 @@ __all__ = ["EngineConfig", "EngineStats", "LLMEngine", "RequestOutput"]
 
 @dataclass
 class EngineConfig:
+    """The reference's fields in its order. Not ported yet, so LLMEngine
+    accepts only their defaults: prefill_cost_model, the prefix cache
+    and host tier (enable_prefix_cache, host_tier_blocks,
+    promote_timeout_s), int8 KV blocks, cache_high_watermark, the step
+    watchdog (step_timeout_s), the obs label, tenants, and the
+    (model, revision) key of exported KV."""
     block_size: int = 16
     num_blocks: int = 256
     max_num_seqs: int = 8
     max_prefill_tokens: int = 2048
+    prefill_cost_model: Optional[object] = None
     # tokens decoded per fused device chunk: one host sync per k tokens
     decode_chunk_size: int = 8
     # "ragged" (K3 kernel over the fixed max_num_seqs width) or
@@ -66,13 +74,18 @@ class EngineConfig:
     # prompts STRICTLY longer than this are prefilled chunked inside the
     # fused decode chunk; None disables chunking
     prefill_chunk_threshold: Optional[int] = None
-    max_waiting: Optional[int] = None    # bounded waiting queue (None=inf)
-    admission_policy: str = "reject"     # 'reject' | 'shed_oldest'
-    # not ported yet: any value but the default raises
-    prefill_cost_model: Optional[object] = None
     enable_prefix_cache: bool = False
     host_tier_blocks: int = 0
+    promote_timeout_s: Optional[float] = None
     kv_cache_dtype: str = "float32"
+    max_waiting: Optional[int] = None    # bounded waiting queue (None=inf)
+    admission_policy: str = "reject"     # 'reject' | 'shed_oldest'
+    cache_high_watermark: float = 1.0
+    step_timeout_s: Optional[float] = None
+    obs_label: Optional[str] = None
+    tenants: Optional[object] = None
+    model: str = "default"
+    revision: str = "r0"
 
 
 @dataclass
@@ -140,7 +153,7 @@ class LLMEngine:
     iteration."""
 
     def __init__(self, params: Dict[str, torch.Tensor], geom,
-                 config: Optional[EngineConfig] = None,
+                 config: Optional[EngineConfig] = None, faults=None, *,
                  device: DeviceLike = None):
         config = config or EngineConfig()
         L, H, D, S = geom
@@ -153,8 +166,16 @@ class LLMEngine:
         if config.kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{config.kernel!r}")
-        if config.prefill_cost_model is not None:
-            raise NotImplementedError("prefill_cost_model: later slice")
+        require_defaults(
+            "EngineConfig",
+            prefill_cost_model=(config.prefill_cost_model, None),
+            cache_high_watermark=(config.cache_high_watermark, 1.0),
+            step_timeout_s=(config.step_timeout_s, None),
+            obs_label=(config.obs_label, None),
+            tenants=(config.tenants, None),
+            model=(config.model, "default"),
+            revision=(config.revision, "r0"))
+        require_defaults("LLMEngine", faults=(faults, None))
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.geom = geom
@@ -165,6 +186,7 @@ class LLMEngine:
             dtype=self.params["wte.weight"].dtype, device=self.device,
             enable_prefix_cache=config.enable_prefix_cache,
             host_tier_blocks=config.host_tier_blocks,
+            promote_timeout_s=config.promote_timeout_s,
             kv_cache_dtype=config.kv_cache_dtype)
         self.scheduler = Scheduler(
             SchedulerConfig(
@@ -184,11 +206,11 @@ class LLMEngine:
 
     @classmethod
     def from_model(cls, model, config: Optional[EngineConfig] = None,
-                   device: DeviceLike = None):
+                   faults=None, *, device: DeviceLike = None):
         """Engine over a port GPT's live parameters, on `device` (the
-        default: CUDA)."""
+        default: CUDA). Fault injection (faults) is not ported yet."""
         return cls(gen.extract_params(model), model.cfg.geom, config,
-                   device=device)
+                   faults, device=device)
 
     # ------------------------------------------------------------ intake
     def add_request(self, prompt_ids, sampling: SamplingParams = None,

@@ -17,11 +17,12 @@ spill tier and int8 KV blocks.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ...core.place import DeviceLike, resolve_device
+from ...core.unported import require_defaults
 
 __all__ = ["PagedKVCache", "CacheExhausted"]
 
@@ -52,14 +53,17 @@ class PagedKVCache:
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: int,
                  dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None,
                  enable_prefix_cache: bool = False,
                  host_tier_blocks: int = 0,
-                 kv_cache_dtype: str = "float32"):
+                 promote_timeout_s: Optional[float] = None,
+                 kv_cache_dtype: str = "float32", *,
+                 device: DeviceLike = None):
         if num_blocks <= 0 or block_size <= 0:
             raise ValueError("num_blocks and block_size must be positive")
         if enable_prefix_cache or host_tier_blocks:
             raise NotImplementedError("later slice")
+        require_defaults("PagedKVCache",
+                         promote_timeout_s=(promote_timeout_s, None))
         if kv_cache_dtype != "float32":
             if kv_cache_dtype == "int8":
                 raise NotImplementedError("later slice")

@@ -38,6 +38,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ...core.unported import require_defaults
 from .paged_cache import CacheExhausted, PagedKVCache
 
 __all__ = ["EngineOverloaded", "SamplingParams", "Request", "RequestState",
@@ -128,14 +129,20 @@ class Request:
 
 @dataclass
 class SchedulerConfig:
+    """The reference's fields in its order; prefill_cost_model,
+    cache_high_watermark and tenants are not ported yet (the Scheduler
+    accepts only their defaults)."""
     max_num_seqs: int = 8                    # decode batch ceiling
     max_prefill_tokens: int = 2048           # per-step admission budget
+    prefill_cost_model: Optional[object] = None
     decode_chunk_size: int = 1               # slots reserved per decode
     max_waiting: Optional[int] = None        # waiting-queue bound (None=inf)
     admission_policy: str = "reject"         # 'reject' | 'shed_oldest'
+    cache_high_watermark: float = 1.0
     # prompts STRICTLY longer than this are admitted chunked; None
     # disables chunking
     prefill_chunk_threshold: Optional[int] = None
+    tenants: Optional[object] = None
 
 
 @dataclass
@@ -150,6 +157,11 @@ class Scheduler:
     LLMEngine calls it only under the engine lock."""
 
     def __init__(self, config: SchedulerConfig, cache: PagedKVCache):
+        require_defaults(
+            "SchedulerConfig",
+            prefill_cost_model=(config.prefill_cost_model, None),
+            cache_high_watermark=(config.cache_high_watermark, 1.0),
+            tenants=(config.tenants, None))
         if config.admission_policy not in ADMISSION_POLICIES:
             raise ValueError(
                 f"admission_policy must be one of {ADMISSION_POLICIES}, "

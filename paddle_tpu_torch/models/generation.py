@@ -170,10 +170,18 @@ def decode_step(params: Params, cache: Cache, token, pos: int, geom):
 
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens: int,
-             eos_token_id: Optional[int] = None) -> np.ndarray:
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None,
+             eos_token_id: Optional[int] = None, seed: int = 0) -> np.ndarray:
     """Greedy decoding over the dense KV cache. Once a row emits eos it
     emits eos for every later position (the JAX scan's frozen rows).
-    input_ids: [B, T] array-like; returns np.ndarray [B, T + max_new]."""
+    input_ids: [B, T] array-like; returns np.ndarray [B, T + max_new].
+    Greedy is the reference's temperature <= 0, where top_k, top_p and
+    seed have no effect; sampling (temperature > 0) is not ported yet."""
+    if temperature > 0.0:
+        raise NotImplementedError(
+            f"generate: temperature={temperature!r} (sampling) is not "
+            f"ported yet; only greedy (temperature <= 0) is")
     cfg = model.cfg
     geom = cfg.geom
     params = extract_params(model)

@@ -100,8 +100,11 @@ class GPTAttention(nn.Module):
         self.cfg = cfg
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv = ColumnParallelLinear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out = RowParallelLinear(cfg.hidden_size, cfg.hidden_size)
+        self.qkv = ColumnParallelLinear(cfg.hidden_size,
+                                        3 * cfg.hidden_size,
+                                        gather_output=False)
+        self.out = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
+                                     input_is_parallel=True)
 
     def _pack_gate(self, T: int) -> bool:
         return packed_flash.route_gate(
@@ -125,8 +128,10 @@ class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         inner = cfg.ffn_mult * cfg.hidden_size
-        self.up = ColumnParallelLinear(cfg.hidden_size, inner)
-        self.down = RowParallelLinear(inner, cfg.hidden_size)
+        self.up = ColumnParallelLinear(cfg.hidden_size, inner,
+                                       gather_output=False)
+        self.down = RowParallelLinear(inner, cfg.hidden_size,
+                                      input_is_parallel=True)
 
     def forward(self, x):
         return self.down(F.gelu(self.up(x), approximate=True))

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.unported import require_defaults
+
 __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
 
 # f32 elements of one chunk (256 MiB)
@@ -95,10 +97,23 @@ def _hard_nll(logits, label, ignore_index):
     return torch.where(valid, nll, torch.zeros_like(nll)), valid
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
+def _negative(axis: int, x) -> int:
+    """axis counted from the end (the last axis is -1)."""
+    return axis - x.ndim if axis >= 0 else axis
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, name=None):
     """Softmax cross-entropy with hard labels ([N] or [N, 1] ints). "mean"
     averages over the rows whose label is not ignore_index (at least
-    one), "sum" sums them, "none" returns them (ignored rows 0)."""
+    one), "sum" sums them, "none" returns them (ignored rows 0). The
+    reference's class weights, soft labels, use_softmax=False and
+    classes on another axis than the last are not ported yet."""
+    require_defaults("cross_entropy", weight=(weight, None),
+                     soft_label=(soft_label, False),
+                     axis=(_negative(axis, input), -1),
+                     use_softmax=(use_softmax, True))
     nll, valid = _hard_nll(input, label, ignore_index)
     if reduction == "mean":
         cnt = valid.sum().to(nll.dtype).clamp(min=1.0)
@@ -108,7 +123,19 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     return nll
 
 
-def softmax_with_cross_entropy(logits, label, ignore_index=-100):
-    """Per-row loss with the class axis kept ([..., 1]); ignored rows 0."""
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """Per-row loss with the class axis kept ([..., 1]); ignored rows 0.
+    With return_softmax, also the softmax of the logits. The loss is
+    always the stable form, as in the reference, whatever
+    numeric_stable_mode says. Soft labels and another class axis than
+    the last are not ported yet."""
+    require_defaults("softmax_with_cross_entropy",
+                     soft_label=(soft_label, False),
+                     axis=(_negative(axis, logits), -1))
     nll, _ = _hard_nll(logits, label, ignore_index)
-    return nll[..., None]
+    loss = nll[..., None]
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=-1)
+    return loss

@@ -10,13 +10,16 @@ from __future__ import annotations
 
 from torch.nn import functional as F
 
+from ...core.unported import require_defaults
 from .conv import _require_nchw
 
 __all__ = ["max_pool2d", "adaptive_avg_pool2d"]
 
 
-def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               data_format="NCHW"):
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCHW", name=None):
+    """Max pooling; return_mask (the argmax indices) is not ported yet."""
+    require_defaults("max_pool2d", return_mask=(return_mask, False))
     _require_nchw(data_format)
     return F.max_pool2d(x, kernel_size,
                         kernel_size if stride is None else stride, padding,

@@ -3,12 +3,14 @@
 The weight is [out, in/groups, kh, kw]; its default initializer is the
 JAX package's KaimingUniform with fan_in = in_channels * kh * kw, drawn
 by the model that owns the layer (vision/models/resnet.py). The bias
-starts at zero; bias_attr=False drops it."""
+starts at zero; bias_attr=False drops it. padding_mode other than
+"zeros" and a weight_attr are not ported yet."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ...core.unported import require_defaults
 from ..functional.conv import _pair, _require_nchw, conv2d
 
 __all__ = ["Conv2D"]
@@ -17,8 +19,11 @@ __all__ = ["Conv2D"]
 class Conv2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=1, padding=0, dilation=1, groups: int = 1,
+                 padding_mode: str = "zeros", weight_attr=None,
                  bias_attr=None, data_format: str = "NCHW"):
         super().__init__()
+        require_defaults("Conv2D", padding_mode=(padding_mode, "zeros"),
+                         weight_attr=(weight_attr, None))
         _require_nchw(data_format)
         if in_channels % groups or out_channels % groups:
             raise ValueError(f"channels {in_channels} -> {out_channels} "

@@ -12,14 +12,22 @@ Paddle's formula, which torch.optim.AdamW does not compute:
   beta1_pow *= b1;  beta2_pow *= b2   (per-parameter state)
   lr_t = lr sqrt(1 - beta2_pow) / (1 - beta1_pow)
   p -= lr_t m / (sqrt(v) + eps)      (eps is not bias-corrected)
-AdamW first scales p by (1 - lr coeff) (decoupled decay, coeff 0.01 by
-default, every parameter).
+AdamW first scales p by (1 - lr coeff) (decoupled decay, every
+parameter): coeff is weight_decay when that is a float and 0.01
+otherwise (None or an int too), as in the reference.
 All of it in place on the parameter (or its f32 master) and its state.
+
+Constructor parameters stay in the reference's order. multi_precision
+is accepted and ignored, as in the reference: master weights come from
+amp.decorate(level="O2") in both packages. Not ported yet, so only
+their defaults are accepted: lazy_mode, and AdamW's lr_ratio and
+apply_decay_param_fun.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.unported import require_defaults
 from .optimizer import Optimizer
 
 __all__ = ["Momentum", "Adam", "AdamW"]
@@ -28,7 +36,7 @@ __all__ = ["Momentum", "Adam", "AdamW"]
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 rescale_grad=1.0):
+                 multi_precision=False, rescale_grad=1.0, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
@@ -49,8 +57,11 @@ class Momentum(Optimizer):
 
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, grad_clip=None):
-        super().__init__(learning_rate, parameters, grad_clip=grad_clip)
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        require_defaults(type(self).__name__, lazy_mode=(lazy_mode, False))
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -83,10 +94,14 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 grad_clip=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        require_defaults("AdamW", lr_ratio=(lr_ratio, None),
+                         apply_decay_param_fun=(apply_decay_param_fun, None))
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         grad_clip)
-        self._coeff = float(weight_decay)
+                         None, grad_clip, lazy_mode, multi_precision)
+        self._coeff = weight_decay if isinstance(weight_decay, float) \
+            else 0.01
 
     def _update(self, p, g, state, lr):
         if self._coeff:

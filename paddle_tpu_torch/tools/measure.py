@@ -1,9 +1,9 @@
 """Device timing and agreement measures shared by chip_smoke.py and the
-port's tools (GPU only for the timing)."""
+port's tools (GPU only for the timing), and K3's input recipe."""
 from __future__ import annotations
 
 __all__ = ["cold_ms", "agreement", "BF16_ULP", "HBM_BYTES_PER_S",
-           "BF16_FLOPS", "bound"]
+           "BF16_FLOPS", "bound", "K3_MIXED_LENGTHS", "k3_inputs"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, bf16 dense tensor
 # FLOP/s
@@ -54,3 +54,32 @@ def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# K3's mixed lengths (chip_smoke.py phases 3-4): a dead row, lengths on
+# and beside block edges, and full rows
+K3_MIXED_LENGTHS = (0, 1, 31, 32, 33, 300, 1023, 1024)
+
+
+def k3_inputs(device, dtype, seed: int, lengths, n, h, d, bs, nb, mb):
+    """K3's inputs: q [n, h, d], pools [nb, bs, h, d] ~ N(0, 1) from
+    `seed`, each row's live blocks distinct pool blocks in seeded random
+    order, table [n, mb] entries past them 0, and the lengths, on
+    `device`."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    need = [-(-x // bs) for x in lengths]
+    blocks = rng.permutation(nb)[:sum(need)]
+    tables = np.zeros((n, mb), np.int32)
+    at = 0
+    for i, k in enumerate(need):
+        tables[i, :k] = blocks[at:at + k]
+        at += k
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(n, h, d, generator=g)
+    kp = torch.randn(nb, bs, h, d, generator=g)
+    vp = torch.randn(nb, bs, h, d, generator=g)
+    return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
+            torch.from_numpy(tables).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))

@@ -28,25 +28,15 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..inference.serving import EngineConfig
-    from ..models.gpt import GPT, GPTConfig
+    from .engine_bench import serving_setup
     from .serving_traffic import bench_traffic, drive_engine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=12,
-                    num_heads=6, max_seq_len=1024)
-    model = GPT(cfg, device=device, seed=SEED)
-    ecfg = EngineConfig(block_size=32, num_blocks=512, max_num_seqs=8,
-                        max_prefill_tokens=2048, decode_chunk_size=8,
-                        kernel="ragged", prefill_chunk_threshold=128)
-    drive_engine(model, ecfg, bench_traffic(cfg.vocab_size, SEED + 1,
-                                            n_req=2, t_lo=16, t_hi=17),
-                 device)                                    # warm-up
+    model, ecfg = serving_setup(device, SEED)
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
@@ -61,7 +51,7 @@ def main() -> int:
             window["wall"] = time.perf_counter() - window["t0"]
             prof.stop()
 
-    drive_engine(model, ecfg, bench_traffic(cfg.vocab_size, SEED),
+    drive_engine(model, ecfg, bench_traffic(model.cfg.vocab_size, SEED),
                  device, before_step=before_step)
     if "wall" not in window:
         raise RuntimeError(f"the run had fewer than {stop} steps")
@@ -71,7 +61,8 @@ def main() -> int:
     busy_us = sum(e.self_device_time_total for e in rows)
     launches = sum(e.count for e in rows)
     k3 = sum(e.self_device_time_total for e in rows
-             if "ragged_paged_attention" in e.key)
+             if "ragged_split_kernel" in e.key
+             or "ragged_paged_attention" in e.key)
     d2h = sum(e.count for e in rows if "DtoH" in e.key)
     wall_us = window["wall"] * 1e6
     print(f"[profile] card: {card}")

@@ -6,10 +6,17 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-- K3 (ops/kernels/ragged_paged_attention) against its plain version:
-  f32 within 1e-5 (the two sum their dot products in different orders),
-  bf16 pools within 1e-2 (bf16 output rounding, 2**-8 relative on
-  values of magnitude < 2); its launch counter and input checks;
+- K3 (ops/kernels/ragged_paged_attention) against both plain versions
+  (the one-pass stream and the split-and-merge order of the kernel):
+  f32 within 1e-5 (they sum their dot products and the split merge in
+  different orders), bf16 pools within 1e-2 (bf16 output rounding,
+  2**-8 relative on values of magnitude < 2), at the serving shape and
+  at small shapes that force many splits (d 16, bs 4, 40 table columns,
+  1-3 blocks a split); bitwise-equal output over repeated calls (the
+  merge reads the partials in split order); a grid with fewer live CTAs
+  than SMs; back-to-back calls on one stream with other N and table
+  widths (the cached scratch and arrival counters are resized and left
+  at zero); dead rows exact zeros; its launch counter and input checks;
 - fused_decode_chunk on CUDA (through K3) against the same chunk on the
   CPU (through the plain version): tokens and flags exactly, pools
   within 1e-5;
@@ -59,8 +66,10 @@ from paddle_tpu_torch.ops.kernels import flash_attention as k1
 from paddle_tpu_torch.ops.kernels import packed_flash as k2
 from paddle_tpu_torch.ops.kernels.fused_conv import (
     fused_scale_relu_matmul, fused_scale_relu_matmul_reference)
+from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k3
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
-    ragged_attention_reference, ragged_decode_attention)
+    default_blocks_per_split, ragged_attention_reference,
+    ragged_attention_split_reference, ragged_decode_attention, sm_count)
 
 pytestmark = pytest.mark.cuda
 
@@ -78,7 +87,8 @@ def _k3_inputs(device, dtype, n=8, h=6, d=128, bs=32, nb=512, mb=32,
                lengths=(0, 1, 31, 32, 33, 300, 1023, 1024)):
     rng = np.random.RandomState(0)
     tables = rng.permutation(nb)[:n * mb].reshape(n, mb).astype(np.int32)
-    tables[3, 0] = nb                     # out of range inside the length
+    if n > 3:
+        tables[3, 0] = nb                 # out of range inside the length
     g = torch.Generator().manual_seed(0)
     q = torch.randn(n, h, d, generator=g)
     kp = torch.randn(nb, bs, h, d, generator=g)
@@ -98,6 +108,10 @@ def test_kernel_matches_plain(cuda, dtype, atol):
     assert ragged_decode_attention.launches == before + 1
     want = ragged_attention_reference(*args)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    split = ragged_attention_split_reference(
+        *args, default_blocks_per_split(8, 6, 32, sm_count(cuda)))
+    torch.testing.assert_close(got.float(), split.float(), rtol=0,
+                               atol=atol)
     assert torch.all(got[0] == 0)         # dead row
 
 
@@ -107,6 +121,72 @@ def test_kernel_small_head_dim_and_block(cuda):
     got = ragged_decode_attention(*args)
     torch.testing.assert_close(got, ragged_attention_reference(*args),
                                rtol=0, atol=1e-5)
+
+
+def _many_splits(cuda, dtype, n=6, lengths=(0, 1, 37, 80, 157, 160)):
+    """d 16, bs 4, 40 table columns; row 4 has an out-of-range entry
+    inside its length, row 5 a whole split of them at 2 a split."""
+    args = list(_k3_inputs(cuda, dtype, n=n, h=3, d=16, bs=4, nb=300,
+                           mb=40, lengths=lengths))
+    tables = args[3].cpu()
+    tables[n - 2, 5] = -1
+    tables[n - 1, 2:4] = 300
+    args[3] = tables.to(cuda)
+    return args
+
+
+@pytest.mark.parametrize("bps", [1, 2, 3, None])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_kernel_many_splits_matches_both_plain(cuda, bps, dtype, atol):
+    args = _many_splits(cuda, dtype)
+    got = ragged_decode_attention(*args, blocks_per_split=bps)
+    torch.cuda.synchronize()
+    split = ragged_attention_split_reference(
+        *args, bps or default_blocks_per_split(6, 3, 40, sm_count(cuda)))
+    for want in (ragged_attention_reference(*args), split):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)
+    assert torch.all(got[0] == 0)
+
+
+def test_kernel_is_bitwise_repeatable(cuda):
+    for args, bps in ((_k3_inputs(cuda, torch.float32), None),
+                      (_many_splits(cuda, torch.float32), 1)):
+        outs = [ragged_decode_attention(*args, blocks_per_split=bps)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        for o in outs[1:]:
+            assert torch.equal(o, outs[0])
+
+
+def test_kernel_grid_smaller_than_the_card(cuda):
+    """2 rows x 1 head x 4 splits: 8 CTAs, fewer than the 132 SMs."""
+    args = _k3_inputs(cuda, torch.float32, n=2, h=1, d=128, bs=32, nb=64,
+                      mb=8, lengths=(200, 7))
+    got = ragged_decode_attention(*args, blocks_per_split=2)
+    torch.testing.assert_close(got, ragged_attention_reference(*args),
+                               rtol=0, atol=1e-5)
+
+
+def test_kernel_back_to_back_shapes_reuse_scratch(cuda):
+    """Calls on one stream with growing and shrinking N and table widths:
+    each matches its plain version, and the arrival counters are zero
+    after each call."""
+    shapes = [(3, 8, (9, 0, 32)), (8, 40, (0, 1, 37, 80, 157, 160, 5, 99)),
+              (2, 4, (16, 3)), (8, 40, (160, 159, 1, 0, 77, 4, 44, 8))]
+    outs = []
+    for n, mb, lengths in shapes:
+        args = _k3_inputs(cuda, torch.float32, n=n, h=3, d=16, bs=4,
+                          nb=400, mb=mb, lengths=lengths)
+        outs.append((ragged_decode_attention(*args, blocks_per_split=1),
+                     args))
+    torch.cuda.synchronize()
+    for got, args in outs:
+        torch.testing.assert_close(got, ragged_attention_reference(*args),
+                                   rtol=0, atol=1e-5)
+    for _, counters in k3._SCRATCH.values():
+        assert int(counters.abs().sum()) == 0
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -120,6 +200,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ragged_decode_attention(q, kp.transpose(1, 2), vp, tables, lengths)
     with pytest.raises(ValueError):
         ragged_decode_attention(q, kp, vp, tables.cpu(), lengths)
+    with pytest.raises(ValueError, match="blocks_per_split"):
+        ragged_decode_attention(q, kp, vp, tables, lengths,
+                                blocks_per_split=0)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ragged_decode_attention(q[..., :10].contiguous(),
+                                kp[..., :10].contiguous(),
+                                vp[..., :10].contiguous(), tables, lengths)
 
 
 def _tiny_model(device):
