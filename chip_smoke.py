@@ -14,7 +14,10 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    each), and the count of wgmma (HGMMA) and TMA / cp.async loads
    (UTMALDG / LDGSTS) in the SASS of the bf16 flash kernels, which must
    have both; for K3 each instance's registers, spills and shared
-   memory;
+   memory; for K4 each instance's registers and spills, its ring's
+   depth and dynamic shared memory at the five block-boundary
+   geometries, and its HGMMA and UTMALDG counts, both of which must be
+   non-zero;
 3. hold K3 against both plain PyTorch versions (the one-pass stream
    and the kernel's split-and-merge order) on the card at the shapes the
    serving path gives it (f32 within 1e-5, bf16 within 1e-2; the dead
@@ -53,15 +56,22 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 10. K4 (fused BN-apply + ReLU (+ residual) -> 1x1-conv matmul) against
    its plain version at the five ResNet-50 block-boundary geometries of
    paddle_tpu_torch/tools/fused_conv_proto.py (batch 128, its input
-   recipe from --seed), to the limits of K4_TOL, and timed (CUDA events,
-   cold L2) beside its bound, its plain version, the composed torch path
-   and torch.matmul alone;
+   recipe from --seed), to the limits of K4_TOL, bitwise equal to itself
+   over a repeat, and timed (CUDA events, cold L2) beside its bound (and
+   its share of it), its plain version, the composed torch path and
+   torch.matmul alone, with its kernel time under torch.profiler, the
+   wrapper's host time, and the tile width, grid and ring depth that
+   `k4_tile` chose;
 11. K4 on the port's own ResNet-50 (one training-mode bf16 forward at
    batch 128 x 224^2): at the five sites hooks launch it on the captured
    pre-BN conv output, the BN's batch-statistics fold, the identity and
    the next 1x1 conv's weight; its result within K4_MODEL_TOL (relative
    L2) of the model's own next-conv output and within K4_TOL of its
-   plain version; 5 launches in the forward;
+   plain version; 5 launches in the forward. Then, on the same tensors,
+   K4 timed beside the model's own boundary as the train step runs it
+   in NCHW: the port's BN-apply (the fold of the batch statistics),
+   residual add and ReLU, then the next 1x1 convolution (cuDNN). K4's
+   time leaves out the copy of its inputs into [N*H*W, C] rows;
 12. the ResNet-50 train step at the geometry of bench.py's bench_resnet
    (batch 128 of 3 x 224^2 images cast to bf16 once, labels in [0,
    1000), AMP O2 with f32 masters, Momentum(0.1), jit.TrainStep; 2
@@ -87,7 +97,7 @@ import time
 from pathlib import Path
 
 from paddle_tpu_torch.tools.engine_bench import K3_SHAPE
-from paddle_tpu_torch.tools.measure import K3_MIXED_LENGTHS
+from paddle_tpu_torch.tools.measure import K3_MIXED_LENGTHS, card_line
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor
 # FLOP/s, bf16 dense tensor FLOP/s
@@ -105,13 +115,6 @@ LENGTHS = K3_MIXED_LENGTHS
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------ phase 2
@@ -184,10 +187,9 @@ def build_kernels() -> None:
     print(f"[build] {len(reports)} kernel(s) in "
           f"{time.perf_counter() - t0:.1f} s: {', '.join(reports)}")
     for name, report in reports.items():
-        if name == "flash_attention":
-            continue
         for line in report.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line and (name == "ragged_paged_attention"
+                                    or "Performance Loss" in line):
                 print(f"[build] {name}: {line.strip()}")
     for entry, (regs, st, ld, smem) in sorted(
             ptxas_table(reports["ragged_paged_attention"]).items()):
@@ -215,6 +217,51 @@ def build_kernels() -> None:
     for label, c in hopper.items():
         _require(c["HGMMA"] > 0 and c["UTMALDG"] + c["LDGSTS"] > 0,
                  f"{label} lacks wgmma or asynchronous loads: {c}")
+    k4_build_report(reports["fused_conv"])
+
+
+def k4_label(mangled: str) -> str:
+    """'fused_scale_relu_matmul_kernel<256, residual>' from a mangled K4
+    instance name."""
+    m = re.search(r"fused_scale_relu_matmul_kernelILi(\d+)ELb([01])E",
+                  mangled)
+    if m is None:
+        return mangled
+    return (f"fused_scale_relu_matmul_kernel<{m.group(1)}, "
+            f"{'residual' if m.group(2) == '1' else 'no residual'}>")
+
+
+def k4_build_report(report: str) -> None:
+    """K4's instances: registers and spills (ptxas), the ring at the
+    five geometries on this card (k4_tile, k4_ring), HGMMA and UTMALDG
+    in the SASS; fails if an instance lacks wgmma or TMA loads."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.fused_conv import k4_ring, k4_tile
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import sm_count
+    from paddle_tpu_torch.tools.fused_conv_proto import BATCH, GEOMETRIES
+    for entry, (regs, st, ld, smem) in sorted(
+            ptxas_table(report).items(), key=lambda kv: k4_label(kv[0])):
+        print(f"[build] fused_conv: {k4_label(entry)}: {regs} registers, "
+              f"spill stores {st} B, spill loads {ld} B, static shared "
+              f"memory {smem} B")
+    sms = sm_count(torch.device("cuda"))
+    for name, hw, cin, cout, res in GEOMETRIES:
+        bn, grid = k4_tile(BATCH * hw, cin, cout, sms, res)
+        stages, nbytes = k4_ring(cin, bn, res)
+        print(f"[build] fused_conv: {name}: tile 128 x {bn}, grid {grid} "
+              f"of {sms} SMs, ring {stages} stages, {nbytes} B dynamic "
+              f"shared memory")
+    counts = {k4_label(k): c for k, c in sass_counts(
+        str(_build.library_path("fused_conv"))).items()
+        if "fused_scale_relu_matmul_kernel" in k}
+    for label, c in sorted(counts.items()):
+        print(f"[build] SASS {label}: HGMMA {c['HGMMA']}, UTMALDG "
+              f"{c['UTMALDG']}")
+    _require(len(counts) == 6, f"K4 instances in the SASS: {sorted(counts)}")
+    for label, c in counts.items():
+        _require(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                 f"{label} lacks wgmma or TMA loads: {c}")
 
 
 # ------------------------------------------------------------ phase 3-4
@@ -762,29 +809,47 @@ def _k4_bad(agree) -> list:
 
 
 def check_k4(device, seed: int) -> list:
-    """K4 vs its plain version and timed (kernel, plain, composed path,
-    torch.matmul alone, bound) at the five block-boundary geometries of
-    the A/B tool, from its input recipe."""
+    """K4 vs its plain version, bitwise against a repeat of itself, and
+    timed (kernel, plain, composed path, torch.matmul alone, bound) at the
+    five block-boundary geometries of the A/B tool, from its input
+    recipe."""
     import torch
+    from paddle_tpu_torch.ops.kernels.fused_conv import (
+        fused_scale_relu_matmul)
     from paddle_tpu_torch.tools import fused_conv_proto as proto
     rows = []
     for geom in proto.inputs(seed, device):
         r = proto.measure(*geom)
-        del geom
+        first = fused_scale_relu_matmul(*geom[1:])
+        r["bitwise"] = torch.equal(first, fused_scale_relu_matmul(*geom[1:]))
+        del geom, first
         a = r["agreement"]
-        print(f"[k4] {r['name']} (M {r['m']}, K {r['k']}, N {r['n']}): "
-              f"kernel vs plain l2 {a['l2']:.2e} abs {a['abs']:.2e} excess "
-              f"{a['excess']:.2e} (limits {K4_TOL}); cold L2 mean: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, composed "
-              f"{r['composed_ms']:.4f}, torch.matmul alone "
+        print(f"[k4] {r['name']} (M {r['m']}, K {r['k']}, N {r['n']}; tile "
+              f"128 x {r['block_n']}, grid {r['grid']}, {r['stages']} "
+              f"stages): kernel vs plain l2 {a['l2']:.2e} abs "
+              f"{a['abs']:.2e} excess {a['excess']:.2e} (limits {K4_TOL}); "
+              f"bitwise equal over a repeat: {r['bitwise']}; cold L2 mean: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+              f"composed {r['composed_ms']:.4f}, torch.matmul alone "
               f"{r['matmul_ms']:.4f}, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['mbytes']:.1f} MB, {r['gflop']:.2f} "
-              f"GFLOP); kernel {r['mbytes'] / r['ms'] / 1e3:.3f} TB/s")
+              f"GFLOP); kernel {r['tb_per_s']:.3f} TB/s, "
+              f"{r['tflop_per_s']:.1f} TFLOP/s, {r['share']:.1%} of the "
+              f"bound; profiler kernel time {r['profiler_ms']:.4f} ms, "
+              f"wrapper host time {r['host_us']:.1f} us a call")
         bad = _k4_bad(a)
         _require(not bad, f"K4 disagrees with its plain version at "
                           f"{r['name']}: {bad}")
+        _require(r["bitwise"], f"K4 is not bitwise repeatable at "
+                               f"{r['name']}")
         rows.append(r)
         torch.cuda.empty_cache()
+    total = sum(r["ms"] for r in rows)
+    prof = sum(r["profiler_ms"] for r in rows)
+    bound = sum(r["bound_ms"] for r in rows)
+    print(f"[k4] five geometries: kernel {total:.4f} ms (profiler "
+          f"{prof:.4f}), bound {bound:.4f} ms, {bound / total:.1%} of the "
+          f"bound ({bound / prof:.1%} by the profiler)")
     return rows
 
 
@@ -798,19 +863,24 @@ def check_k4(device, seed: int) -> list:
 K4_MODEL_TOL = 1e-2
 
 
-def check_k4_on_model(device, seed: int) -> int:
+def check_k4_on_model(device, seed: int) -> dict:
     """One training-mode bf16 forward of the port's ResNet-50 at batch 128
     x 224^2; at each of the five sites hooks capture the pre-BN
     convolution output, the BN's batch-statistics fold, the identity and
     the next 1x1 convolution's weight as [K, N], and launch K4 on them
     (laid out as [N*H*W, C]) when the next convolution runs. K4's result
     is held against the model's own next-conv output and against its
-    plain version. Returns K4's launches during the forward."""
+    plain version. Then each site's K4 call is timed beside the model's
+    own boundary on the same tensors (BN-apply, residual add and ReLU as
+    the train step's fused BN route computes them after its statistics,
+    then the next convolution; NCHW). Returns K4's launches during the
+    forward and the summed times."""
     import torch
-    from paddle_tpu_torch.nn.functional.norm import _bn_stats, _fold
+    from paddle_tpu_torch.nn.functional.norm import (_apply_scale_shift,
+                                                     _bn_stats, _fold)
     from paddle_tpu_torch.ops.kernels.fused_conv import (
         fused_scale_relu_matmul, fused_scale_relu_matmul_reference)
-    from paddle_tpu_torch.tools.measure import agreement
+    from paddle_tpu_torch.tools.measure import agreement, cold_ms
     from paddle_tpu_torch.tools.train_bench import resnet_batch
     from paddle_tpu_torch.vision.models import resnet50
     model = resnet50(num_classes=1000, device=device, seed=seed).to(
@@ -827,7 +897,7 @@ def check_k4_on_model(device, seed: int) -> int:
     def rows(t):                           # [N, C, H, W] -> [N*H*W, C]
         return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]).contiguous()
 
-    seen, results, hooks = {}, [], []
+    seen, results, hooks, timed = {}, [], [], []
     for name, src, bn, res, dst in sites:
         def keep(key):
             return lambda mod, inp, out: seen.__setitem__(key, out)
@@ -837,14 +907,24 @@ def check_k4_on_model(device, seed: int) -> int:
             mean, var = _bn_stats(pre, (0, 2, 3))
             scale, shift = _fold(pre, mean, var, bn.weight, bn.bias,
                                  bn._epsilon)
+            ident = None if res is None else seen.pop(res)
             xs = rows(pre)
-            zs = None if res is None else rows(seen.pop(res))
+            zs = None if ident is None else rows(ident)
             w = mod.weight[:, :, 0, 0].t().contiguous()
             got = fused_scale_relu_matmul(xs, zs, w, scale, shift)
             results.append((name, tuple(xs.shape), w.shape[1],
                             agreement(got, rows(out)),
                             agreement(got, fused_scale_relu_matmul_reference(
                                 xs, zs, w, scale, shift))))
+
+            def boundary(pre=pre, mean=mean, var=var, bn=bn, ident=ident,
+                         mod=mod):
+                t = _apply_scale_shift(pre, mean, var, bn.weight, bn.bias,
+                                       bn._epsilon, 1)
+                return mod(torch.relu(t if ident is None else t + ident))
+            timed.append((name, boundary,
+                          lambda a=(xs, zs, w, scale, shift):
+                          fused_scale_relu_matmul(*a)))
         hooks.append(src.register_forward_hook(keep(src)))
         if res is not None:
             hooks.append(res.register_forward_hook(keep(res)))
@@ -872,9 +952,22 @@ def check_k4_on_model(device, seed: int) -> int:
           f"(want {len(sites)})")
     _require(len(results) == len(sites) and launches == len(sites),
              f"K4 launched {launches} times at {len(results)} sites")
-    del model, x, seen, results
+    del x, seen, results
+    total = {"k4_ms": 0.0, "model_ms": 0.0}
+    with torch.no_grad():
+        for name, boundary, k4 in timed if device.type == "cuda" else ():
+            k4_ms, model_ms = cold_ms(k4, 20), cold_ms(boundary, 20)
+            total["k4_ms"] += k4_ms
+            total["model_ms"] += model_ms
+            print(f"[k4 model] {name}: K4 {k4_ms:.4f} ms (its [N*H*W, C] "
+                  f"input copy left out) vs the model's own boundary "
+                  f"(BN-apply (+ residual) + ReLU, then the cuDNN 1x1 "
+                  f"conv, NCHW) {model_ms:.4f} ms: {model_ms / k4_ms:.2f}x")
+    print(f"[k4 model] five sites: K4 {total['k4_ms']:.4f} ms vs the "
+          f"model's boundary {total['model_ms']:.4f} ms")
+    del model, timed
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, **total}
 
 
 # ------------------------------------------------------------ phase 12
@@ -1055,18 +1148,21 @@ def main(argv=None) -> int:
                         "max_abs_err": errs[kernel][("fwd", "bwd")[i]],
                         **timing[kernel][i]})
     k4 = check_k4(device, args.seed)
-    k4_launches = check_k4_on_model(device, args.seed)
+    k4_model = check_k4_on_model(device, args.seed)
     drive_resnet(device, args.seed)
     total = {key: sum(r[key] for r in k4)
              for key in ("ms", "plain_ms", "bound_ms", "composed_ms",
-                         "matmul_ms")}
+                         "matmul_ms", "profiler_ms")}
     # times summed over the five block-boundary geometries; no single
     # PyTorch call computes relu(x * scale + shift (+ z)) @ w, so
-    # library_ms is null (composed_ms and matmul_ms are the yardsticks)
+    # library_ms is null (composed_ms and matmul_ms are the yardsticks);
+    # profiler_ms is the kernel's own device time, model_boundary_ms the
+    # model's BN-apply + ReLU + 1x1 conv on phase 11's tensors, beside
+    # K4's on_model_ms there
     kernels.append({"name": "fused_scale_relu_matmul", "route": "cuda",
                     "source": K4_SOURCE,
                     "replaces": "tools/fused_conv_proto.py:75",
-                    "launches": k4_launches,
+                    "launches": k4_model["launches"],
                     "max_abs_err": max(r["agreement"]["abs"] for r in k4),
                     "ms": total["ms"], "plain_ms": total["plain_ms"],
                     "bound_ms": total["bound_ms"],
@@ -1074,7 +1170,10 @@ def main(argv=None) -> int:
                                                 for r in k4)
                                  else "operations"),
                     "library_ms": None, "composed_ms": total["composed_ms"],
-                    "matmul_ms": total["matmul_ms"]})
+                    "matmul_ms": total["matmul_ms"],
+                    "profiler_ms": total["profiler_ms"],
+                    "model_boundary_ms": k4_model["model_ms"],
+                    "on_model_ms": k4_model["k4_ms"]})
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,7 +3,8 @@ port's tools (GPU only for the timing), and K3's input recipe."""
 from __future__ import annotations
 
 __all__ = ["cold_ms", "agreement", "BF16_ULP", "HBM_BYTES_PER_S",
-           "BF16_FLOPS", "bound", "K3_MIXED_LENGTHS", "k3_inputs"]
+           "BF16_FLOPS", "bound", "card_line", "K3_MIXED_LENGTHS",
+           "k3_inputs"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, bf16 dense tensor
 # FLOP/s
@@ -54,6 +55,15 @@ def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 # K3's mixed lengths (chip_smoke.py phases 3-4): a dead row, lengths on

@@ -38,7 +38,13 @@ PyTorch is installed:
   residual: each element within one bf16 ulp of the plain value plus
   1e-3 of the output's rms (both round one f32 sum to bf16; the sums run
   in different orders, which near a cancellation moves the f32 value by
-  more than a bf16 ulp of the small result); its launch counter and the
+  more than a bf16 ulp of the small result); the same at every tile
+  width the rule can choose (pinned through `block_n=`), at K not a
+  multiple of 64 (16, 48, 80) and N not a multiple of the tile (16, 80,
+  320), with more tiles than SMs (the ring runs on across tiles) and
+  with fewer; scale and shift as [:K] views of buffers whose
+  tail holds NaN (columns past K must transform to exactly 0);
+  bitwise-equal output over three calls; its launch counter and the
   inputs it refuses;
 - the batch-norm autograd Functions (`_BNCore`, `_BNActCore` with no,
   full and broadcast z) on the card in f32 against torch autograd of the
@@ -451,6 +457,53 @@ def test_k4_matches_plain(cuda, m, k, n, res):
     assert _within_bf16_ulp(got, want)
 
 
+@pytest.mark.parametrize("block_n", [64, 128, 256])
+@pytest.mark.parametrize("m,k,n,res", [
+    (300, 16, 16, True), (300, 48, 80, False), (1000, 80, 320, True),
+    (257, 128, 320, False)])
+def test_k4_each_tile_width_matches_plain(cuda, block_n, m, k, n, res):
+    args = _k4_args(cuda, m, k, n, res, seed=block_n)
+    got = fused_scale_relu_matmul(*args, block_n=block_n)
+    torch.cuda.synchronize()
+    assert _within_bf16_ulp(got, fused_scale_relu_matmul_reference(*args))
+
+
+@pytest.mark.parametrize("m,k,n,block_n", [
+    (20000, 192, 256, 64),        # 628 tiles on 132 SMs: the ring runs on
+    (40000, 512, 128, 128),       # across 2-3 tiles a CTA
+    (97, 48, 16, 64),             # one tile: fewer tiles than SMs
+    (640, 1024, 512, 256)])
+def test_k4_grids_with_more_and_fewer_tiles_than_ctas(cuda, m, k, n,
+                                                       block_n):
+    args = _k4_args(cuda, m, k, n, True, seed=m)
+    got = fused_scale_relu_matmul(*args, block_n=block_n)
+    torch.cuda.synchronize()
+    assert _within_bf16_ulp(got, fused_scale_relu_matmul_reference(*args))
+
+
+@pytest.mark.parametrize("k,res", [(16, True), (48, False), (80, True)])
+def test_k4_reads_no_scale_or_shift_past_k(cuda, k, res):
+    x, z, w, scale, shift = _k4_args(cuda, 300, k, 80, res)
+    sbuf = torch.full((k + 64,), float("nan"), device=cuda)
+    bbuf = torch.full((k + 64,), float("nan"), device=cuda)
+    sbuf[:k] = scale
+    bbuf[:k] = shift
+    for block_n in (64, 128):
+        got = fused_scale_relu_matmul(x, z, w, sbuf[:k], bbuf[:k],
+                                      block_n=block_n)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert _within_bf16_ulp(got, fused_scale_relu_matmul_reference(
+            x, z, w, scale, shift))
+
+
+def test_k4_is_bitwise_repeatable(cuda):
+    args = _k4_args(cuda, 6272, 2048, 512, True)
+    first = fused_scale_relu_matmul(*args)
+    for _ in range(2):
+        assert torch.equal(fused_scale_relu_matmul(*args), first)
+
+
 def test_k4_refuses_what_it_cannot_take(cuda):
     x, z, w, scale, shift = _k4_args(cuda, 64, 64, 64, True)
     with pytest.raises(ValueError):
@@ -465,6 +518,11 @@ def test_k4_refuses_what_it_cannot_take(cuda):
     odd.copy_(x)
     with pytest.raises(ValueError):                         # misaligned
         fused_scale_relu_matmul(odd, z, w, scale, shift)
+    with pytest.raises(ValueError):
+        fused_scale_relu_matmul(x, z, w, scale, shift, block_n=96)
+    big = _k4_args(cuda, 16, 32768, 64, True)               # ring too big
+    with pytest.raises(ValueError):
+        fused_scale_relu_matmul(*big)
 
 
 # ------------------------------------------------------------ batch norm
