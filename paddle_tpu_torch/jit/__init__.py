@@ -12,15 +12,22 @@ device).
 Buffers (BN running stats) are updated in place by the model's own
 training-mode forward, where the JAX step threads them through the
 compiled program and writes them back. The JAX step compiles all of
-that into one XLA program with donated buffers. PyTorch runs eagerly, so there is nothing to compile and
-donation means nothing. The jaxplan hooks, the obs gauges, the anomaly
-guard and MultiStepTrainStep are not ported yet. The parameter set is
-read once, at the first call.
+that into one XLA program with donated buffers. PyTorch runs eagerly, so
+there is nothing to compile and donation means nothing. The jaxplan
+hooks, the obs gauges and the anomaly guard are not ported yet. The
+parameter set is read once, at the first call.
+
+MultiStepTrainStep (port of :630-691) runs K such steps per call over
+batches stacked [K, ...] and returns the [K] losses. The JAX class scans
+the K steps inside one compiled program; here they are a plain loop of
+TrainStep's body (a CUDA graph of the loop is not ported yet).
 
 Usage:
     step = TrainStep(model, loss_fn, optimizer)
     loss = step(x, y)   # loss_fn(model, x, y) -> scalar (or a tuple
                         # whose first element is the loss)
+    multi = MultiStepTrainStep(model, loss_fn, optimizer, steps=K)
+    losses = multi(xs, ys)   # xs, ys stacked [K, ...] -> [K] losses
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "MultiStepTrainStep"]
 
 
 class TrainStep:
@@ -81,3 +88,30 @@ class TrainStep:
                                          grads, self._opt_state)
         self.optimizer._global_step += 1
         return loss.detach()
+
+
+class MultiStepTrainStep(TrainStep):
+    """K full optimizer steps per call: step i trains on the i-th slice of
+    every argument, each stacked [K, ...]. The result equals K TrainStep
+    calls (losses, parameters, optimizer state, `_global_step`).
+    `donate` is accepted and ignored: eager PyTorch updates the
+    parameters in place and has no buffers to donate."""
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
+                 steps: int, donate: bool = True):
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        super().__init__(model, loss_fn, optimizer)
+        self.steps = int(steps)
+
+    def __call__(self, *args):
+        stacked = [self._arg(a) for a in args]
+        for a in stacked:
+            if not torch.is_tensor(a) or a.shape[:1] != (self.steps,):
+                raise ValueError(
+                    f"MultiStepTrainStep(steps={self.steps}) needs every "
+                    f"batch arg stacked [steps, ...]; got "
+                    f"{getattr(a, 'shape', type(a).__name__)}")
+        one = super().__call__
+        return torch.stack([one(*(a[i] for a in stacked))
+                            for i in range(self.steps)])

@@ -31,6 +31,7 @@ from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerNorm
+from ..nn.layer.layers import load_jax_state
 from ..ops.kernels import packed_flash
 
 __all__ = ["GPTConfig", "GPT", "GPTAttention", "sliced_qkv", "gpt_loss_fn"]
@@ -216,21 +217,7 @@ class GPT(nn.Module):
         """A GPT holding the JAX package's weights: `params` is the numpy
         form of paddle_tpu.models.generation.extract_params(model). Names
         and shapes must match exactly (same layouts, no transposes)."""
-        model = cls(cfg, device=device)
-        own = dict(model.named_parameters())
-        missing = sorted(set(own) - set(params))
-        extra = sorted(set(params) - set(own))
-        if missing or extra:
-            raise ValueError(f"parameter names differ: missing {missing}, "
-                             f"unexpected {extra}")
-        with torch.no_grad():
-            for name, p in own.items():
-                src = np.asarray(params[name])
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(
-                        f"{name}: shape {src.shape} != {tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.array(src)))
-        return model
+        return load_jax_state(cls(cfg, device=device), params)
 
 
 def gpt_loss_fn(model, input_ids, labels):

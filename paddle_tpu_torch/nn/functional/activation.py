@@ -1,11 +1,11 @@
 """Activations (port of paddle_tpu/nn/functional/activation.py, the ones
-the GPT and ResNet train steps call)."""
+the GPT, ResNet and BERT train steps call)."""
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
-__all__ = ["relu", "gelu"]
+__all__ = ["relu", "gelu", "tanh"]
 
 
 def relu(x):
@@ -15,3 +15,8 @@ def relu(x):
 
 def gelu(x, approximate=False):
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x, name=None):
+    """Elementwise tanh (the BERT pooler's)."""
+    return torch.tanh(x)

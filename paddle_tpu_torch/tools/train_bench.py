@@ -1,8 +1,10 @@
-"""The GPT and ResNet-50 train steps at the geometries of bench.py's
-`bench_gpt` and `bench_resnet`, on the GPU.
+"""The GPT, ResNet-50, BERT-base, ERNIE-large and LeNet train steps at
+the geometries of bench.py's `bench_gpt`, `bench_resnet`, `bench_bert`,
+`bench_ernie`, `bench_lenet` and `bench_lenet_multistep`, on the GPU.
 
-    python -m paddle_tpu_torch.tools.train_bench [--model gpt|resnet50]
-        [--heads 6|12] [--steps N] [--warmup N] [--seed N] [--profile]
+    python -m paddle_tpu_torch.tools.train_bench
+        [--model gpt|resnet50|bert|ernie|lenet] [--heads 6|12]
+        [--multistep K] [--steps N] [--warmup N] [--seed N] [--profile]
 
 gpt (default): GPT(vocab 32768, hidden 768, 12 layers, max_seq_len 1024)
 with random weights from --seed, cast with amp.decorate(level="O2",
@@ -19,16 +21,35 @@ cross-entropy, on one random batch of 128 images of 3 x 224 x 224 (cast
 to bf16 once) with labels [128, 1] in [0, 1000) (bench_resnet, which
 times 40 steps). MFU counts bench.py's 3 x 4.1e9 FLOP per image.
 
-Both print one JSON line: per-step losses and times (host clock around
-each step, which ends in the loss's fetch), throughput and MFU over the
-timed steps against the H100 SXM dense bf16 peak, 989 TFLOP/s (NVIDIA
-data sheet), and peak device memory; gpt also the flash kernels'
-launches. --profile records 3 more steps with torch.profiler and prints
+bert, ernie: BertForPretraining at BertConfig() (BERT-base, batch 128 x
+seq 128) or ernie_large() (32 x 512) with random weights from --seed,
+amp.decorate O2 bf16, AdamW(1e-4) with no clip, jit.TrainStep over
+bert_pretrain_loss_fn on one make_bert_pretrain_batch(RandomState(seed))
+(15 % of the positions masked and gathered before the MLM head), the
+same batch every step (bench.py `_bench_mlm_pretrain`). ERNIE-large's 16
+heads of 64 at T 512 go to K2 non-causal as packed pairs; BERT-base at
+T 128, under flash_attention_min_seq, takes composed attention. MFU
+counts bench.py's FLOPs per sample (`flops_per_sample`, copied below).
+
+lenet: LeNet(10), Adam(1e-3), jit.TrainStep over the hard-label
+cross-entropy on one batch of 64 N(0, 1) images of 1 x 28 x 28 with
+labels [64, 1] in [0, 10), 2 warm-up + 100 timed steps (bench_lenet);
+with --multistep K, jit.MultiStepTrainStep over K such batches stacked
+[K, 64, ...], 2 warm-up calls and 100 // K timed calls
+(bench_lenet_multistep, which bench.py runs at K 50). Timed as bench.py
+does: one synchronise after the timed window, no fetch between steps.
+
+All print one JSON line: losses, step times (gpt, resnet50, bert, ernie:
+host clock around each step, which ends in the loss's fetch),
+throughput and MFU over the timed steps against the H100 SXM dense bf16
+peak, 989 TFLOP/s (NVIDIA data sheet), and peak device memory; gpt,
+bert and ernie also the flash kernels' launches and the attention
+route. --profile records 3 more steps with torch.profiler and prints
 the device busy time, the idle share and the device time by group: for
-gpt the flash kernels, GEMMs, cross-entropy, the optimizer range and the
-rest; for resnet50 the convolutions (cuDNN), batch norm (its range), the
-cross-entropy, the optimizer range and the rest (ReLU, residual adds,
-pooling, casts).
+gpt, bert and ernie the flash kernels, GEMMs, cross-entropy, the
+optimizer range and the rest; for resnet50 the convolutions (cuDNN),
+batch norm (its range), the cross-entropy, the optimizer range and the
+rest (ReLU, residual adds, pooling, casts).
 """
 from __future__ import annotations
 
@@ -40,8 +61,10 @@ from typing import Dict, Optional
 import numpy as np
 
 __all__ = ["bench_config", "flops_per_token", "build", "run",
-           "build_resnet", "run_resnet", "resnet_batch", "resnet_loss_fn",
-           "H100_BF16_FLOPS", "RESNET_FLOPS_PER_IMG"]
+           "build_resnet", "run_resnet", "resnet_batch", "ce_loss_fn",
+           "mlm_config", "flops_per_sample", "build_mlm", "run_mlm",
+           "build_lenet", "run_lenet", "H100_BF16_FLOPS",
+           "RESNET_FLOPS_PER_IMG"]
 
 H100_BF16_FLOPS = 989e12
 BATCH, SEQ = 32, 1024
@@ -49,6 +72,10 @@ BATCH, SEQ = 32, 1024
 # 4.1 GFLOP at 224, fwd + bwd taken as 3x: bench.py:718-723)
 RESNET_BATCH, RESNET_SIDE = 128, 224
 RESNET_FLOPS_PER_IMG = 3 * 4.1e9
+# (batch, seq) of bench_bert and bench_ernie
+MLM_GEOMETRY = {"bert": (128, 128), "ernie": (32, 512)}
+# bench_lenet's batch, timed steps and bench_lenet_multistep's K
+LENET_BATCH, LENET_STEPS, LENET_K = 64, 100, 50
 
 
 def bench_config(num_heads: int = 6):
@@ -95,8 +122,9 @@ def build(num_heads: int = 6, seed: int = 0, device=None):
     return model, step, x.to(model.device), y.to(model.device)
 
 
-def resnet_loss_fn(model, x, y):
-    """loss_fn signature for jit.TrainStep: hard-label cross-entropy."""
+def ce_loss_fn(model, x, y):
+    """loss_fn signature for jit.TrainStep: hard-label cross-entropy of
+    the image classifiers (ResNet-50, LeNet)."""
     from ..nn.functional import cross_entropy
     return cross_entropy(model(x), y)
 
@@ -121,20 +149,21 @@ def build_resnet(seed: int = 0, device=None):
     model = resnet50(num_classes=1000, device=device, seed=seed)
     optim = Momentum(0.1, parameters=model.parameters())
     model, optim = amp.decorate(model, optim, level="O2", dtype="bfloat16")
-    step = jit.TrainStep(model, resnet_loss_fn, optim)
+    step = jit.TrainStep(model, ce_loss_fn, optim)
     return (model, step, *resnet_batch(seed, model.device))
 
 
-def _time_steps(step, x, y, warmup: int, steps: int, dev) -> dict:
-    """Warm-up and timed steps: losses, host-clock step times (each ends
-    in the loss's fetch) and peak device memory over the timed steps."""
+def _time_steps(step, args, warmup: int, steps: int, dev) -> dict:
+    """Warm-up and timed steps of step(*args): losses, host-clock step
+    times (each ends in the loss's fetch) and peak device memory over the
+    timed steps."""
     import torch
     cuda = dev.type == "cuda"
     losses, times = [], []
 
     def one():
         t0 = time.perf_counter()
-        loss = step(x, y).item()
+        loss = step(*args).item()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
 
@@ -160,9 +189,9 @@ def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
     from ..nn.functional import attention as A
     model, step, x, y = built or build(num_heads, seed)
     dev = model.device
-    t = _time_steps(step, x, y, warmup, 0, dev)
+    t = _time_steps(step, (x, y), warmup, 0, dev)
     before = flash_launches()
-    t2 = _time_steps(step, x, y, 0, steps, dev)
+    t2 = _time_steps(step, (x, y), 0, steps, dev)
     launches = {k: v - before[k] for k, v in flash_launches().items()}
     tps = x.numel() * steps / t2["timed_s"] if steps else None
     out = {"num_heads": num_heads, "num_layers": model.cfg.num_layers,
@@ -174,7 +203,7 @@ def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
            "peak_mem_gb": t2["peak_mem_gb"],
            "last_path": A.LAST_PATH, "launches": launches}
     if profile:
-        out["profile"] = profile_steps(step, x, y, 3, _GPT_GROUPS,
+        out["profile"] = profile_steps(step, (x, y), 3, _GPT_GROUPS,
                                        ("cross_entropy", "optimizer"))
     return out
 
@@ -185,7 +214,7 @@ def run_resnet(warmup: int = 2, steps: int = 10, seed: int = 0,
     timed steps, peak device memory."""
     model, step, x, y = built or build_resnet(seed)
     dev = model.device
-    t = _time_steps(step, x, y, warmup, steps, dev)
+    t = _time_steps(step, (x, y), warmup, steps, dev)
     ips = x.shape[0] * steps / t["timed_s"] if steps else None
     out = {"model": "resnet50", "batch": int(x.shape[0]),
            "image": list(x.shape[1:]), "losses": t["losses"],
@@ -195,12 +224,128 @@ def run_resnet(warmup: int = 2, steps: int = 10, seed: int = 0,
            "peak_mem_gb": t["peak_mem_gb"]}
     if profile:
         out["profile"] = profile_steps(
-            step, x, y, 3, _RESNET_GROUPS,
+            step, (x, y), 3, _RESNET_GROUPS,
             ("batch_norm", "cross_entropy", "optimizer"))
     return out
 
 
-# device kernels by name: the flash kernels and cuBLAS's GEMMs (GPT);
+def mlm_config(model: str):
+    """BertConfig of bench_bert ("bert": BERT-base) or bench_ernie
+    ("ernie": ERNIE-large)."""
+    from ..models.bert import bert_base, ernie_large
+    return {"bert": bert_base, "ernie": ernie_large}[model]()
+
+
+def flops_per_sample(cfg, seq: int, P: int) -> float:
+    """fwd+bwd FLOPs per sample of the MLM + NSP step (bench.py
+    `_bench_mlm_pretrain`): the trunk's matmuls on all `seq` tokens, the
+    MLM transform and tied unembedding on the P gathered positions, and
+    attention 12 * L * hidden * seq^2."""
+    h, L, V, T = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, seq
+    per_layer = 4 * h * h + 2 * cfg.ffn_mult * h * h
+    return (6 * (L * per_layer * T + (h * h + V * h) * P)
+            + 12 * L * h * T * T)
+
+
+def build_mlm(model: str = "ernie", seed: int = 0, device=None):
+    """(model, TrainStep, args) at bench_bert's or bench_ernie's geometry;
+    args are the five batch tensors on the model's device."""
+    import torch
+    from .. import amp, jit
+    from ..models.bert import (BertForPretraining, bert_pretrain_loss_fn,
+                               make_bert_pretrain_batch)
+    from ..optimizer import AdamW
+    cfg = mlm_config(model)
+    bs, seq = MLM_GEOMETRY[model]
+    net = BertForPretraining(cfg, device=device, seed=seed)
+    optim = AdamW(1e-4, parameters=net.parameters())
+    net, optim = amp.decorate(net, optim, level="O2", dtype="bfloat16")
+    step = jit.TrainStep(net, bert_pretrain_loss_fn, optim)
+    batch = make_bert_pretrain_batch(np.random.RandomState(seed),
+                                     cfg.vocab_size, bs, seq)
+    return net, step, tuple(torch.from_numpy(a).to(net.device)
+                            for a in batch)
+
+
+def run_mlm(model: str = "ernie", warmup: int = 2, steps: int = 10,
+            seed: int = 0, built=None, profile: bool = False) -> dict:
+    """The MLM + NSP step: losses, step times, samples/s and MFU over the
+    timed steps, peak device memory, the attention route and the flash
+    kernels' launches during the timed steps."""
+    from ..nn.functional import attention as A
+    net, step, args = built or build_mlm(model, seed)
+    dev = net.device
+    t = _time_steps(step, args, warmup, 0, dev)
+    before = flash_launches()
+    t2 = _time_steps(step, args, 0, steps, dev)
+    launches = {k: v - before[k] for k, v in flash_launches().items()}
+    bs, seq = args[0].shape
+    P = args[4].shape[1]
+    sps = bs * steps / t2["timed_s"] if steps else None
+    out = {"model": model, "num_layers": net.cfg.num_layers,
+           "hidden": net.cfg.hidden_size, "batch": int(bs),
+           "seq": int(seq), "masked": int(P),
+           "losses": t["losses"] + t2["losses"],
+           "step_s": t["step_s"] + t2["step_s"], "samples_per_sec": sps,
+           "mfu": (sps * flops_per_sample(net.cfg, seq, P) / H100_BF16_FLOPS
+                   if sps and dev.type == "cuda" else None),
+           "peak_mem_gb": t2["peak_mem_gb"], "last_path": A.LAST_PATH,
+           "launches": launches}
+    if profile:
+        out["profile"] = profile_steps(step, args, 3, _GPT_GROUPS,
+                                       ("cross_entropy", "optimizer"))
+    return out
+
+
+def build_lenet(seed: int = 0, multistep: Optional[int] = None,
+                device=None):
+    """(model, step, args) at bench_lenet's recipe: TrainStep on one
+    batch, or (bench_lenet_multistep) MultiStepTrainStep(k=multistep) on
+    k batches stacked [k, ...], the same k every call."""
+    import torch
+    from .. import jit
+    from ..optimizer import Adam
+    from ..vision.models import LeNet
+    net = LeNet(device=device, seed=seed)
+    optim = Adam(1e-3, parameters=net.parameters())
+    lead = (multistep,) if multistep else ()
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*lead, LENET_BATCH, 1, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, (*lead, LENET_BATCH, 1)).astype(np.int64)
+    if multistep:
+        step = jit.MultiStepTrainStep(net, ce_loss_fn, optim, multistep)
+    else:
+        step = jit.TrainStep(net, ce_loss_fn, optim)
+    return net, step, tuple(torch.from_numpy(a).to(net.device)
+                            for a in (x, y))
+
+
+def run_lenet(multistep: Optional[int] = None, warmup: int = 2,
+              steps: int = LENET_STEPS, seed: int = 0, built=None) -> dict:
+    """The LeNet step: `warmup` calls, then `steps` optimizer steps (one
+    a call, or `steps // multistep` calls of multistep) timed on the host
+    clock up to one synchronise; losses, samples/s."""
+    import torch
+    net, step, args = built or build_lenet(seed, multistep)
+    dev = net.device
+    k = multistep or 1
+    calls = max(1, steps // k)
+    losses = [step(*args) for _ in range(warmup)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    losses += [step(*args) for _ in range(calls)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return {"model": "lenet", "multistep": multistep,
+            "batch": LENET_BATCH, "timed_steps": calls * k,
+            "losses": torch.cat([v.reshape(-1) for v in losses]).tolist(),
+            "timed_s": wall,
+            "samples_per_sec": calls * k * LENET_BATCH / wall}
+
+
+# device kernels by name: the flash kernels and cuBLAS's GEMMs (GPT, BERT);
 # cuDNN's convolutions and their layout transforms (ResNet)
 _GPT_GROUPS = (("flash (K1/K2)", ("fa_fwd", "fa_bwd", "fa_delta")),
                ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "xmma")))
@@ -209,13 +354,14 @@ _RESNET_GROUPS = (("conv (cuDNN)", ("xmma", "implicit", "cudnn", "wgrad",
                                     "conv2d", "nchwToNhwc", "nhwcToNchw")),)
 
 
-def profile_steps(step, x, y, n: int, kernel_groups, ranges) -> dict:
-    """torch.profiler over n steps: wall, device busy time, idle share,
-    and device time by group: kernels by name (`kernel_groups`), the
-    profiler ranges the port opens (`ranges`: the fused CE's, the batch
-    norms', and jit.TrainStep's clip + update loop), and the rest; each
-    range's span on the device timeline (its kernels plus the idle gaps
-    between them); the 15 kernels with the most device time."""
+def profile_steps(step, args, n: int, kernel_groups, ranges) -> dict:
+    """torch.profiler over n calls of step(*args): wall, device busy
+    time, idle share, and device time by group: kernels by name
+    (`kernel_groups`), the profiler ranges the port opens (`ranges`: the
+    fused CE's, the batch norms', and jit.TrainStep's clip + update
+    loop), and the rest; each range's span on the device timeline (its
+    kernels plus the idle gaps between them); the 15 kernels with the
+    most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -224,7 +370,7 @@ def profile_steps(step, x, y, n: int, kernel_groups, ranges) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(x, y).item()
+            step(*args).item()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device rows, without the ranges' own device-side spans (a range
@@ -257,21 +403,31 @@ def profile_steps(step, x, y, n: int, kernel_groups, ranges) -> dict:
 
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("gpt", "resnet50"), default="gpt")
+    ap.add_argument("--model", choices=("gpt", "resnet50", "bert", "ernie",
+                                        "lenet"), default="gpt")
     ap.add_argument("--heads", type=int, default=6)
+    ap.add_argument("--multistep", type=int, default=None)
     ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="timed steps (lenet 100, the others 10)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
+    steps = args.steps if args.steps is not None else (
+        LENET_STEPS if args.model == "lenet" else 10)
     if args.model == "gpt":
-        res = run(args.heads, args.warmup, args.steps, args.seed,
+        res = run(args.heads, args.warmup, steps, args.seed,
                   profile=args.profile)
-    else:
-        res = run_resnet(args.warmup, args.steps, args.seed,
+    elif args.model == "resnet50":
+        res = run_resnet(args.warmup, steps, args.seed,
                          profile=args.profile)
+    elif args.model == "lenet":
+        res = run_lenet(args.multistep, args.warmup, steps, args.seed)
+    else:
+        res = run_mlm(args.model, args.warmup, steps, args.seed,
+                      profile=args.profile)
     res["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(res))
     return 0

@@ -1,4 +1,5 @@
-"""vision of the port (paddle_tpu/vision): the model zoo's ResNets."""
+"""vision of the port (paddle_tpu/vision): the model zoo's LeNet and
+ResNets."""
 from . import models
 
 __all__ = ["models"]

@@ -28,6 +28,7 @@ from ...nn import functional as F
 from ...nn.functional.conv import _require_nchw
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU, Sequential)
+from ...nn.layer.layers import load_jax_state
 from ...nn.layer.norm import _BatchNormBase
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18", "resnet34",
@@ -193,26 +194,12 @@ class ResNet(nn.Module):
             x = self.fc(torch.flatten(x, 1))
         return x
 
-    @torch.no_grad()
     def load_jax_params(self, state: Dict[str, np.ndarray]) -> "ResNet":
         """Copy the numpy form of the JAX model's `state_dict()` (every
         parameter and BN buffer) into this model; names and shapes must
         match exactly, and each tensor keeps its own dtype (as the JAX
         package's set_state_dict does). Returns self."""
-        own = dict(self.named_parameters())
-        own.update(self.named_buffers())
-        missing = sorted(set(own) - set(state))
-        extra = sorted(set(state) - set(own))
-        if missing or extra:
-            raise ValueError(f"state names differ: missing {missing}, "
-                             f"unexpected {extra}")
-        for name, t in own.items():
-            src = np.asarray(state[name])
-            if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(
-                    f"{name}: shape {src.shape} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
-        return self
+        return load_jax_state(self, state)
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):

@@ -24,7 +24,8 @@ PyTorch is installed:
   same greedy tokens, and K3 launches layers x k x chunks times;
 - K1 (ops/kernels/flash_attention) and K2 (ops/kernels/packed_flash),
   forward (out, lse) and backward (dq, dk, dv), against their plain
-  versions at T 128, 640, 1024 and 2176, causal and not, in f32 (within
+  versions at T 128, 512 (ERNIE-large's), 640, 1024 and 2176, causal
+  and not, in f32 (within
   1e-4 of each tensor's largest entry: blocked sums in another order)
   and bf16 (within 2e-2: both round f32 results to bf16, 2**-8
   relative, and the inputs of the gradients' products differ by that);
@@ -33,6 +34,13 @@ PyTorch is installed:
 - a tiny GPT TrainStep on CUDA (through K1 and K2) against the same
   step on the CPU (through their plain versions): losses within 1e-4
   relative over 3 steps, in f32;
+- a tiny BERT MLM + NSP TrainStep (2 layers, 2 heads of 64, T 128,
+  flash_attention_min_seq 128) on CUDA, through K2 non-causal, against
+  the same step on the CPU through its plain version: losses within
+  1e-4 relative over 3 steps, in f32, and K2 launched once a layer and
+  step each way; a LeNet Adam TrainStep (batch 8) on CUDA against the
+  CPU the same way, and MultiStepTrainStep(k=3) on CUDA equal to three
+  TrainStep calls there (losses within 1e-5 relative);
 - K4 (ops/kernels/fused_conv) against its plain version at M 1, 97,
   300, 512 and 6272, K 16 to 2048, N 16 to 512, with and without the
   residual: each element within one bf16 ulp of the plain value plus
@@ -313,7 +321,7 @@ def _flash_case(kernel, cuda, T, causal, dtype, seed=0, b=2, h=2, tk=None):
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k1_d64", "k2"])
-@pytest.mark.parametrize("T", [128, 640, 1024, 2176])
+@pytest.mark.parametrize("T", [128, 512, 640, 1024, 2176])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -419,6 +427,59 @@ def test_train_step_cuda_matches_cpu(cuda, heads):
     finally:
         flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_bert_train_step_cuda_matches_cpu(cuda):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              bert_pretrain_loss_fn,
+                                              make_bert_pretrain_batch)
+    from paddle_tpu_torch.nn.functional import attention as A
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                     num_heads=2, max_position=128)
+    batch = make_bert_pretrain_batch(np.random.RandomState(4), 512, 2, 128)
+    prev = flags.flag("flash_attention_min_seq")
+    flags.set_flags({"FLAGS_flash_attention_min_seq": 128})
+    try:
+        losses = {}
+        for dev in ("cpu", cuda):
+            model = BertForPretraining(cfg, device=dev, seed=3)
+            step = jit.TrainStep(model, bert_pretrain_loss_fn, AdamW(
+                1e-3, parameters=model.parameters()))
+            before = (k2.packed_flash_fwd.launches,
+                      k2.packed_flash_bwd.launches)
+            losses[str(dev)] = [step(*batch).item() for _ in range(3)]
+            assert A.LAST_PATH == "flash"
+            n = 0 if dev == "cpu" else 3 * cfg.num_layers
+            assert (k2.packed_flash_fwd.launches - before[0],
+                    k2.packed_flash_bwd.launches - before[1]) == (n, n)
+    finally:
+        flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_lenet_train_steps_cuda_match_cpu(cuda):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.tools.train_bench import ce_loss_fn
+    from paddle_tpu_torch.vision.models import LeNet
+    rng = np.random.RandomState(5)
+    xs = rng.randn(3, 8, 1, 28, 28).astype(np.float32)
+    ys = rng.randint(0, 10, (3, 8, 1)).astype(np.int64)
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = LeNet(device=dev, seed=3)
+        step = jit.TrainStep(model, ce_loss_fn, Adam(
+            1e-3, parameters=model.parameters()))
+        losses[str(dev)] = [step(xs[i], ys[i]).item() for i in range(3)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    model = LeNet(device=cuda, seed=3)
+    multi = jit.MultiStepTrainStep(model, ce_loss_fn, Adam(
+        1e-3, parameters=model.parameters()), 3)
+    np.testing.assert_allclose(multi(xs, ys).cpu().numpy(),
+                               losses["cuda"], rtol=1e-5)
 
 
 # ------------------------------------------------------------------- K4

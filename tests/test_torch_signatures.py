@@ -75,7 +75,10 @@ PORT_ONLY_TRAILING = {
     # to CUDA) and the seed of its random weights (the JAX models draw
     # from paddle.seed)
     "models.gpt.GPT": ["device", "seed"],
+    "models.bert.Bert": ["device", "seed"],
+    "models.bert.BertForPretraining": ["device", "seed"],
     "vision.models.resnet.ResNet": ["device", "seed"],
+    "vision.models.lenet.LeNet": ["device", "seed"],
     # the attention route ("ragged" K3 or "bucketed"): the JAX function
     # picks it from a module-level switch
     "inference.serving.attention.paged_decode_step": ["kernel"],
