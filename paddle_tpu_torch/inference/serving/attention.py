@@ -38,7 +38,8 @@ import torch
 
 from ...core.anomaly import rows_not_finite
 from ...models.generation import (NEG_INF, _attn_merge, _decode_attn,
-                                  _decode_head, _decode_qkv, _token_embed)
+                                  _decode_head, _decode_qkv, _sample_rows,
+                                  _token_embed)
 from ...ops.kernels.ragged_paged_attention import ragged_decode_attention
 
 __all__ = ["gather_block_kv", "paged_decode_step", "fused_decode_chunk",
@@ -156,62 +157,6 @@ def pack_f32(x) -> int:
     """Host-side helper: float -> raw float32 bits as a python int, for
     the packed control columns above."""
     return int(np.float32(x).view(np.int32))
-
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(a, c: int):
-    """(a * c) mod 2**32 for int64 tensors a in [0, 2**32) and a 32-bit
-    constant c, without int64 overflow."""
-    lo = a * (c & 0xFFFF)
-    hi = ((a * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _fmix32(x):
-    """murmur3's 32-bit finalizer on int64 tensors in [0, 2**32)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def _uniform(seeds, counts, vocab: int):
-    """Counter-based uniforms in (0, 1), [N, vocab]: a pure function of
-    (seed, tokens generated, vocab index), identical on every device."""
-    row = _fmix32(_mul32(seeds.long() & _M32, 0x9E3779B1)
-                  ^ (counts.long() & _M32))
-    v = torch.arange(vocab, device=seeds.device, dtype=torch.long)
-    x = _fmix32(row[:, None] ^ _mul32(v + 1, 0x27D4EB2F)[None])
-    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / 16777216.0)
-
-
-def _sample_rows(logits, seeds, counts, temps, top_ks, top_ps):
-    """Branchless per-row sampling over [N, V] logits: greedy argmax when
-    temp <= 0, else temperature softmax restricted by top-k (k-th largest
-    threshold, ties kept) and nucleus top-p (smallest prefix of the
-    descending distribution whose EXCLUSIVE cumulative mass stays under
-    top_p, so the crossing token is kept), drawn by Gumbel-max with
-    `_uniform` noise. Returns int32 [N]."""
-    vocab = logits.shape[-1]
-    greedy = torch.argmax(logits, dim=-1)
-    lg = logits.float() / torch.where(temps > 0, temps,
-                                      torch.ones_like(temps))[:, None]
-    srt = torch.sort(lg, dim=-1, descending=True).values
-    kth = srt.gather(1, (top_ks.long() - 1).clamp(0, vocab - 1)[:, None])
-    lg = lg.masked_fill((top_ks[:, None] > 0) & (lg < kth), NEG_INF)
-    srt = torch.sort(lg, dim=-1, descending=True).values
-    probs = torch.softmax(srt, dim=-1)
-    excl = torch.cumsum(probs, dim=-1) - probs
-    n_keep = (excl < top_ps[:, None]).sum(dim=-1)
-    pth = srt.gather(1, (n_keep - 1).clamp(0, vocab - 1)[:, None])
-    use_p = (top_ps > 0.0) & (top_ps < 1.0)
-    lg = lg.masked_fill(use_p[:, None] & (lg < pth), NEG_INF)
-    gumbel = -torch.log(-torch.log(_uniform(seeds, counts, vocab)))
-    sampled = torch.argmax(lg + gumbel, dim=-1)
-    return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
 
 
 @torch.no_grad()

@@ -13,8 +13,15 @@ Differences from the JAX package, all deliberate:
 - `geom` is the same static (num_layers, num_heads, head_dim,
   max_seq_len) tuple, and every tensor lives on the parameters' device.
 
-Sampling `generate`, beam search and export are not ported yet; the
-greedy `generate` with `eos_token_id` is.
+- sampling draws Gumbel noise from a counter-based integer hash of
+  (seed, row, step, vocab index) where JAX used jax.random.categorical
+  with threefry keys: the same call samples the same tokens on the CPU
+  and the GPU, but not the JAX package's tokens. The filter before the
+  draw (temperature, top-k, top-p) is the reference's
+  (`_sample_filter`); the serving chunk samples through the same
+  `_sample_rows`.
+
+Left out (later slices): `export_decoder` and `DecoderPredictor`.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["extract_params", "prefill", "decode_step", "generate"]
+__all__ = ["extract_params", "prefill", "decode_step", "generate",
+           "beam_search_generate"]
 
 NEG_INF = -1e30
 
@@ -168,20 +176,90 @@ def decode_step(params: Params, cache: Cache, token, pos: int, geom):
     return _decode_head(params, x), cache
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2**32 for int64 tensors a in [0, 2**32) and a 32-bit
+    constant c, without int64 overflow."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(x):
+    """murmur3's 32-bit finalizer on int64 tensors in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _uniform(seeds, counts, vocab: int):
+    """Counter-based uniforms in (0, 1), [N, vocab]: a pure function of
+    (seed, tokens generated, vocab index), identical on every device."""
+    row = _fmix32(_mul32(seeds.long() & _M32, 0x9E3779B1)
+                  ^ (counts.long() & _M32))
+    v = torch.arange(vocab, device=seeds.device, dtype=torch.long)
+    x = _fmix32(row[:, None] ^ _mul32(v + 1, 0x27D4EB2F)[None])
+    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / 16777216.0)
+
+
+def _row_keys(seed: int, rows: int, device):
+    """Per-row draw keys of one generate() call: a hash of (seed, row)."""
+    r = torch.arange(rows, device=device, dtype=torch.long)
+    return _fmix32(_mul32(r + 1, 0x85EBCA77) ^ (int(seed) & _M32))
+
+
+def _sample_filter(logits, temps, top_ks, top_ps):
+    """The reference's sampling filter (`_sampling_rollout`'s sample),
+    per row: logits / temperature in f32 (temps <= 0 rows divide by 1),
+    then every logit under the row's top_k-th largest (top_k 0: none)
+    and, for 0 < top_p < 1, under the smallest rank prefix whose
+    exclusive cumulative mass stays below top_p (rank 0 always kept,
+    ties kept) set to -1e30; top_p >= 1 skips the nucleus step. [N, V]
+    -> [N, V] f32."""
+    vocab = logits.shape[-1]
+    lg = logits.float() / torch.where(temps > 0, temps,
+                                      torch.ones_like(temps))[:, None]
+    srt = torch.sort(lg, dim=-1, descending=True).values
+    kth = srt.gather(1, (top_ks.long() - 1).clamp(0, vocab - 1)[:, None])
+    lg = lg.masked_fill((top_ks[:, None] > 0) & (lg < kth), NEG_INF)
+    srt = torch.sort(lg, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    excl = torch.cumsum(probs, dim=-1) - probs
+    n_keep = (excl < top_ps[:, None]).sum(dim=-1)
+    pth = srt.gather(1, (n_keep - 1).clamp(0, vocab - 1)[:, None])
+    use_p = (top_ps > 0.0) & (top_ps < 1.0)
+    return lg.masked_fill(use_p[:, None] & (lg < pth), NEG_INF)
+
+
+def _sample_rows(logits, seeds, counts, temps, top_ks, top_ps):
+    """Branchless per-row sampling over [N, V] logits: greedy argmax when
+    temp <= 0, else a Gumbel-max draw over `_sample_filter`'s logits with
+    `_uniform` noise keyed by (seed, count). Returns int32 [N]. The
+    serving chunk and generate() both sample here."""
+    greedy = torch.argmax(logits, dim=-1)
+    lg = _sample_filter(logits, temps, top_ks, top_ps)
+    gumbel = -torch.log(-torch.log(_uniform(seeds, counts,
+                                            logits.shape[-1])))
+    sampled = torch.argmax(lg + gumbel, dim=-1)
+    return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
+
+
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens: int,
              temperature: float = 0.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None,
              eos_token_id: Optional[int] = None, seed: int = 0) -> np.ndarray:
-    """Greedy decoding over the dense KV cache. Once a row emits eos it
-    emits eos for every later position (the JAX scan's frozen rows).
-    input_ids: [B, T] array-like; returns np.ndarray [B, T + max_new].
-    Greedy is the reference's temperature <= 0, where top_k, top_p and
-    seed have no effect; sampling (temperature > 0) is not ported yet."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            f"generate: temperature={temperature!r} (sampling) is not "
-            f"ported yet; only greedy (temperature <= 0) is")
+    """Autoregressive decoding over the dense KV cache: greedy at
+    temperature <= 0 (top_k, top_p and seed then have no effect), else
+    temperature sampling with the reference's top-k / top-p filter
+    (`_sample_filter`; top_p=None or 1.0 drops the nucleus step) and
+    the port's counter-based draws (module docstring). Once a row emits
+    eos it emits eos for every later position. input_ids: [B, T]
+    array-like; returns np.ndarray [B, T + max_new_tokens]."""
     cfg = model.cfg
     geom = cfg.geom
     params = extract_params(model)
@@ -195,10 +273,19 @@ def generate(model, input_ids, max_new_tokens: int,
     logits, cache = prefill(params, torch.as_tensor(ids, dtype=torch.int32),
                             geom)
     dev = logits.device
+    keys = _row_keys(seed, B, dev)
+
+    def per_row(value, dtype):
+        return torch.full((B,), value, dtype=dtype, device=dev)
+
+    knobs = (per_row(temperature, torch.float32),
+             per_row(int(top_k) if top_k else 0, torch.int32),
+             per_row(1.0 if top_p is None else top_p, torch.float32))
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
     toks = []
     for step in range(max_new_tokens):
-        tok = torch.argmax(logits, dim=-1)
+        tok = _sample_rows(logits, keys, per_row(step, torch.long),
+                           *knobs).long()
         if eos_token_id is not None:
             tok = torch.where(finished, torch.full_like(tok, eos_token_id),
                               tok)
@@ -209,3 +296,86 @@ def generate(model, input_ids, max_new_tokens: int,
     new = torch.stack(toks, dim=1).cpu().numpy() if toks \
         else np.zeros((B, 0), np.int64)
     return np.concatenate([ids.astype(np.int64), new], axis=1)
+
+
+@torch.no_grad()
+def beam_search_generate(model, input_ids, beam_size: int,
+                         max_new_tokens: int, length_penalty: float = 0.0,
+                         eos_token_id: Optional[int] = None):
+    """Beam search over the KV cache, the reference's `_beam_rollout`:
+    the beams live as an expanded batch [B*K], each step scores every
+    (beam, token) by cumulative log-probability, keeps the top K per
+    row (ties to the lower flat index, as lax.top_k), re-gathers the
+    cache to the surviving parents and backtracks the (parent, token)
+    lattice at the end. Finished beams (eos emitted) may only extend by
+    eos at zero cost and stop accruing length; length_penalty divides
+    each hypothesis' score by its own length ** length_penalty.
+    Returns (sequences [B, T + max_new_tokens], scores [B]) for the best
+    beam per row."""
+    cfg = model.cfg
+    geom = cfg.geom
+    params = extract_params(model)
+    ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                     else input_ids)
+    B, T = ids.shape
+    K, V = int(beam_size), cfg.vocab_size
+    if T + max_new_tokens > cfg.max_seq_len:
+        raise ValueError("beam search exceeds max_seq_len")
+    eos = -1 if eos_token_id is None else int(eos_token_id)
+    expanded = np.repeat(ids, K, axis=0)              # [B*K, T]
+    logits, cache = prefill(params, torch.as_tensor(expanded,
+                                                    dtype=torch.int32), geom)
+    dev = logits.device
+    # only beam 0 is live at step 0 (all beams hold the same prompt)
+    scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    lengths = torch.full((B, K), float(T), dtype=torch.float32, device=dev)
+    brow = torch.arange(B, device=dev)[:, None]
+    only_eos = None
+    if eos >= 0:
+        only_eos = torch.full((V,), float("-inf"), device=dev)
+        only_eos[eos] = 0.0
+    parents, tokens = [], []
+    for step in range(max_new_tokens):
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+        if only_eos is not None:
+            logp = torch.where(finished[..., None], only_eos, logp)
+        flat = (scores[..., None] + logp).reshape(B, K * V)
+        top_scores, top_idx = _top_k(flat, K)
+        parent = top_idx // V
+        token = top_idx % V
+        was_finished = finished[brow, parent]
+        lengths = lengths[brow, parent] + (~was_finished).float()
+        finished = was_finished | (token == eos) if eos >= 0 \
+            else was_finished
+        gidx = (brow * K + parent).reshape(-1)
+        cache = [(k[gidx], v[gidx]) for k, v in cache]
+        scores = top_scores
+        parents.append(parent)
+        tokens.append(token)
+        if step + 1 < max_new_tokens:
+            logits, cache = decode_step(params, cache, token.reshape(-1),
+                                        T + step, geom)
+    scores = scores.cpu().numpy()
+    lengths = lengths.cpu().numpy()
+    parents = torch.stack(parents).cpu().numpy()      # [steps, B, K]
+    tokens = torch.stack(tokens).cpu().numpy()
+    if length_penalty:
+        scores = scores / (lengths ** length_penalty)
+    best = scores.argmax(axis=1)
+    out = np.zeros((B, max_new_tokens), np.int64)
+    for b in range(B):
+        k = best[b]
+        for s in range(max_new_tokens - 1, -1, -1):
+            out[b, s] = tokens[s, b, k]
+            k = parents[s, b, k]
+    return (np.concatenate([ids.astype(np.int64), out], axis=1),
+            scores[np.arange(B), best])
+
+
+def _top_k(x, k: int):
+    """The k largest of each row of x [B, N], descending, ties to the
+    lower index (lax.top_k's order; torch.topk leaves ties unordered)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[:, :k], order.indices[:, :k]

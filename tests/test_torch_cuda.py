@@ -21,7 +21,11 @@ PyTorch is installed:
   CPU (through the plain version): tokens and flags exactly, pools
   within 1e-5;
 - the engine on CUDA: ragged (K3) and bucketed (gather) routes give the
-  same greedy tokens, and K3 launches layers x k x chunks times;
+  same greedy tokens, and K3 launches layers x k x chunks times; with
+  the prefix cache (f32 and int8 pools, dense and chunked admission)
+  and with the host tier, the port's CPU tokens exactly, K3 reading
+  blocks that several rows' tables name; generate() sampling and beam
+  search equal to the CPU's;
 - K1 (ops/kernels/flash_attention) and K2 (ops/kernels/packed_flash),
   forward (out, lse) and backward (dq, dk, dv), against their plain
   versions at T 128, 512 (ERNIE-large's), 640, 1024 and 2176, causal
@@ -282,6 +286,78 @@ def test_engine_ragged_matches_bucketed_and_counts_launches(cuda):
     for rid in res["ragged"]:
         np.testing.assert_array_equal(res["ragged"][rid],
                                       res["bucketed"][rid])
+
+
+def _templated_arrivals(seed, n_tpl, tpl_len, n, gap, mt, suffix=(2, 6)):
+    rng = np.random.RandomState(seed)
+    tpls = [rng.randint(1, 97, (tpl_len,)).astype(np.int32)
+            for _ in range(n_tpl)]
+    return [(gap * i, np.concatenate([tpls[i % n_tpl], rng.randint(
+        1, 97, (int(rng.randint(*suffix)),)).astype(np.int32)]), mt)
+        for i in range(n)]
+
+
+def _serve(device, arrivals, **kw):
+    """The tiny model's engine on `device` over `arrivals`: (tokens per
+    request, engine, K3 launches)."""
+    from paddle_tpu_torch.tools.serving_traffic import drive_arrivals
+    cfg = dict(dict(block_size=8, num_blocks=40, max_num_seqs=4,
+                    decode_chunk_size=8, enable_prefix_cache=True), **kw)
+    before = ragged_decode_attention.launches
+    eng, rids = drive_arrivals(_tiny_model(device), EngineConfig(**cfg),
+                               arrivals, device)
+    launched = ragged_decode_attention.launches - before
+    eng.cache.check_integrity()
+    return [eng.get_request(r).output_ids for r in rids], eng, launched
+
+
+@pytest.mark.parametrize("kw", [{}, dict(kv_cache_dtype="int8"),
+                                dict(prefill_chunk_threshold=0)],
+                         ids=["prefix", "prefix_int8", "prefix_chunked"])
+def test_prefix_engine_cuda_matches_cpu(cuda, kw):
+    """Templated traffic (hits on shared blocks and copy-on-write forks)
+    through K3 on the card: the port's CPU tokens exactly, the audit
+    clean, K3 launched layers x k x chunks times."""
+    arrivals = _templated_arrivals(4, 2, 21, 8, 2, 10)
+    want, _, _ = _serve("cpu", arrivals, **kw)
+    got, eng, launched = _serve(cuda, arrivals, **kw)
+    assert got == want
+    ps = eng.cache.prefix_stats()
+    assert ps["hits"] > 0 and ps["cow_forks"] > 0, ps
+    assert launched == 2 * 8 * eng.stats.host_syncs["decode"] > 0
+    if kw.get("kv_cache_dtype") == "int8":
+        assert all(q.dtype == torch.int8 and q.is_cuda
+                   for (qk, qv), _ in eng.cache.stored_pools()
+                   for q in (qk, qv))
+
+
+def test_tiered_engine_cuda_matches_cpu(cuda):
+    """More templates than the pool holds, revisited: demotions to host
+    RAM and promotions back onto the card, tokens equal to the CPU's."""
+    arrivals = _templated_arrivals(5, 4, 32, 6, 12, 6)
+    arrivals += [(80 + i, p, mt) for i, (_, p, mt) in
+                 enumerate(_templated_arrivals(5, 4, 32, 4, 0, 6))]
+    kw = dict(num_blocks=16, host_tier_blocks=32, max_num_seqs=2)
+    want, cpu_eng, _ = _serve("cpu", arrivals, **kw)
+    got, eng, launched = _serve(cuda, arrivals, **kw)
+    assert got == want
+    ps = eng.cache.prefix_stats()
+    assert ps == cpu_eng.cache.prefix_stats()
+    assert ps["tier_demotions"] > 0 and ps["promote_hit"] > 0, ps
+    assert launched == 2 * 8 * eng.stats.host_syncs["decode"] > 0
+
+
+def test_sampling_generate_cuda_matches_cpu(cuda):
+    """generate() with temperature, top-k and top-p draws the same
+    tokens on the card as on the CPU (counter-based noise)."""
+    ids = np.random.RandomState(6).randint(0, 97, (3, 5)).astype(np.int32)
+    want = gen.generate(_tiny_model("cpu"), ids, 12, 0.9, 20, 0.9, None, 5)
+    got = gen.generate(_tiny_model(cuda), ids, 12, 0.9, 20, 0.9, None, 5)
+    np.testing.assert_array_equal(got, want)
+    seqs, scores = gen.beam_search_generate(_tiny_model(cuda), ids, 3, 8)
+    cseqs, cscores = gen.beam_search_generate(_tiny_model("cpu"), ids, 3, 8)
+    np.testing.assert_array_equal(seqs, cseqs)
+    np.testing.assert_allclose(scores, cscores, rtol=0, atol=1e-4)
 
 
 # ------------------------------------------------------------- K1 and K2

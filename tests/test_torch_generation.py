@@ -168,3 +168,90 @@ def test_generate_greedy_tokens_match_jax(models, eos):
                                         eos_token_id=eos_id))
     got = gen.generate(tm, ids, 12, eos_token_id=eos_id)
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------ beam search, sampling
+@pytest.mark.parametrize("beam,penalty,eos", [(3, 0.0, None), (4, 0.7, None),
+                                              (3, 1.0, "first")])
+def test_beam_search_matches_jax(models, beam, penalty, eos):
+    """beam_search_generate is deterministic: the same sequences as the
+    JAX package's, scores within 2e-5 (float32 sums of log-probs)."""
+    jm, tm = models
+    ids = np.random.RandomState(5).randint(0, VOCAB, (2, 5)).astype(np.int32)
+    eos_id = None
+    if eos:
+        # a token some beam emits, so finished beams are exercised
+        seqs, _ = jgen.beam_search_generate(jm, jnp.asarray(ids), beam, 10)
+        eos_id = int(np.asarray(seqs)[0, 7])
+    js, jsc = jgen.beam_search_generate(jm, jnp.asarray(ids), beam, 10,
+                                        penalty, eos_id)
+    ts, tsc = gen.beam_search_generate(tm, ids, beam, 10, penalty, eos_id)
+    np.testing.assert_array_equal(ts, np.asarray(js))
+    np.testing.assert_allclose(tsc, np.asarray(jsc), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("temp,top_k,top_p", [(0.8, 20, 0.9), (1.3, 0, 0.7),
+                                              (0.5, 5, None), (1.0, 0, 1.0)])
+def test_sampling_filter_matches_jax_draws(models, temp, top_k, top_p):
+    """The port's sampling filter is `_sampling_rollout`'s: JAX's own
+    generate() draws (argmax of the filtered logits plus the Gumbel noise
+    of its split keys, which is what jax.random.categorical computes)
+    are reproduced exactly from the port's filter over the port's
+    logits along JAX's token stream."""
+    import jax
+    jm, tm = models
+    ids = np.random.RandomState(6).randint(0, VOCAB, (2, 5)).astype(np.int32)
+    T, new = ids.shape[1], 8
+    want = np.asarray(jgen.generate(jm, jnp.asarray(ids), new, temp, top_k,
+                                    top_p, None, 3))
+    key = jax.random.PRNGKey(3)
+    probe = jax.random.normal(jax.random.PRNGKey(9), (2, VOCAB))
+    assert np.array_equal(
+        np.asarray(jax.random.categorical(key, probe, axis=-1)),
+        np.argmax(np.asarray(probe + jax.random.gumbel(key, (2, VOCAB))),
+                  axis=-1))
+    params = gen.extract_params(tm)
+    for t in range(new):
+        key, sub = jax.random.split(key)
+        logits, _ = gen.prefill(params, torch.as_tensor(want[:, :T + t]),
+                                tm.cfg.geom)
+        lg = gen._sample_filter(
+            logits, torch.full((2,), temp), torch.full((2,), top_k or 0),
+            torch.full((2,), 1.0 if top_p is None else top_p))
+        noise = np.asarray(jax.random.gumbel(sub, (2, VOCAB), jnp.float32))
+        np.testing.assert_array_equal(
+            np.argmax(lg.numpy() + noise, axis=-1), want[:, T + t])
+
+
+def test_top_p_one_drops_the_nucleus_step(models):
+    _, tm = models
+    ids = np.random.RandomState(7).randint(0, VOCAB, (2, 4)).astype(np.int32)
+    a = gen.generate(tm, ids, 8, 0.9, 10, None, seed=4)
+    b = gen.generate(tm, ids, 8, 0.9, 10, 1.0, seed=4)
+    np.testing.assert_array_equal(a, b)
+    lg = torch.randn(3, VOCAB)
+    knobs = (torch.full((3,), 0.9), torch.full((3,), 10, dtype=torch.int32))
+    assert torch.equal(gen._sample_filter(lg, *knobs, torch.full((3,), 1.0)),
+                       gen._sample_filter(lg, *knobs, torch.full((3,), 2.0)))
+
+
+def test_sampling_is_seeded_and_filtered(models):
+    """Port against port (JAX's threefry draws cannot be matched): one
+    seed gives one stream, another seed another, top_k=1 is greedy, and
+    every draw lies inside the top-k set of its logits."""
+    _, tm = models
+    ids = np.random.RandomState(8).randint(0, VOCAB, (3, 4)).astype(np.int32)
+    a = gen.generate(tm, ids, 10, 1.0, 5, 0.9, seed=11)
+    np.testing.assert_array_equal(a, gen.generate(tm, ids, 10, 1.0, 5, 0.9,
+                                                  seed=11))
+    assert not np.array_equal(a, gen.generate(tm, ids, 10, 1.0, 5, 0.9,
+                                              seed=12))
+    np.testing.assert_array_equal(gen.generate(tm, ids, 10, 1.5, 1, None,
+                                               seed=3),
+                                  gen.generate(tm, ids, 10))
+    params = gen.extract_params(tm)
+    for t in range(10):
+        logits, _ = gen.prefill(params, torch.as_tensor(a[:, :4 + t]),
+                                tm.cfg.geom)
+        top5 = torch.topk(logits, 5).indices.numpy()
+        assert all(a[r, 4 + t] in top5[r] for r in range(3))

@@ -243,11 +243,19 @@ def test_scrub_zeroes_freed_blocks():
 
 
 def test_unported_cache_modes_raise():
-    for kw in (dict(enable_prefix_cache=True), dict(host_tier_blocks=4),
-               dict(kv_cache_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            PagedKVCache(1, 1, 2, num_blocks=4, block_size=2, device="cpu",
-                         **kw)
+    """The prefix cache, host tier and int8 pools are ported (their own
+    test files); KV migration and peer prefix fetch are not, and raise."""
+    pc = PagedKVCache(1, 1, 2, num_blocks=4, block_size=2, device="cpu",
+                      enable_prefix_cache=True, host_tier_blocks=4,
+                      kv_cache_dtype="int8")
+    pc.allocate("a", 3)
+    for call in (lambda: pc.export_blocks("a"),
+                 lambda: pc.import_blocks("b", None, 3),
+                 lambda: pc.payload_bytes(None),
+                 lambda: pc.export_prefix(np.arange(5)),
+                 lambda: pc.admit_prefix(np.arange(5), [])):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            call()
 
 
 # ------------------------------------------------------- engine parity
@@ -494,7 +502,7 @@ def test_chip_smoke_phases_run_on_cpu_at_tiny_size():
 def test_unported_engine_options_raise(models):
     _, tm = models
     with pytest.raises(NotImplementedError):
-        _engine(tm, enable_prefix_cache=True)
+        _engine(tm, tenants=object())
     with pytest.raises(NotImplementedError):
         _engine(tm, prefill_cost_model="auto")
     with pytest.raises(ValueError):

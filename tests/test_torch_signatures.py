@@ -389,16 +389,15 @@ UNPORTED = {
     "AdamW.lr_ratio": lambda: AdamW(0.1, lr_ratio=lambda p: 1.0),
     "AdamW.apply_decay_param_fun": lambda: AdamW(
         0.1, apply_decay_param_fun=lambda n: True),
-    "generate.temperature": "gpt",
-    "PagedKVCache.promote_timeout_s": lambda: _cache(promote_timeout_s=1.0),
     "SchedulerConfig.tenants": lambda: Scheduler(
         SchedulerConfig(tenants=object()), _cache()),
-    "SchedulerConfig.cache_high_watermark": lambda: Scheduler(
-        SchedulerConfig(cache_high_watermark=0.9), _cache()),
-    "EngineConfig.step_timeout_s": "engine",
+    "SchedulerConfig.prefill_cost_model": lambda: Scheduler(
+        SchedulerConfig(prefill_cost_model="auto"), _cache()),
+    "EngineConfig.prefill_cost_model": "engine",
+    "EngineConfig.tenants": "engine",
     "EngineConfig.obs_label": "engine",
+    "EngineConfig.model": "engine",
     "EngineConfig.revision": "engine",
-    "LLMEngine.faults": "engine",
 }
 
 
@@ -408,18 +407,12 @@ def test_unported_parameter_takes_only_its_default(case, gpt_pair):
     raises NotImplementedError for any value but its default."""
     call = UNPORTED[case]
     _, tm = gpt_pair
-    if call == "gpt":
-        def call():
-            gen.generate(tm, np.zeros((1, 2), np.int32), 2, 0.7)
-    elif call == "engine":
+    if call == "engine":
         field = case.split(".")[1]
-        value = {"step_timeout_s": 1.0, "obs_label": "x",
-                 "revision": "r1", "faults": object()}[field]
+        value = {"prefill_cost_model": "auto", "tenants": object(),
+                 "obs_label": "x", "model": "m1", "revision": "r1"}[field]
 
         def call():
-            if field == "faults":
-                return LLMEngine.from_model(tm, EngineConfig(block_size=8),
-                                            value, device="cpu")
             return LLMEngine.from_model(
                 tm, EngineConfig(block_size=8, **{field: value}),
                 device="cpu")
