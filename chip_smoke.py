@@ -31,9 +31,14 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    hidden, 12 layers, 6 heads of 128, vocab 32768, 1024 positions; 16
    greedy requests, prompts 64-256, outputs 64-256, staggered arrivals,
    random weights from --seed): every request finishes, the cache audits
-   clean, the kernel launched layers x k x chunks times, and the tokens
-   equal the port's dense generate() except where the reference's top-2
-   logit margin is under 1e-3;
+   clean, the kernel launched layers x k x chunks times (chunks: the
+   decode host syncs), the tokens equal the port's dense generate()
+   except where the reference's top-2 logit margin is under 1e-3, and
+   the obs registry's TTFT p50 for the engine's label equals
+   np.percentile of the requests' TTFTs; then the same traffic with
+   request tracing off (obs.reqtrace.disable()), both decode tokens/s
+   printed (not gated: the trip is host-bound, so a host cost of tracing
+   shows here first);
 6a. the same model and engine with the prefix cache on shared-prefix
    traffic (serving_traffic.prefix_traffic: 4 templates of 512 tokens,
    4 leaders then 28 followers in bursts of 7, suffixes 16-64 tokens,
@@ -54,6 +59,31 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    512 tokens visited in triples and then revisited in one burst
    (serving_traffic.tiered_traffic): demotions and promotion hits,
    the audit clean, tokens by phase 6's rule, promotion latency printed;
+6d. multi-tenant WFQ admission: the same model and engine with
+   max_prefill_tokens 512, max_waiting 32, the committed prefill cost
+   model ("auto"), its own obs label and a fresh TenantRegistry
+   (serving_traffic.TENANTS: latency, bulk (batch class) and a burst
+   tenant with a 600-token quota over 300 s) on
+   serving_traffic.tenant_traffic (load_suite's multi_tenant at block
+   32: 16 bulk prompts of 320-448 tokens at step 0, 10 latency prompts
+   of 32-72 at steps 1, 3, ..., 19, 6 burst requests of a 192-token
+   template plus 16-40 at step 2; 32-64 new tokens each, greedy): every
+   admitted request finishes, tokens by phase 6's rule, the audit clean
+   (per-tenant census reconciled), K3 launched layers x k x chunks
+   times, at least one quota refusal, the latency tenant's TTFT p50 at
+   most the bulk tenant's, the admission order read from the trace
+   events equal to the scheduler-only replay's
+   (serving_traffic.replay_admissions, recomputed here on the host),
+   the causality checker clean on the pass's complete dump, and a JSON
+   and a Prometheus snapshot written to a temp dir and read back with
+   the engine's TTFT count and generated tokens; per-tenant tokens and
+   TTFT p50/p99, the TTFT decomposition's medians and the refusals
+   printed;
+6e. the inference facade: Config().enable_llm_engine(model, the serving
+   bench's engine config, max_tokens=32) -> create_predictor -> run on 4
+   right-padded prompts of 64-256 tokens: an int64 [4, T_out] result
+   whose rows are each prompt followed by the tokens the engine alone
+   gives on the card;
 7. flash kernels K1 (6 heads of 128) and K2 (12 heads of 64, packed
    pairs) against their plain versions at the GPT train step's attention
    shape (B 32, T 1024, causal), and K2 at ERNIE-large's (k2_nc: B 32,
@@ -496,6 +526,55 @@ def top2_margin(model, prompt, tokens) -> float:
     return (top2[0] - top2[1]).item()
 
 
+def check_registry_ttft(eng, ttft) -> None:
+    """The obs registry's TTFT histogram for the engine's label holds
+    every request's TTFT: its p50 equals np.percentile of them."""
+    import numpy as np
+    from paddle_tpu_torch import obs
+    hist = obs.REGISTRY.get("serving_ttft_seconds").get(
+        engine=eng.stats.label)
+    want = float(np.percentile(ttft, 50))
+    got = hist.quantile(0.5)
+    print(f"[engine] registry TTFT p50 for {eng.stats.label}: "
+          f"{got * 1e3:.4f} ms over {hist.count} requests; np.percentile "
+          f"{want * 1e3:.4f} ms")
+    _require(hist.count == len(ttft) and got == want,
+             "the registry's TTFT histogram disagrees with the requests")
+
+
+def tracing_off(model, ecfg, specs, device, on_tps: float) -> None:
+    """Phase 6's traffic again with request tracing off; both decode
+    tokens/s printed, the decode host syncs still one a chunk."""
+    import torch
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_decode_attention)
+    from paddle_tpu_torch.tools.serving_traffic import drive_engine
+    obs.reqtrace.disable()
+    try:
+        ragged_decode_attention.launches = 0
+        eng, _ = drive_engine(model, ecfg, specs, device)
+    finally:
+        obs.reqtrace.enable()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    d = eng.stats.as_dict()
+    chunks = eng.stats.host_syncs["decode"]
+    L, k = model.cfg.num_layers, ecfg.decode_chunk_size
+    want = L * k * chunks if torch.device(device).type == "cuda" else 0
+    _require(ragged_decode_attention.launches == want,
+             f"tracing off: K3 launched {ragged_decode_attention.launches}"
+             f" times, expected {want}")
+    _require(not obs.reqtrace.events(prefix=f"tr-{eng.stats.label}-"),
+             "tracing off: the ring recorded events")
+    print(f"[engine] request tracing on / off: decode tokens/s "
+          f"{on_tps:.1f} / {d['decode_tokens_per_sec']:.1f} (ratio "
+          f"{on_tps / d['decode_tokens_per_sec']:.4f}; not gated), "
+          f"{chunks} chunks")
+    del eng
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 6a-c
 # the shared-prefix passes: the serving bench's model and engine with
 # the prefix cache (a), then int8 KV blocks (b), then the host tier (c)
@@ -505,6 +584,11 @@ def top2_margin(model, prompt, tokens) -> float:
 PREFIX_TRAFFIC: dict = {}
 TIERED_TRAFFIC: dict = {}
 TIERED_ENGINE = dict(num_blocks=192, host_tier_blocks=256, max_num_seqs=8)
+# the tenant pass's traffic arguments beyond tenant_traffic's defaults,
+# and the facade's prompts (count, length range) and new tokens (a CPU
+# rehearsal shrinks them)
+TENANT_TRAFFIC: dict = {}
+FACADE = dict(n=4, p_lo=64, p_hi=256, max_tokens=32)
 
 
 def _drive_pass(name, model, ecfg, arrivals, device) -> dict:
@@ -757,6 +841,196 @@ def run_prefix_passes(model, ecfg, device, seed: int) -> dict:
     del c, eng_c
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ phase 6d
+def _read_back(path_json, path_prom, label):
+    """(TTFT count, generated tokens) of engine `label` from a JSON
+    snapshot and a Prometheus text page written to disk."""
+    snap = json.loads(Path(path_json).read_text())
+    fams = {m["name"]: m for m in snap["metrics"]}
+    ttft = next(s for s in fams["serving_ttft_seconds"]["series"]
+                if s["labels"] == {"engine": label})
+    gen = next(s for s in fams["serving_events_total"]["series"]
+               if s["labels"] == {"engine": label,
+                                  "event": "generated_tokens"})
+    lines = Path(path_prom).read_text().splitlines()
+    prom_count = next(
+        int(line.split()[-1]) for line in lines
+        if line.startswith(f'serving_ttft_seconds_count{{engine="{label}"}}'))
+    prom_gen = next(
+        float(line.split()[-1]) for line in lines
+        if line.startswith(f'serving_events_total{{engine="{label}",'
+                           f'event="generated_tokens"}}'))
+    return (ttft["count"], gen["value"]), (prom_count, prom_gen)
+
+
+def run_tenant_pass(model, ecfg, device, seed: int) -> int:
+    """Phase 6d; returns K3's launches in the pass, counted from 0 just
+    before it."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.analysis import jaxplan
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_decode_attention)
+    from paddle_tpu_torch.tools.serving_traffic import (
+        TENANT_ENGINE, drive_tenants, make_tenant_registry,
+        replay_admissions, tenant_traffic)
+    cuda = torch.device(device).type == "cuda"
+    arrivals = tenant_traffic(model.cfg.vocab_size, seed + 4,
+                              **TENANT_TRAFFIC)
+    tcfg = dataclasses.replace(ecfg, **TENANT_ENGINE,
+                               tenants=make_tenant_registry(serving))
+    ragged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    eng, by_tenant, quota, rejected = drive_tenants(model, tcfg, arrivals,
+                                                    device)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ragged_decode_attention.launches
+    chunks = eng.stats.host_syncs["decode"]
+    L, k = model.cfg.num_layers, tcfg.decode_chunk_size
+    want = L * k * chunks if cuda else 0
+    _require(launches == want and (launches > 0 or not cuda),
+             f"pass tenant: K3 launched {launches} times, expected {want}")
+    label = eng.stats.label
+    d = eng.stats.as_dict()
+    print(f"[tenant] {len(arrivals)} arrivals, {d['completed']} completed, "
+          f"{d['generated_tokens']} tokens, {d['steps']} steps, {chunks} "
+          f"chunks, {d['preemptions']} preemptions, wall {wall:.3f} s; "
+          f"decode tokens/s {d['decode_tokens_per_sec']:.1f}; K3 launches "
+          f"{launches} = {L} x {k} x {chunks}; refused: quota "
+          f"{len(quota)} {quota}, deadline {eng.scheduler.deadline_rejects},"
+          f" queue {len(rejected)}")
+    # every admitted request finished, tokens by phase 6's rule, the
+    # audit (with the per-tenant census) clean
+    order = sorted(range(len(arrivals)), key=lambda i: arrivals[i][0])
+    admitted = {rid for rids in by_tenant.values() for rid in rids}
+    pairs = [(f"req-{n}", arrivals[i]) for n, i in enumerate(order)
+             if f"req-{n}" in admitted]
+    audit = eng.cache.check_integrity()
+    parted = check_engine_outputs(model, eng, [r for r, _ in pairs],
+                                  [(a[1], a[2]) for _, a in pairs])
+    print(f"[tenant] audit {audit}; greedy tokens vs dense generate(): "
+          f"{parted} of {len(pairs)} requests parted (each at a top-2 "
+          f"margin < 1e-3)")
+    _require(len(quota) >= 1, "pass tenant: no quota refusal")
+    # fairness, from the trace
+    events = [e.as_dict() for e in obs.reqtrace.events(
+        prefix=f"tr-{label}-")]
+    by = obs.reqtrace.ttft_by_tenant(events)
+    for t in sorted(by_tenant):
+        ttft = np.array([eng.get_request(r).first_token_time
+                         - eng.get_request(r).arrival_time
+                         for r in by_tenant[t]])
+        toks = sum(len(eng.get_request(r).output_ids) for r in by_tenant[t])
+        print(f"[tenant] {t}: {len(by_tenant[t])} admitted, {toks} tokens, "
+              f"TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, p99 "
+              f"{np.percentile(ttft, 99) * 1e3:.1f} ms; trace median "
+              f"{by[t]['ttft_s'] * 1e3:.1f} ms (queue "
+              f"{by[t]['queue_s'] * 1e3:.1f}, prefill "
+              f"{by[t]['prefill_s'] * 1e3:.1f}, first gap "
+              f"{by[t]['first_gap_s'] * 1e3:.1f})")
+    dec = obs.reqtrace.ttft_decomposition(events)
+    print(f"[tenant] TTFT decomposition medians over {int(dec['n'])} "
+          f"requests: queue {dec['queue_s'] * 1e3:.1f} ms, prefill "
+          f"{dec['prefill_s'] * 1e3:.1f} ms, first gap "
+          f"{dec['first_gap_s'] * 1e3:.1f} ms, TTFT "
+          f"{dec['ttft_s'] * 1e3:.1f} ms")
+    ratio = by["latency"]["ttft_s"] / by["bulk"]["ttft_s"]
+    print(f"[tenant] latency / bulk TTFT p50 {ratio:.4f} (limit 1.0)")
+    _require(ratio <= 1.0, "pass tenant: the latency tenant's TTFT p50 "
+                           "exceeds the bulk tenant's")
+    # the admission order against the scheduler-only replay
+    scheduled = [e["request_id"] for e in events
+                 if e["kind"] == "scheduled"]
+    replay = replay_admissions(
+        arrivals, tcfg, serving, obs.reqtrace,
+        serving.PagedKVCache(1, 1, 8, tcfg.num_blocks, tcfg.block_size,
+                             device="cpu"),
+        make_tenant_registry(serving), jaxplan.default_admission_model())
+    print(f"[tenant] admission order {scheduled}; replay: the same "
+          f"{scheduled == replay['scheduled']}, chunks {replay['chunks']} "
+          f"(engine {chunks}), quota refusals {replay['quota']}, "
+          f"preemptions {replay['preemptions']}")
+    _require(scheduled == replay["scheduled"]
+             and quota == replay["quota"]
+             and rejected == replay["rejected"]
+             and d["preemptions"] == replay["preemptions"],
+             "pass tenant: the admission order, refusals or preemptions "
+             "differ from the scheduler-only replay")
+    tids = sorted({e["trace_id"] for e in events})
+    violations = obs.reqtrace.check_causality(
+        obs.reqtrace.dump_payload("chip-multi-tenant", trace_ids=tids,
+                                  complete=True))
+    print(f"[tenant] causality check over {len(tids)} traces: "
+          f"{len(violations)} violation(s) {violations[:3]}")
+    _require(not violations, "pass tenant: causality violated")
+    with tempfile.TemporaryDirectory() as tmp:
+        pj, pp = Path(tmp) / "snapshot.json", Path(tmp) / "metrics.prom"
+        obs.dump_snapshot(str(pj))
+        pp.write_text(obs.to_prometheus())
+        from_json, from_prom = _read_back(pj, pp, label)
+    want = (len(pairs), d["generated_tokens"])
+    print(f"[tenant] snapshots read back (TTFT count, generated tokens): "
+          f"JSON {from_json}, Prometheus {from_prom}, engine {want}")
+    _require(from_json == want and from_prom == want,
+             "pass tenant: a snapshot read back other numbers")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------ phase 6e
+def run_facade(model, ecfg, device, seed: int) -> None:
+    """Phase 6e: Config.enable_llm_engine -> create_predictor -> run on
+    right-padded prompts, against the engine alone."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.inference.serving import (LLMEngine,
+                                                    SamplingParams)
+    rng = np.random.RandomState(seed + 5)
+    n, mt = FACADE["n"], FACADE["max_tokens"]
+    lens = rng.randint(FACADE["p_lo"], FACADE["p_hi"] + 1, n)
+    ids = np.zeros((n, int(lens.max())), np.int64)
+    for b, m in enumerate(lens):
+        ids[b, :m] = rng.randint(1, model.cfg.vocab_size, m)
+    cuda = torch.device(device).type == "cuda"
+    cfg = inference.Config()
+    if not cuda:
+        cfg.disable_gpu()
+    # the engine's fields but the (model, revision) key, which keeps its
+    # default (and whose name enable_llm_engine's model takes)
+    opts = {f: v for f, v in dataclasses.asdict(ecfg).items()
+            if f not in ("model", "revision")}
+    cfg.enable_llm_engine(model=model, **opts, max_tokens=mt)
+    pred = inference.create_predictor(cfg)
+    [seqs] = pred.run([ids, lens])
+    eng = LLMEngine.from_model(model, ecfg, device=device)
+    rids = [eng.add_request(ids[b, :m], SamplingParams(max_tokens=mt))
+            for b, m in enumerate(lens)]
+    alone = eng.run()
+    width = int(max(m + len(alone[r]) for m, r in zip(lens, rids)))
+    print(f"[facade] create_predictor -> {type(pred).__name__}; sequences "
+          f"{seqs.dtype} {list(seqs.shape)} for prompts {lens.tolist()}")
+    _require(seqs.dtype == np.int64 and seqs.shape == (n, width),
+             f"facade: sequences {seqs.dtype} {seqs.shape}, want int64 "
+             f"({n}, {width})")
+    for b, (m, r) in enumerate(zip(lens, rids)):
+        row = np.concatenate([ids[b, :m], alone[r]])
+        _require(np.array_equal(seqs[b, :row.size], row)
+                 and not seqs[b, row.size:].any(),
+                 f"facade: row {b} is not its prompt and the engine's "
+                 f"tokens")
+    print(f"[facade] every row is its prompt and the engine's {mt} tokens "
+          f"on {card_line() if cuda else 'the CPU'}")
 # ------------------------------------------------------------ phase 7
 # the flash kernels' main-path shapes: the GPT step's attention (B 32,
 # T 1024, causal; K1 6 heads of 128, K2 12 heads of 64 packed in 6 pairs
@@ -1526,7 +1800,8 @@ def drive_lenet(device, seed: int) -> dict:
 
 
 def run_serving(device, seed: int) -> dict:
-    """Phases 3-6; returns K3's kernel entry."""
+    """Phases 3-6e; returns K3's kernel entry (its launches from phase
+    6, each later pass's in pass_launches)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
@@ -1572,12 +1847,16 @@ def run_serving(device, seed: int) -> dict:
     print(f"[engine] TTFT mean {ttft.mean() * 1e3:.1f} ms, p50 "
           f"{np.percentile(ttft, 50) * 1e3:.1f} ms, max "
           f"{ttft.max() * 1e3:.1f} ms")
+    check_registry_ttft(eng, ttft)
     parted = check_engine_outputs(model, eng, rids, specs)
     print(f"[engine] greedy tokens vs dense generate(): {parted} of "
           f"{len(rids)} requests parted (each at a top-2 margin < 1e-3)")
     del eng
     torch.cuda.empty_cache()
+    tracing_off(model, ecfg, specs, device, d["decode_tokens_per_sec"])
     passes = run_prefix_passes(model, ecfg, device, seed)
+    passes["tenant"] = run_tenant_pass(model, ecfg, device, seed)
+    run_facade(model, ecfg, device, seed)
     del model
     torch.cuda.empty_cache()
     return {

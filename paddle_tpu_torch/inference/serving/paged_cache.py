@@ -44,11 +44,19 @@ into a block that the trie or another table holds would change every
 sharer. So every write path checks first that its blocks are private
 (`write_blocks`, refcount 1 and not indexed) and raises otherwise.
 
-Left out (later slices): KV migration and peer prefix fetch
+Tenants (fed by a scheduler with a TenantRegistry): each sequence's
+tenant is stamped on the trie nodes it registers, and eviction is
+share-weighted: tenants holding more device-resident cached blocks than
+their prefix_share of the cached pool lose theirs first (LRU among
+them), then the sweep widens to the global LRU. The victim is always an
+unreferenced cached block, so no live table loses a block. The audit
+reconciles each tenant's lifetime insertions and removals with its live
+census, and a failed audit triggers the flight recorder
+(obs/reqtrace.py) before it raises.
+
+Left out (slice 7, with migration): KV export and peer prefix fetch
 (`export_blocks`, `import_blocks`, `export_prefix`, `admit_prefix`,
-`payload_bytes` raise NotImplementedError), the tenant plumbing
-(`note_seq_tenant`, share-weighted eviction: every node belongs to the
-"default" tenant), and the flight-recorder dump on a failed audit.
+`payload_bytes` raise NotImplementedError).
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ import numpy as np
 import torch
 
 from ...core.place import DeviceLike, resolve_device
+from ...obs import reqtrace
 from . import kv_quant
 from .host_tier import HostTierStore
 from .prefix_cache import PrefixCacheIndex, PrefixNode
@@ -170,6 +179,12 @@ class PagedKVCache:
         self.blocks_attached = 0
         self.alloc_failures = 0
         self.high_water = 0
+        # tenants (inert until a multi-tenant scheduler feeds them):
+        # seq_id -> tenant, stamped on the trie nodes the sequence
+        # registers, and the prefix-share weights of weighted eviction
+        # (None: the global LRU)
+        self._seq_tenant: Dict[object, str] = {}
+        self._tenant_weights: Optional[Dict[str, float]] = None
 
     # ------------------------------------------------ pool storage view
     @property
@@ -237,6 +252,38 @@ class PagedKVCache:
         self._tier_faults = faults
         self._tier_step = step
 
+    # -------------------------------------------------- tenant plumbing
+    def note_seq_tenant(self, seq_id, tenant: str) -> None:
+        """Tag the tenant whose share seq_id spends; the tag rides into
+        the trie when the sequence's prefix registers and is dropped
+        with the sequence's table."""
+        self._seq_tenant[seq_id] = tenant
+
+    def set_tenant_weights(self, weights: Optional[Dict[str, float]]
+                           ) -> None:
+        """Install the prefix-share weights (a TenantRegistry snapshot);
+        None restores the unweighted global LRU."""
+        self._tenant_weights = dict(weights) if weights else None
+
+    def _over_share_tenants(self) -> Optional[set]:
+        """Tenants holding MORE device-resident cached blocks than their
+        prefix_share-weighted part of the cached pool: weighted eviction
+        charges them first. None when weighting cannot discriminate (no
+        weights, or at most one tenant holding blocks): the caller takes
+        the global LRU sweep, as a single-tenant stack always does."""
+        w = self._tenant_weights
+        idx = self.prefix_index
+        if not w or idx is None:
+            return None
+        census = idx.tenant_device_blocks()
+        if len(census) <= 1:
+            return None
+        total = sum(census.values())
+        total_w = sum(w.get(t, 1.0) for t in census)
+        over = {t for t, n in census.items()
+                if n > total * w.get(t, 1.0) / total_w}
+        return over or None
+
     # ------------------------------------------------------------ queries
     def num_free(self) -> int:
         return len(self._free)
@@ -299,9 +346,11 @@ class PagedKVCache:
         one-at-a-time loop), then spilled with one gather per pool
         tensor. A victim the demote path refuses (tainted, or an
         injected kill_demotion) flushes what is staged and is evicted
-        plainly."""
+        plainly. Victims come first from the tenants over their prefix
+        share; once none is left the sweep widens to the global LRU."""
         idx = self.prefix_index
         evicted = 0
+        among = self._over_share_tenants()
         if self.host_tier is not None:
             pending: List[PrefixNode] = []
             pset: set = set()
@@ -309,7 +358,10 @@ class PagedKVCache:
             while evicted < n:
                 node = idx.lru_demotable(
                     lambda b: self._refcount.get(b, 0) == 0,
-                    skip=self._promote_guard, pending=pset)
+                    skip=self._promote_guard, pending=pset, among=among)
+                if node is None and among is not None:
+                    among = None             # widen to the global LRU
+                    continue
                 if node is None:
                     break
                 evicted += 1
@@ -325,7 +377,11 @@ class PagedKVCache:
             self._flush_demotions(pending)
             return evicted
         while evicted < n:
-            node = idx.pop_lru_leaf(lambda b: self._refcount.get(b, 0) == 0)
+            node = idx.pop_lru_leaf(
+                lambda b: self._refcount.get(b, 0) == 0, among=among)
+            if node is None and among is not None:
+                among = None                 # widen to the global LRU
+                continue
             if node is None:
                 break
             self._give_back(node.block)
@@ -676,7 +732,8 @@ class PagedKVCache:
         if full <= 0:
             return 0
         return idx.insert(toks, table[:full],
-                          skip=lambda b: b in self._tainted)
+                          skip=lambda b: b in self._tainted,
+                          tenant=self._seq_tenant.get(seq_id, "default"))
 
     def clear_prefix_cache(self) -> int:
         """Drop the whole trie (and the host store), returning
@@ -773,6 +830,7 @@ class PagedKVCache:
             self.register_prefix(seq_id, cache_tokens)
         ids = self._tables.pop(seq_id)
         self._lens.pop(seq_id)
+        self._seq_tenant.pop(seq_id, None)
         to_scrub: List[int] = []
         for b in reversed(ids):
             self._refcount[b] -= 1
@@ -865,6 +923,10 @@ class PagedKVCache:
         else:
             report["tenant_drift"] = 0
         if any(report.values()):
+            # a postmortem trigger: when armed, the flight recorder ships
+            # the ring and a registry snapshot before the raise
+            reqtrace.maybe_flight("check_integrity",
+                                  extra={"report": dict(report)})
             raise RuntimeError(f"paged cache integrity violated: {report} "
                                f"(tables={len(self._tables)}, "
                                f"cached={len(cached)}, "

@@ -19,10 +19,10 @@ Invariants (audited by PagedKVCache.check_integrity):
 - along any root-to-leaf path the tiers read device* host* (a "host"
   node's payload lives in the cache's HostTierStore, `block == -1`).
 
-Left out: nothing of the index. The tenant fields and censuses are kept
-(check_integrity reads them); the share-weighted eviction that uses
-them (`among=`) waits for the tenancy port, so the cache always passes
-among=None.
+Left out: nothing of the index. Each node carries the tenant whose
+sequence wrote it; the per-tenant censuses feed the audit's
+reconciliation and the engine's per-tenant gauges, and `among=` restricts
+eviction to the tenants over their prefix share.
 """
 from __future__ import annotations
 

@@ -21,7 +21,19 @@ Port of paddle_tpu/inference/serving/scheduler.py. Per engine step:
    uncached suffix, so shared blocks are never written), and it is
    priced at its uncached suffix. Prompts longer than
    prefill_chunk_threshold are admitted chunked too. Admission never
-   preempts.
+   preempts. With a prefill cost model (analysis/jaxplan) the budget
+   and the prices are its modelled FLOPs instead of token counts.
+
+Multi-tenant admission (`SchedulerConfig.tenants`, a
+tenancy.TenantRegistry): the admission head is chosen by start-time
+weighted fair queuing over per-tenant virtual finish times, each
+request priced at the cost model's price of its FULL effective prompt
+over its tenant's weight, FCFS within a tenant, ties broken on the
+arrival ticket. With no registry, or a single tenant waiting, the head
+is the queue's head, exactly the FCFS path. A registry also arms the
+deadline early reject (a request that cannot start before its deadline
+at the measured step rate is refused at the door) and tags each
+sequence's tenant into the cache for share-weighted prefix eviction.
 
 Robustness: the waiting queue may be bounded (max_waiting; policy
 'reject' raises EngineOverloaded, 'shed_oldest' evicts the oldest);
@@ -30,12 +42,13 @@ deadline_s elapses, and running requests past deadline_s are reported by
 `overdue_running` for the engine to abort at the step boundary; every
 requeue goes through `_requeue`, an arrival-ordered insert.
 
-Left out (later slices): tenancy (WFQ selection, quotas and the deadline
-early-reject; SchedulerConfig.tenants takes only its default), prefill
-cost models, migration (adopt/release, readmit, backlog) and the
-request-trace events (`record_promotion_events` and its kin); the
-promotion result of each admission-time probe is kept in
-`last_promotion`.
+Every admission, prefix match, promotion, demotion, preemption and
+requeue is recorded in the request-trace ring (obs/reqtrace.py) under
+the request's trace id, from host values the scheduler already holds.
+
+Left out (a later slice, with the router): migration (`readmit`,
+`adopt_running`, `release_running`, `remove_waiting`,
+`abort_adopted`, `running_requests`).
 
 The scheduler only does host-side accounting; the engine owns the
 device work and serialises every call into the scheduler under its own
@@ -50,13 +63,37 @@ from typing import List, Optional
 
 import numpy as np
 
-from ...core.unported import require_defaults
+from ...obs import reqtrace
 from .paged_cache import CacheExhausted, PagedKVCache
 
 __all__ = ["EngineOverloaded", "SamplingParams", "Request", "RequestState",
-           "Scheduler", "SchedulerConfig", "ScheduledBatch"]
+           "Scheduler", "SchedulerConfig", "ScheduledBatch",
+           "record_promotion_events"]
 
 ADMISSION_POLICIES = ("reject", "shed_oldest")
+
+
+def record_promotion_events(tid: str, request_id: str,
+                            promo: Optional[dict]) -> None:
+    """Translate one `PagedKVCache.ensure_promoted` result into trace
+    events (the engine's enqueue-time prefetch and the scheduler's
+    admission-time retry share it). A partial promotion records both a
+    `promote` (the blocks that landed) and a `promote_abort` (what
+    stopped the run); `promo is None` means the host run vanished
+    between probe and promotion."""
+    if promo is None:
+        reqtrace.record("promote_abort", tid, request_id,
+                        outcome="raced", promoted=0)
+        return
+    if promo["promoted_blocks"]:
+        reqtrace.record("promote", tid, request_id,
+                        blocks=promo["promoted_blocks"],
+                        tokens=promo["promoted_tokens"],
+                        seconds=round(promo["seconds"], 6))
+    if promo["outcomes"] and promo["outcomes"][-1] != "hit":
+        reqtrace.record("promote_abort", tid, request_id,
+                        outcome=promo["outcomes"][-1],
+                        promoted=promo["promoted_blocks"])
 
 
 class EngineOverloaded(RuntimeError):
@@ -84,9 +121,11 @@ class SamplingParams:
     and top_p >= 1 disable those filters; seed keys both the host-side
     first-token draw and the in-chunk draws. deadline_s bounds the whole
     request (queue + decode) from arrival, queue_ttl_s only its wait in
-    the queue; either ends it with finish_reason 'timeout'. tenant and
-    model are ignored, as the reference ignores them on a stack without
-    a tenant registry or a model registry (neither is ported)."""
+    the queue; either ends it with finish_reason 'timeout'. tenant names
+    the tenant whose share the request spends, resolved against the
+    engine's TenantRegistry (ignored without one). model is ignored, as
+    the reference ignores it on a stack without a model registry (not
+    ported)."""
     max_tokens: int = 16
     temperature: float = 0.0
     top_k: int = 0
@@ -136,6 +175,15 @@ class Request:
     # pf_target. Both reset on every requeue.
     pf_target: int = 0
     prefill_pos: int = 0
+    # request-trace id, minted at admission; survives preemption and
+    # requeue
+    trace_id: Optional[str] = None
+
+    @property
+    def tid(self) -> str:
+        """Trace id for request-trace events (request_id for a bare
+        Request built directly)."""
+        return self.trace_id or self.request_id
 
     def all_token_ids(self) -> np.ndarray:
         """prompt + generated: the effective prompt after preemption."""
@@ -156,11 +204,13 @@ class Request:
 
 @dataclass
 class SchedulerConfig:
-    """The reference's fields in its order; prefill_cost_model and
-    tenants are not ported yet (the Scheduler accepts only their
-    defaults)."""
+    """The reference's fields in its order."""
     max_num_seqs: int = 8                    # decode batch ceiling
     max_prefill_tokens: int = 2048           # per-step admission budget
+    # an object with .cost(num_tokens) and .budget(max_prefill_tokens)
+    # (analysis/jaxplan.PrefillCostModel): admissions are charged its
+    # modelled FLOPs against budget(max_prefill_tokens); None keeps the
+    # flat token count
     prefill_cost_model: Optional[object] = None
     decode_chunk_size: int = 1               # slots reserved per decode
     max_waiting: Optional[int] = None        # waiting-queue bound (None=inf)
@@ -171,6 +221,8 @@ class SchedulerConfig:
     # prompts STRICTLY longer than this are admitted chunked; None
     # disables chunking
     prefill_chunk_threshold: Optional[int] = None
+    # a tenancy.TenantRegistry: WFQ admission, the deadline early reject
+    # and share-weighted prefix eviction; None keeps FCFS
     tenants: Optional[object] = None
 
 
@@ -182,14 +234,11 @@ class ScheduledBatch:
 
 
 class Scheduler:
-    """FCFS scheduler (module docstring). Not thread-safe on its own:
-    LLMEngine calls it only under the engine lock."""
+    """FCFS / WFQ scheduler (module docstring). Not thread-safe on its
+    own: LLMEngine calls it only under the engine lock (the tenant
+    registry's lock is taken under it)."""
 
     def __init__(self, config: SchedulerConfig, cache: PagedKVCache):
-        require_defaults(
-            "SchedulerConfig",
-            prefill_cost_model=(config.prefill_cost_model, None),
-            tenants=(config.tenants, None))
         if config.admission_policy not in ADMISSION_POLICIES:
             raise ValueError(
                 f"admission_policy must be one of {ADMISSION_POLICIES}, "
@@ -204,8 +253,19 @@ class Scheduler:
         self.running: List[Request] = []
         self.num_preemptions = 0
         self.watermark_holds = 0             # admissions paused by the mark
-        # the ensure_promoted result of the last admission-time promotion
-        self.last_promotion: Optional[dict] = None
+        # WFQ state (inert without a registry): _vtime is the system
+        # virtual clock (the last admission's virtual start), _vfinish[t]
+        # tenant t's last virtual finish; weights are the registry's WFQ
+        # weights, re-read when its version moves
+        self.tenants = config.tenants
+        self._vtime = 0.0
+        self._vfinish: dict = {}
+        self._wfq_weights: dict = {}
+        self._weights_version = -1
+        # EWMA of engine step seconds (note_step_seconds), the service
+        # rate of the deadline early reject; 0.0 until the first step
+        self._step_ewma = 0.0
+        self.deadline_rejects = 0
 
     # ------------------------------------------------------------- intake
     def add(self, req: Request) -> List[Request]:
@@ -220,6 +280,9 @@ class Scheduler:
                 f" ({worst} tokens) but the pool only has "
                 f"{self.cache.num_blocks}; grow num_blocks or shrink the"
                 f" request")
+        # a request that cannot meet its deadline is refused before it
+        # could shed viable queued work to make room for itself
+        self._deadline_early_reject(req)
         shed: List[Request] = []
         limit = self.config.max_waiting
         if limit is not None:
@@ -234,6 +297,7 @@ class Scheduler:
                     shed.append(victim)
         req.state = RequestState.WAITING
         self.waiting.append(req)
+        self._note_tenant(req)
         return shed
 
     def shed_oldest(self) -> Optional[Request]:
@@ -249,6 +313,30 @@ class Scheduler:
         """Arrival ticket of the head of the waiting line (None when
         empty)."""
         return self.waiting[0].arrival if self.waiting else None
+
+    def backlog(self) -> dict:
+        """Load snapshot: `waiting` (queue depth), `block_demand` (the
+        worst-case blocks still needed to finish every queued and
+        admitted request) and `prefill_cost` (the queued re-prefills,
+        priced by the cost model when configured, flat tokens
+        otherwise)."""
+        cost_model = self.config.prefill_cost_model
+        demand = 0
+        cost = 0.0
+        for req in self.waiting:
+            tokens = len(req.prompt_ids) + len(req.output_ids)
+            remaining = max(0, req.params.max_tokens - len(req.output_ids))
+            demand += self.cache.blocks_needed(tokens + remaining)
+            cost += cost_model.cost(tokens) if cost_model else tokens
+        for req in self.running:
+            tokens = len(req.prompt_ids) + len(req.output_ids)
+            remaining = max(0, req.params.max_tokens - len(req.output_ids))
+            held = len(self.cache.block_table(req.request_id)) \
+                if self.cache.has_seq(req.request_id) else 0
+            demand += max(
+                0, self.cache.blocks_needed(tokens + remaining) - held)
+        return {"waiting": len(self.waiting), "block_demand": demand,
+                "prefill_cost": cost}
 
     def cancel(self, request_id: str) -> bool:
         for req in list(self.waiting):
@@ -340,6 +428,10 @@ class Scheduler:
         self.num_preemptions += 1
         self._requeue(victim)
         batch.preempted.append(victim)
+        reqtrace.record("preempt", victim.tid, victim.request_id,
+                        arrival=victim.arrival,
+                        num_preemptions=victim.num_preemptions,
+                        tokens_kept=len(victim.output_ids))
 
     def requeue_for_recovery(self, req: Request) -> None:
         """Crash-recovery rebuild of a surviving RUNNING request: scrub
@@ -348,6 +440,127 @@ class Scheduler:
         self.running.remove(req)
         self.cache.free(req.request_id, scrub=True)
         self._requeue(req)
+        reqtrace.record("requeue", req.tid, req.request_id,
+                        reason="recovery", arrival=req.arrival,
+                        tokens_kept=len(req.output_ids))
+
+    # ------------------------------------------------- multi-tenant WFQ
+    def note_step_seconds(self, dt: float) -> None:
+        """Engine step-time feed for the deadline early reject's service
+        rate (EWMA weighted toward recent steps)."""
+        self._step_ewma = dt if self._step_ewma == 0.0 \
+            else 0.8 * self._step_ewma + 0.2 * dt
+
+    def waiting_by_tenant(self) -> dict:
+        """Queue depth per tenant."""
+        out: dict = {}
+        for req in self.waiting:
+            t = req.params.tenant
+            out[t] = out.get(t, 0) + 1
+        return out
+
+    def _note_tenant(self, req: Request) -> None:
+        """Tenant bookkeeping on intake (inert without a registry):
+        refresh the weight snapshots and tag the sequence's tenant into
+        the cache, which stamps it on the trie nodes it registers."""
+        if self.tenants is None:
+            return
+        self._refresh_weights()
+        self.cache.note_seq_tenant(req.request_id, req.params.tenant)
+
+    def _refresh_weights(self) -> None:
+        """Re-read the registry's WFQ weights and prefix shares (into
+        the cache's weighted eviction) when its version moved."""
+        reg = self.tenants
+        if reg is None or reg.version == self._weights_version:
+            return
+        self._wfq_weights = reg.wfq_weights()
+        self._weights_version = reg.version
+        self.cache.set_tenant_weights(reg.prefix_shares())
+
+    def _full_price(self, req: Request) -> float:
+        """WFQ price: the cost model's price of the FULL effective prompt
+        (flat tokens without a model), not the per-step admission price
+        that sees only the first chunk or the uncached suffix: fairness
+        is about the total work a request commands."""
+        n = len(req.prompt_ids) + len(req.output_ids)
+        cost_model = self.config.prefill_cost_model
+        return float(cost_model.cost(n)) if cost_model else float(n)
+
+    def _deadline_early_reject(self, req: Request) -> None:
+        """Can this request's prefill even start before its deadline
+        (its own deadline_s, else its tenant's deadline_slo_s) at the
+        measured step rate? The estimate is optimistic (the queue ahead
+        at full budget throughput, no decode time), so a refusal is
+        certain; raises EngineOverloaded with a retry_after_s sized to
+        the excess. Abstains without a registry or a measured rate."""
+        if self.tenants is None or self._step_ewma <= 0.0:
+            return
+        deadline = req.params.deadline_s
+        if deadline is None:
+            deadline = self.tenants.resolve(req.params.tenant).deadline_slo_s
+        if deadline is None:
+            return
+        cost_model = self.config.prefill_cost_model
+        budget = cost_model.budget(self.config.max_prefill_tokens) \
+            if cost_model else float(self.config.max_prefill_tokens)
+        ahead = sum(self._full_price(w) for w in self.waiting)
+        own = self._full_price(req)
+        steps = max(1.0, (ahead + own) / max(budget, 1.0))
+        est = steps * self._step_ewma
+        if est <= deadline:
+            return
+        self.deadline_rejects += 1
+        retry = round(est - deadline + self._step_ewma, 3)
+        reqtrace.record("rejected", req.tid, req.request_id,
+                        reason="deadline", deadline_s=deadline,
+                        estimate_s=round(est, 3),
+                        tenant=req.params.tenant)
+        raise EngineOverloaded(req.request_id, len(self.waiting),
+                               self.config.max_waiting or 0,
+                               retry_after_s=retry)
+
+    def _select_waiting(self) -> Request:
+        """WFQ head: each tenant's first waiting request (FCFS within a
+        tenant), ranked by virtual finish max(vtime, vfinish[tenant]) +
+        price / weight, ties on the arrival ticket. With one tenant
+        waiting this is self.waiting[0], the FCFS head."""
+        heads: dict = {}
+        for req in self.waiting:
+            t = req.params.tenant
+            if t not in heads:
+                heads[t] = req
+        if len(heads) <= 1:
+            return self.waiting[0]
+        self._refresh_weights()
+        best = None
+        best_key = None
+        for t, req in heads.items():
+            w = max(self._wfq_weights.get(t, 1.0), 1e-9)
+            start = max(self._vtime, self._vfinish.get(t, 0.0))
+            key = (start + self._full_price(req) / w, req.arrival)
+            if best is None or key < best_key:
+                best, best_key = req, key
+        return best
+
+    def _dequeue(self, req: Request) -> None:
+        """Remove the admitted request from the queue (the WFQ head need
+        not be the deque's head) and advance the virtual clock: the
+        tenant's vfinish absorbs its full price over its weight, and
+        vtime moves to the admission's virtual start, so an idle tenant
+        re-enters at the current clock."""
+        if self.waiting and self.waiting[0] is req:
+            self.waiting.popleft()
+        else:
+            self.waiting.remove(req)
+        if self.tenants is None:
+            return
+        self._refresh_weights()
+        t = req.params.tenant
+        w = max(self._wfq_weights.get(t, 1.0), 1e-9)
+        start = max(self._vtime, self._vfinish.get(t, 0.0))
+        self._vfinish[t] = start + self._full_price(req) / w
+        self._vtime = start
 
     # ---------------------------------------------------------- schedule
     def schedule(self) -> ScheduledBatch:
@@ -376,14 +589,18 @@ class Scheduler:
                     self._preempt(victim, batch)
                     if victim is req:
                         break                # preempted itself; move on
-        # 2. FCFS admission under the seq count, the prefill token budget
+        # 2. admission (FCFS, or WFQ across tenants) under the seq
+        # count, the prefill budget (the cost model's FLOPs, else tokens)
         # and the occupancy watermark
-        budget = self.config.max_prefill_tokens
+        cost_model = self.config.prefill_cost_model
+        budget = cost_model.budget(self.config.max_prefill_tokens) \
+            if cost_model else self.config.max_prefill_tokens
         mark = self.config.cache_high_watermark
         thr = self.config.prefill_chunk_threshold
         admitted = 0
         while self.waiting and len(self.running) < self.config.max_num_seqs:
-            req = self.waiting[0]
+            req = self.waiting[0] if self.tenants is None \
+                else self._select_waiting()
             tokens = req.all_token_ids()
             cached_probe = self.cache.match_len(tokens)
             # a host-resident run behind the device match is promoted
@@ -391,13 +608,19 @@ class Scheduler:
             # the request is re-probed at what actually landed
             host_probe = self.cache.host_match_len(tokens)
             if host_probe:
-                self.last_promotion = self.cache.ensure_promoted(tokens)
+                reqtrace.record(
+                    "prefix_match", req.tid, req.request_id,
+                    cached_tokens=cached_probe, host_tokens=host_probe,
+                    probe=cached_probe)
+                promo = self.cache.ensure_promoted(tokens)
+                record_promotion_events(req.tid, req.request_id, promo)
                 cached_probe = self.cache.match_len(tokens)
             uncached = len(tokens) - cached_probe
             chunked = (thr is not None and len(tokens) > thr) \
                 or cached_probe > 0 or host_probe > 0
             eff = min(chunk, uncached) if chunked else len(tokens)
-            if eff > budget and admitted:
+            price = cost_model.cost(eff) if cost_model else eff
+            if price > budget and admitted:
                 break                        # budget spent; next step
             needed = self.cache.blocks_needed(eff)
             used = self.cache.num_used() - self.cache.num_evictable()
@@ -410,6 +633,7 @@ class Scheduler:
             if chunked:
                 remaining = max(0, req.params.max_tokens
                                 - len(req.output_ids))
+                d0 = self.cache.tier_demotions
                 try:
                     got = self.cache.allocate_with_prefix(req.request_id,
                                                           tokens)
@@ -420,22 +644,49 @@ class Scheduler:
                     if self.cache.has_seq(req.request_id):
                         self.cache.free(req.request_id)
                     break                    # never preempt to admit
+                dd = self.cache.tier_demotions - d0
+                if dd:
+                    reqtrace.record("demote", req.tid, req.request_id,
+                                    blocks=dd)
                 req.pf_target = len(tokens)
                 req.prefill_pos = got
+                self._dequeue(req)
+                req.state = RequestState.RUNNING
+                self.running.append(req)
                 # rides THIS step's fused decode dispatch
                 batch.decode.append(req)
+                if got:
+                    bs = self.cache.block_size
+                    reqtrace.record(
+                        "prefix_match", req.tid, req.request_id,
+                        cached_tokens=got, blocks=-(-got // bs),
+                        cow_fork=bool(got % bs), probe=cached_probe)
+                reqtrace.record(
+                    "scheduled", req.tid, req.request_id, mode="chunked",
+                    price=float(price), budget=float(budget),
+                    arrival=req.arrival, cached=got,
+                    target=req.pf_target)
             else:
+                d0 = self.cache.tier_demotions
                 try:
                     self.cache.allocate(req.request_id, len(tokens))
                 except CacheExhausted:
                     break                    # never preempt to admit
+                dd = self.cache.tier_demotions - d0
+                if dd:
+                    reqtrace.record("demote", req.tid, req.request_id,
+                                    blocks=dd)
                 self.cache.note_prefix_miss(len(tokens))
+                self._dequeue(req)
+                req.state = RequestState.RUNNING
+                self.running.append(req)
                 batch.prefill.append(req)
-            self.waiting.popleft()
-            req.state = RequestState.RUNNING
-            self.running.append(req)
+                reqtrace.record(
+                    "scheduled", req.tid, req.request_id, mode="dense",
+                    price=float(price), budget=float(budget),
+                    arrival=req.arrival, tokens=len(tokens))
             admitted += 1
-            budget -= eff
+            budget -= price
         return batch
 
     # ------------------------------------------------------------ results

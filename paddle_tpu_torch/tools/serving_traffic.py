@@ -9,6 +9,12 @@
   (one system prompt or few-shot template, many short user turns),
   scaled to the full-width serving model; `drive_arrivals` submits each
   request at its arrival step.
+- `tenant_traffic`: three tenants against one WFQ engine, shaped like
+  tools/load_suite.py's `multi_tenant` scenario; `drive_tenants` submits
+  each tagged request at its step (request ids "req-<i>" in
+  submission order) and counts the refusals, and
+  `replay_admissions` runs the same traffic through a scheduler alone
+  (no model) and returns the admission order the engine must take.
 
 chip_smoke.py and profile_serving.py drive the engine with these.
 """
@@ -21,9 +27,13 @@ import numpy as np
 from ..inference.serving import EngineConfig, LLMEngine, SamplingParams
 
 __all__ = ["bench_traffic", "drive_engine", "prefix_traffic",
-           "tiered_traffic", "drive_arrivals"]
+           "tiered_traffic", "drive_arrivals", "TENANTS", "TENANT_ENGINE",
+           "tenant_traffic", "make_tenant_registry", "drive_tenants",
+           "replay_admissions"]
 
 Arrival = Tuple[int, np.ndarray, int]        # (step, prompt, max_tokens)
+# (step, prompt, max_tokens, tenant)
+TenantArrival = Tuple[int, np.ndarray, int, str]
 
 
 def bench_traffic(vocab: int, seed: int, n_req: int = 16, p_lo: int = 64,
@@ -144,3 +154,188 @@ def drive_arrivals(model, ecfg: EngineConfig, arrivals: List[Arrival],
             raise RuntimeError(
                 f"engine did not drain within {max_steps} steps")
     return eng, rids
+
+
+# the tenant pass's tenants (load_suite's multi_tenant): a latency-class
+# tenant, a batch-class one, and a standard one whose token quota holds
+# about two of its admissions (prompt + max_tokens each), so the tail of
+# its burst is refused at the door
+TENANTS = (dict(name="latency", priority="latency"),
+           dict(name="bulk", priority="batch"),
+           dict(name="burst", quota_tokens=600, quota_window_s=300.0))
+# the tenant pass's changes to the serving bench's engine: a per-step
+# prefill budget priced by the committed cost model, a bounded queue and
+# its own obs label (the registry is added per pass)
+TENANT_ENGINE = dict(max_prefill_tokens=512, max_waiting=32,
+                     prefill_cost_model="auto",
+                     obs_label="chip-multi-tenant")
+
+
+def make_tenant_registry(serving, tenants=None):
+    """A fresh TenantRegistry of `serving` (a serving package: this
+    port's, or any with the same TenantRegistry/TenantConfig) holding
+    `tenants` (default: TENANTS)."""
+    return serving.TenantRegistry(
+        [serving.TenantConfig(**t) for t in (tenants or TENANTS)])
+
+
+def tenant_traffic(vocab: int, seed: int, n: int = 32, b_lo: int = 320,
+                   b_hi: int = 448, l_lo: int = 32, l_hi: int = 72,
+                   template_len: int = 192, s_lo: int = 16,
+                   s_hi: int = 40, t_lo: int = 32, t_hi: int = 64
+                   ) -> List[TenantArrival]:
+    """Multi-tenant traffic (load_suite's multi_tenant grown from block 4
+    to block 32): n // 2 `bulk` requests with prompts of b_lo..b_hi
+    tokens, all at step 0; n // 3 `latency` requests of l_lo..l_hi
+    tokens at steps 1, 3, 5, ...; the rest `burst`: a template of
+    template_len tokens plus a suffix of s_lo..s_hi, all at step 2.
+    Every request asks for t_lo..t_hi new tokens (bounds inclusive)."""
+    rng = np.random.RandomState(seed)
+    nb, nl = n // 2, n // 3
+    nq = n - nb - nl
+
+    def prompt(lo, hi):
+        return rng.randint(1, vocab, (int(rng.randint(lo, hi + 1)),),
+                           dtype=np.int32)
+
+    def new_tokens():
+        return int(rng.randint(t_lo, t_hi + 1))
+
+    arr: List[TenantArrival] = []
+    for _ in range(nb):
+        arr.append((0, prompt(b_lo, b_hi), new_tokens(), "bulk"))
+    for i in range(nl):
+        arr.append((1 + 2 * i, prompt(l_lo, l_hi), new_tokens(),
+                    "latency"))
+    template = rng.randint(1, vocab, (template_len,), dtype=np.int32)
+    for _ in range(nq):
+        arr.append((2, np.concatenate([template, prompt(s_lo, s_hi)]),
+                    new_tokens(), "burst"))
+    return arr
+
+
+def drive_tenants(model, ecfg: EngineConfig,
+                  arrivals: List[TenantArrival], device,
+                  max_steps: int = 20000):
+    """LLMEngine.from_model -> add_request (tenant-tagged) at each
+    arrival's step -> step until drained. Returns (engine, {tenant:
+    admitted request ids}, quota-refused request ids, other refused
+    request ids)."""
+    from ..inference.serving import EngineOverloaded, TenantQuotaExceeded
+    eng = LLMEngine.from_model(model, ecfg, device=device)
+    order = sorted(range(len(arrivals)), key=lambda i: arrivals[i][0])
+    by_tenant: dict = {}
+    quota, rejected = [], []
+    nxt = step = 0
+    while nxt < len(order) or eng.has_unfinished():
+        while nxt < len(order) and arrivals[order[nxt]][0] <= step:
+            _, p, mt, tenant = arrivals[order[nxt]]
+            rid = f"req-{nxt}"
+            nxt += 1
+            try:
+                eng.add_request(p, SamplingParams(max_tokens=mt,
+                                                  tenant=tenant),
+                                request_id=rid)
+            except TenantQuotaExceeded:
+                quota.append(rid)
+            except EngineOverloaded:
+                rejected.append(rid)
+            else:
+                by_tenant.setdefault(tenant, []).append(rid)
+        if eng.has_unfinished():
+            eng.step()
+        step += 1
+        if step > max_steps:
+            raise RuntimeError(
+                f"engine did not drain within {max_steps} steps")
+    return eng, by_tenant, quota, rejected
+
+
+def replay_admissions(arrivals: List[TenantArrival], ecfg: EngineConfig,
+                      serving, reqtrace, cache, registry,
+                      cost_model=None, max_steps: int = 20000) -> dict:
+    """The admission order an engine takes on tenant traffic, from a
+    scheduler alone. `serving` is a serving package (this port's, or one
+    with the same classes and engine accounting), `reqtrace` its request
+    trace module, `cache` a PagedKVCache of it with the engine's block
+    geometry (no model runs, so one layer of small heads will do),
+    `registry` a fresh TenantRegistry (None: no tenants, FCFS) and
+    `cost_model` the resolved prefill cost model. The engine's
+    accounting is replayed: each arrival is charged to its tenant's
+    quota (refunded if the scheduler refuses it), a dense prefill emits
+    one token, and a decode chunk emits, per row, one token per trip
+    after the row's last prompt token (that trip's included), up to
+    max_tokens. No EOS: every request runs to max_tokens. Returns {"scheduled": request ids in admission order,
+    "quota": quota-refused ids, "rejected": other refused ids,
+    "preemptions": n, "chunks": decode chunks, "steps": steps}."""
+    sch = serving.Scheduler(serving.SchedulerConfig(
+        max_num_seqs=ecfg.max_num_seqs,
+        max_prefill_tokens=ecfg.max_prefill_tokens,
+        decode_chunk_size=ecfg.decode_chunk_size,
+        max_waiting=ecfg.max_waiting,
+        admission_policy=ecfg.admission_policy,
+        cache_high_watermark=ecfg.cache_high_watermark,
+        prefill_cost_model=cost_model,
+        prefill_chunk_threshold=ecfg.prefill_chunk_threshold,
+        tenants=registry), cache)
+    k = ecfg.decode_chunk_size
+    prefix = f"replay-{id(sch)}-"
+    order = sorted(range(len(arrivals)), key=lambda i: arrivals[i][0])
+    out = {"scheduled": [], "quota": [], "rejected": [], "preemptions": 0,
+           "chunks": 0, "steps": 0}
+
+    def emit(req, n):
+        for _ in range(n):
+            req.output_ids.append(1)
+        if len(req.output_ids) >= req.params.max_tokens:
+            sch.finish(req, serving.RequestState.FINISHED_LENGTH)
+
+    nxt = step = 0
+    while nxt < len(order) or sch.has_unfinished():
+        while nxt < len(order) and arrivals[order[nxt]][0] <= step:
+            _, p, mt, tenant = arrivals[order[nxt]]
+            rid = f"req-{nxt}"
+            nxt += 1
+            req = serving.Request(
+                request_id=rid, prompt_ids=np.asarray(p, np.int32),
+                params=serving.SamplingParams(max_tokens=mt,
+                                              tenant=tenant))
+            req.trace_id = prefix + rid
+            if registry is not None:
+                registry.resolve(tenant)
+                try:
+                    registry.charge(tenant, len(p) + mt, model="default")
+                except serving.TenantQuotaExceeded:
+                    out["quota"].append(rid)
+                    continue
+            try:
+                sch.add(req)
+            except serving.EngineOverloaded:
+                if registry is not None:
+                    registry.refund(tenant, len(p) + mt, model="default")
+                out["rejected"].append(rid)
+        if sch.has_unfinished():
+            batch = sch.schedule()
+            out["preemptions"] += len(batch.preempted)
+            for req in batch.prefill:
+                emit(req, 1)
+            decode = [r for r in batch.decode if not r.finished]
+            if decode:
+                out["chunks"] += 1
+            for req in decode:
+                remaining = req.params.max_tokens - len(req.output_ids)
+                if req.prefill_pos < req.pf_target:
+                    pf_rem = req.pf_target - req.prefill_pos
+                    req.prefill_pos += min(k, pf_rem)
+                    n = k - pf_rem + 1 if pf_rem <= k else 0
+                else:
+                    n = k
+                emit(req, min(n, remaining))
+        step += 1
+        if step > max_steps:
+            raise RuntimeError(
+                f"replay did not drain within {max_steps} steps")
+    out["steps"] = step
+    out["scheduled"] = [e.request_id for e in reqtrace.events(prefix=prefix)
+                        if e.kind == "scheduled"]
+    return out

@@ -25,7 +25,10 @@ PyTorch is installed:
   the prefix cache (f32 and int8 pools, dense and chunked admission)
   and with the host tier, the port's CPU tokens exactly, K3 reading
   blocks that several rows' tables name; generate() sampling and beam
-  search equal to the CPU's;
+  search equal to the CPU's; three tenants under WFQ admission priced
+  by the committed cost model (one quota refusal) and the inference
+  facade (Config.enable_llm_engine -> create_predictor -> run), each
+  equal to the CPU's admission order and tokens;
 - K1 (ops/kernels/flash_attention) and K2 (ops/kernels/packed_flash),
   forward (out, lse) and backward (dq, dk, dv), against their plain
   versions at T 128, 512 (ERNIE-large's), 640, 1024 and 2176, causal
@@ -345,6 +348,71 @@ def test_tiered_engine_cuda_matches_cpu(cuda):
     assert ps == cpu_eng.cache.prefix_stats()
     assert ps["tier_demotions"] > 0 and ps["promote_hit"] > 0, ps
     assert launched == 2 * 8 * eng.stats.host_syncs["decode"] > 0
+
+
+def _tenant_run(device):
+    """Three tenants (latency, batch-class bulk, a quota-bound burst) on
+    the tiny model through drive_tenants: (admission order read from the
+    trace, tokens per admitted request, quota refusals, engine)."""
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.tools.serving_traffic import (
+        drive_tenants, make_tenant_registry, tenant_traffic)
+    arrivals = tenant_traffic(97, 3, n=12, b_lo=20, b_hi=30, l_lo=3,
+                              l_hi=6, template_len=12, s_lo=2, s_hi=4,
+                              t_lo=3, t_hi=6)
+    tenants = (dict(name="latency", priority="latency"),
+               dict(name="bulk", priority="batch"),
+               dict(name="burst", quota_tokens=25, quota_window_s=300.0))
+    cfg = EngineConfig(block_size=8, num_blocks=40, max_num_seqs=4,
+                       decode_chunk_size=8, prefill_chunk_threshold=16,
+                       max_prefill_tokens=64, prefill_cost_model="auto",
+                       obs_label=f"cuda-tenants-{torch.device(device).type}",
+                       tenants=make_tenant_registry(serving, tenants))
+    eng, by_tenant, quota, _ = drive_tenants(_tiny_model(device), cfg,
+                                             arrivals, device)
+    eng.cache.check_integrity()
+    order = [e.request_id for e in obs.reqtrace.events(
+        prefix=f"tr-{eng.stats.label}-") if e.kind == "scheduled"]
+    tokens = {r: eng.get_request(r).output_ids
+              for rids in by_tenant.values() for r in rids}
+    return order, tokens, quota, eng
+
+
+def test_tenant_engine_cuda_matches_cpu(cuda):
+    """WFQ admission across three tenants, priced by the committed cost
+    model, with a quota refusal: the same admission order, refusals and
+    greedy tokens on the card (through K3) as on the CPU."""
+    want = _tenant_run("cpu")
+    before = ragged_decode_attention.launches
+    got = _tenant_run(cuda)
+    launched = ragged_decode_attention.launches - before
+    assert got[:3] == want[:3]
+    assert got[2], "no quota refusal: vacuous test"
+    assert launched == 2 * 8 * got[3].stats.host_syncs["decode"] > 0
+
+
+def test_facade_cuda_matches_cpu(cuda):
+    """Config.enable_llm_engine -> create_predictor -> run on the card
+    (the default device) gives the CPU predictor's sequences."""
+    from paddle_tpu_torch import inference
+    rng = np.random.RandomState(8)
+    lens = np.array([5, 9, 3])
+    ids = np.zeros((3, 9), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.randint(1, 97, n)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = inference.Config()
+        if dev == "cpu":
+            cfg.disable_gpu()
+        cfg.enable_llm_engine(model=_tiny_model(dev), block_size=8,
+                              num_blocks=40, max_num_seqs=4, max_tokens=7)
+        pred = inference.create_predictor(cfg)
+        assert pred.engine.device.type == dev
+        [out[dev]] = pred.run([ids, lens])
+    assert out["cuda"].dtype == np.int64
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
 
 
 def test_sampling_generate_cuda_matches_cpu(cuda):

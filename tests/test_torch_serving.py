@@ -459,6 +459,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"paddle_tpu_torch/obs/registry.py",
+            "paddle_tpu_torch/obs/reqtrace.py",
+            "paddle_tpu_torch/analysis/jaxplan.py",
+            "paddle_tpu_torch/inference/__init__.py",
+            "paddle_tpu_torch/inference/serving/tenancy.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -501,9 +507,9 @@ def test_chip_smoke_phases_run_on_cpu_at_tiny_size():
 
 def test_unported_engine_options_raise(models):
     _, tm = models
-    with pytest.raises(NotImplementedError):
-        _engine(tm, tenants=object())
-    with pytest.raises(NotImplementedError):
-        _engine(tm, prefill_cost_model="auto")
+    for key in ({"model": "m1"}, {"revision": "r1"}):
+        with pytest.raises(NotImplementedError):
+            LLMEngine.from_model(tm, EngineConfig(block_size=4, **key),
+                                 device="cpu")
     with pytest.raises(ValueError):
         _engine(tm, kernel="pallas")

@@ -389,13 +389,6 @@ UNPORTED = {
     "AdamW.lr_ratio": lambda: AdamW(0.1, lr_ratio=lambda p: 1.0),
     "AdamW.apply_decay_param_fun": lambda: AdamW(
         0.1, apply_decay_param_fun=lambda n: True),
-    "SchedulerConfig.tenants": lambda: Scheduler(
-        SchedulerConfig(tenants=object()), _cache()),
-    "SchedulerConfig.prefill_cost_model": lambda: Scheduler(
-        SchedulerConfig(prefill_cost_model="auto"), _cache()),
-    "EngineConfig.prefill_cost_model": "engine",
-    "EngineConfig.tenants": "engine",
-    "EngineConfig.obs_label": "engine",
     "EngineConfig.model": "engine",
     "EngineConfig.revision": "engine",
 }
@@ -409,8 +402,7 @@ def test_unported_parameter_takes_only_its_default(case, gpt_pair):
     _, tm = gpt_pair
     if call == "engine":
         field = case.split(".")[1]
-        value = {"prefill_cost_model": "auto", "tenants": object(),
-                 "obs_label": "x", "model": "m1", "revision": "r1"}[field]
+        value = {"model": "m1", "revision": "r1"}[field]
 
         def call():
             return LLMEngine.from_model(
@@ -418,3 +410,102 @@ def test_unported_parameter_takes_only_its_default(case, gpt_pair):
                 device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         call()
+
+
+# ---------------------------- parameters ported with slice 5b
+def _two_requests(tenants=(None, None), lens=(4, 4)):
+    from paddle_tpu_torch.inference.serving import Request, SamplingParams
+    return [Request(f"r{i}", np.arange(1, n + 1, dtype=np.int32),
+                    SamplingParams(max_tokens=2,
+                                   tenant=t or "default"))
+            for i, (t, n) in enumerate(zip(tenants, lens))]
+
+
+def _ported_scheduler_tenants():
+    """A registry turns on WFQ: the latency tenant's later request is
+    admitted ahead of the batch tenant's earlier one."""
+    from paddle_tpu_torch.inference.serving import (TenantConfig,
+                                                    TenantRegistry)
+    reg = TenantRegistry([TenantConfig("bulk", priority="batch"),
+                          TenantConfig("fast", priority="latency")])
+    sch = Scheduler(SchedulerConfig(max_num_seqs=1, tenants=reg),
+                    PagedKVCache(1, 1, 4, 16, 2, device="cpu"))
+    bulk, fast = _two_requests(("bulk", "fast"), (6, 6))
+    sch.add(bulk)
+    sch.add(fast)
+    assert [r.request_id for r in sch.schedule().prefill] == ["r1"]
+
+
+def _ported_scheduler_cost_model():
+    """A cost model prices admissions in its FLOPs: two 4-token prompts
+    fit the flat 8-token budget, but not cost(8) when the base cost
+    dominates."""
+    from paddle_tpu_torch.analysis.jaxplan import PrefillCostModel
+    admitted = []
+    for model in (None, PrefillCostModel(1000.0, 1.0, 0.0)):
+        sch = Scheduler(SchedulerConfig(max_prefill_tokens=8,
+                                        prefill_cost_model=model),
+                        PagedKVCache(1, 1, 4, 16, 2, device="cpu"))
+        for r in _two_requests():
+            sch.add(r)
+        admitted.append(len(sch.schedule().prefill))
+    assert admitted == [2, 1]
+
+
+def _ported_engine(gpt_pair, **kw):
+    _, tm = gpt_pair
+    return LLMEngine.from_model(tm, EngineConfig(block_size=8, **kw),
+                                device="cpu")
+
+
+def _ported_engine_cost_model(gpt_pair):
+    """"auto" resolves to the committed plan's model, as in the JAX
+    package."""
+    from paddle_tpu.analysis import jaxplan as jplan
+    eng = _ported_engine(gpt_pair, prefill_cost_model="auto")
+    got = eng.scheduler.config.prefill_cost_model
+    assert got is not None
+    assert got.as_dict() == jplan.default_admission_model().as_dict()
+
+
+def _ported_engine_tenants(gpt_pair):
+    """A registry's quota refuses the second request of a spent
+    tenant."""
+    from paddle_tpu_torch.inference.serving import (
+        SamplingParams, TenantConfig, TenantQuotaExceeded, TenantRegistry)
+    reg = TenantRegistry([TenantConfig("q", quota_tokens=10)])
+    eng = _ported_engine(gpt_pair, tenants=reg)
+    sp = SamplingParams(max_tokens=4, tenant="q")
+    eng.add_request(np.arange(1, 5, dtype=np.int32), sp)
+    with pytest.raises(TenantQuotaExceeded):
+        eng.add_request(np.arange(1, 5, dtype=np.int32), sp)
+
+
+def _ported_engine_obs_label(gpt_pair):
+    """The label prefixes the engine's series in the obs registry."""
+    from paddle_tpu_torch import obs
+    eng = _ported_engine(gpt_pair, obs_label="sig-label")
+    assert eng.stats.label.startswith("sig-label-")
+    eng.stats.steps += 1
+    assert obs.REGISTRY.get("serving_events_total").get(
+        engine=eng.stats.label, event="steps").value == 1
+
+
+PORTED = {
+    "SchedulerConfig.tenants": _ported_scheduler_tenants,
+    "SchedulerConfig.prefill_cost_model": _ported_scheduler_cost_model,
+    "EngineConfig.prefill_cost_model": _ported_engine_cost_model,
+    "EngineConfig.tenants": _ported_engine_tenants,
+    "EngineConfig.obs_label": _ported_engine_obs_label,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_parameter_reaches_its_feature(case, gpt_pair):
+    """Each parameter that took only its default until slice 5b now
+    takes a value and reaches its feature."""
+    fn = PORTED[case]
+    if case.startswith("EngineConfig"):
+        fn(gpt_pair)
+    else:
+        fn()
