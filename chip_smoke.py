@@ -12,8 +12,8 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    boundary; one nvcc per source, started together) and print what
    `ptxas -v` reports (for the flash kernels: registers and spills of
    each), and the count of wgmma (HGMMA) and TMA / cp.async loads
-   (UTMALDG / LDGSTS) in the SASS of the bf16 flash kernels, which must
-   have both; for K3 each instance's registers, spills and shared
+   (UTMALDG / LDGSTS) in the SASS of the 16-bit (bf16 and f16) flash
+   kernels, which must have both; for K3 each instance's registers, spills and shared
    memory; for K4 each instance's registers and spills, its ring's
    depth and dynamic shared memory at the five block-boundary
    geometries, and its HGMMA and UTMALDG counts, both of which must be
@@ -88,11 +88,12 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    pairs) against their plain versions at the GPT train step's attention
    shape (B 32, T 1024, causal), and K2 at ERNIE-large's (k2_nc: B 32,
    16 heads of 64 in 8 pairs, T 512, not causal): out, lse, dq, dk and
-   dv in f32 and in bf16, each held to the limits of FLASH_TOL (relative
-   L2 error, and per element against one bf16 ulp of the plain value;
-   the bf16 limits derived from the TPU reference kernels' own error);
+   dv in f32, in bf16 and in f16, each held to the limits of FLASH_TOL
+   (relative L2 error, and per element against one bf16 ulp of the plain
+   value; the bf16 limits derived from the TPU reference kernels' own
+   error, the f16 ones from those by the two types' unit roundoffs);
 8. their forward and backward timed with CUDA events at those shapes
-   (bf16, cold L2) beside the plain versions, the
+   (bf16, cold L2; K1 also in f16) beside the plain versions, the
    F.scaled_dot_product_attention yardstick under the same mask
    (forward, and its backward call) and the bound at the bf16 tensor
    peak;
@@ -105,6 +106,26 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    same forward with use_flash_attention off (composed attention), and
    every parameter's gradient on the first GRAD_B rows of the batch
    within GRAD_TOL (relative L2) of the composed route's;
+9b. the Paddle eager surface at the same width (train_bench.run_eager,
+   2 warm-up + 8 timed steps: `import paddle_tpu_torch as paddle`,
+   set_device("gpu"), float32 parameters, AdamW over LinearWarmup(
+   CosineAnnealingDecay(1e-4, T_max=1000), 4, 0, 1e-4) with global-norm
+   clip, GradScaler(2^15), auto_cast(level="O1") around the loss,
+   scale(loss).backward(), scaler.minimize, clear_grad, sched.step, on
+   x = tokens[:, :-1], y = tokens[:, 1:] of 32 x 1025 tokens), then
+   jit.TrainStep with O1 inside its loss on the same weights and batch:
+   tokens/s, MFU, peak memory and GradScaler's scale and skips printed
+   for both; it fails unless the losses are finite and fall on both
+   routes, every step's eager loss is within EAGER_O1_REL (1e-5)
+   relative of TrainStep O1's, K1 launched 12 x 10 forward and 12 x 10
+   backward and K2 never, LAST_PATH is "flash" with bf16 q, each step's
+   LR equals LinearWarmup's host value, and scaler.minimize (unscale
+   and found-inf check, the AdamW step, the scale update) made one
+   synchronizing CUDA operation a step, GradScaler's found-inf read
+   (torch's sync debug mode, with where it happened); then
+   auto_cast(dtype="float16") at 2 layers and batch 4 for 2 steps:
+   attention through K1's float16 instance (LAST_PATH "flash", float16
+   q, 2 x 2 forward and backward launches), finite losses;
 10. K4 (fused BN-apply + ReLU (+ residual) -> 1x1-conv matmul) against
    its plain version at the five ResNet-50 block-boundary geometries of
    paddle_tpu_torch/tools/fused_conv_proto.py (batch 128, its input
@@ -155,7 +176,8 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 
 The last three lines are: one JSON object with each kernel's numbers
 (K4's times summed over the five geometries; K2's non-causal forward and
-backward as entries of their own, with their launches from phase 13),
+backward as entries of their own, with their launches from phase 13;
+K1's entries also carry `eager_launches`, phase 9b's counts),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 float32 matmuls and convolutions run in full float32 (TF32 off)
 throughout.
@@ -193,13 +215,14 @@ def _require(ok: bool, what: str) -> None:
 
 # ------------------------------------------------------------ phase 2
 def kernel_label(mangled: str) -> str:
-    """'fa_fwd_bf16_kernel<128>' or 'fa_delta_kernel<f32, 64>' from a
-    mangled flash kernel name."""
+    """'fa_fwd_wgmma_kernel<bf16, 128>' or 'fa_delta_kernel<f32, 64>'
+    from a mangled flash kernel name."""
     m = re.search(r"(fa_(?:fwd|bwd|delta)\w*?_kernel)I(.*?)EE", mangled)
     if m is None:
         return mangled
     name, args = m.groups()
     dtype = ("bf16, " if "bfloat16" in args
+             else "f16, " if "__half" in args
              else "f32, " if args.startswith("f") else "")
     return f"{name}<{dtype}{','.join(re.findall(r'Li(\d+)E', args + 'E'))}>"
 
@@ -251,10 +274,11 @@ def sass_counts(library: str) -> dict:
 
 def build_kernels() -> None:
     """Build every kernel; print what ptxas reports, and for the flash
-    kernels each one's registers and spills and, in the bf16 ones, the
-    count of wgmma (HGMMA) and of TMA (UTMALDG) / cp.async (LDGSTS)
-    loads in their SASS. Fails if a bf16 forward or backward kernel
-    issues no wgmma or loads its tiles by neither route."""
+    kernels each one's registers and spills and, in the 16-bit ones
+    (bf16 and f16), the count of wgmma (HGMMA) and of TMA (UTMALDG) /
+    cp.async (LDGSTS) loads in their SASS. Fails if a 16-bit forward or
+    backward kernel issues no wgmma or loads its tiles by neither
+    route."""
     from paddle_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     reports = _build.build()
@@ -282,12 +306,13 @@ def build_kernels() -> None:
               f"registers, spill stores {st} B, spill loads {ld} B")
     counts = sass_counts(str(_build.library_path("flash_attention")))
     hopper = {kernel_label(k): c for k, c in counts.items()
-              if "bf16_kernel" in k}
+              if "wgmma_kernel" in k}
     for label, c in sorted(hopper.items()):
         print(f"[build] SASS {label}: " + ", ".join(
             f"{op} {n}" for op, n in c.items()))
-    _require(len(hopper) == 6, f"bf16 flash kernels in the SASS: "
-                               f"{sorted(hopper)}")
+    # forward, dq and dk/dv at D 64 and 128, in bf16 and in f16
+    _require(len(hopper) == 12, f"16-bit flash kernels in the SASS: "
+                                f"{sorted(hopper)}")
     for label, c in hopper.items():
         _require(c["HGMMA"] > 0 and c["UTMALDG"] + c["LDGSTS"] > 0,
                  f"{label} lacks wgmma or asynchronous loads: {c}")
@@ -559,7 +584,7 @@ def tracing_off(model, ecfg, specs, device, on_tps: float) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     d = eng.stats.as_dict()
-    chunks = eng.stats.host_syncs["decode"]
+    chunks = eng.stats.host_syncs("decode")
     L, k = model.cfg.num_layers, ecfg.decode_chunk_size
     want = L * k * chunks if torch.device(device).type == "cuda" else 0
     _require(ragged_decode_attention.launches == want,
@@ -619,7 +644,7 @@ def _drive_pass(name, model, ecfg, arrivals, device) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ragged_decode_attention.launches
-    chunks = eng.stats.host_syncs["decode"]
+    chunks = eng.stats.host_syncs("decode")
     L = model.cfg.num_layers
     # on the CPU K3's wrapper runs its plain version and counts nothing
     want = L * ecfg.decode_chunk_size * chunks if cuda else 0
@@ -893,7 +918,7 @@ def run_tenant_pass(model, ecfg, device, seed: int) -> int:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ragged_decode_attention.launches
-    chunks = eng.stats.host_syncs["decode"]
+    chunks = eng.stats.host_syncs("decode")
     L, k = model.cfg.num_layers, tcfg.decode_chunk_size
     want = L * k * chunks if cuda else 0
     _require(launches == want and (launches > 0 or not cuda),
@@ -1156,20 +1181,35 @@ FLASH_TOL = {
                   "dq": dict(l2=5.2e-3, excess=0.5),
                   "dk": dict(l2=5.1e-3, excess=0.5),
                   "dv": dict(l2=5.1e-3, excess=2.7e-2)}}}
+# float16: the kernels are the bf16 kernels' template at T = __half, so
+# they round P, dS and their outputs at the same points, to a type whose
+# unit roundoff is 2^-11 where bf16's is 2^-8. The f16 limit of each
+# tensor rounded to 16 bits is its bf16 limit over F16_ROUNDOFF_RATIO;
+# lse, f32 in every version, keeps its limit. tests/
+# test_torch_flash_attention.py holds the Pallas reference kernels'
+# float16 readings within these limits, and phase 7 requires
+# reference_rounding's float16 readings within them on every run.
+F16_ROUNDOFF_RATIO = 8
+FLASH_TOL["float16"] = {
+    kernel: {name: lims if name == "lse" else
+             {m: v / F16_ROUNDOFF_RATIO for m, v in lims.items()}
+             for name, lims in tol.items()}
+    for kernel, tol in FLASH_TOL["bfloat16"].items()}
 
 
 def reference_rounding(q, k, v, do, causal: bool, scale: float):
-    """The TPU reference kernels' bf16 arithmetic in plain PyTorch over
-    heads-major bf16 [B, H, T, D]: f32 scores and softmax; P (against the
-    row max) rounded to bf16 before P V; the output rounded to bf16 and
-    delta = rowsum(do * o) read from it; P = exp(s - lse) and
-    dS = P (dP - delta) scale rounded to bf16 before dV = P^T dO,
+    """The TPU reference kernels' 16-bit arithmetic in plain PyTorch over
+    heads-major [B, H, T, D] in bf16 or f16 (lo, q's dtype): f32 scores
+    and softmax; P (against the row max) rounded to lo before P V; the
+    output rounded to lo and delta = rowsum(do * o) read from it;
+    P = exp(s - lse) and dS = P (dP - delta) scale rounded to lo before
+    dV = P^T dO,
     dK = dS^T Q and dQ = dS K. Returns (out, lse, dq, dk, dv). It stands
     in for the Pallas kernels, which run only in interpret mode on a CPU,
     at the chip check's shape; tests/test_torch_flash_attention.py holds
     it to their readings where both run."""
     import torch
-    bf = torch.bfloat16
+    bf = q.dtype
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     s = qf @ kf.transpose(-1, -2) * scale
     if causal:
@@ -1209,7 +1249,8 @@ def _reference_rounding_of(kernel, q, k, v, do, causal, scale):
 def flash_readings(kernel, dtype, device, seed: int):
     """At the kernel's FLASH shape and mask: {tensor: agreement} of the
     kernel with the plain version for out, lse, dq, dk and dv, and in
-    bf16 also of reference_rounding with the plain version (else None)."""
+    bf16 and f16 also of reference_rounding with the plain version (else
+    None)."""
     import torch
     from paddle_tpu_torch.tools.measure import agreement
     fwd, bwd, ref = _flash_fns(kernel)
@@ -1230,7 +1271,7 @@ def flash_readings(kernel, dtype, device, seed: int):
         stats[name] = agreement(a, w)
     del got
     emulated = None
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         emu = _reference_rounding_of(kernel, q, k, v, do, causal, sc)
         emulated = {name: agreement(a, w)
                     for name, a, w in zip(FLASH_NAMES, emu, want)}
@@ -1253,13 +1294,15 @@ def _line(stats: dict) -> str:
 
 
 def check_flash(kernel, device, seed: int) -> dict:
-    """Kernel vs plain at its FLASH shape: out, lse, dq, dk and dv in f32
-    and in bf16, the main path's dtype, to FLASH_TOL; in
-    bf16 the reference rounding's own readings must lie within the limits
-    too (they were derived from them). Returns bf16 max |err| of the
-    forward (out, lse) and of the backward (dq, dk, dv)."""
+    """Kernel vs plain at its FLASH shape: out, lse, dq, dk and dv in f32,
+    in bf16, the main path's dtype, and in f16 (AMP's other 16-bit type),
+    to FLASH_TOL; in bf16 and f16 the reference rounding's own readings
+    must lie within the limits too (the bf16 limits were derived from
+    them). Returns {dtype name: max |err| of the forward (out, lse) and
+    of the backward (dq, dk, dv)} for bf16 and f16."""
     import torch
-    for dtype in (torch.float32, torch.bfloat16):
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dtype)[6:]
         tol = FLASH_TOL[dname][kernel]
         stats, emulated = flash_readings(kernel, dtype, device, seed)
@@ -1274,15 +1317,16 @@ def check_flash(kernel, device, seed: int) -> dict:
             _require(not _over(emulated, tol),
                      f"{kernel}: the reference rounding's readings exceed "
                      f"the limits derived from them: {_over(emulated, tol)}")
-        errs = {"fwd": max(stats[n]["abs"] for n in ("out", "lse")),
-                "bwd": max(stats[n]["abs"] for n in ("dq", "dk", "dv"))}
+        errs[dname] = {
+            "fwd": max(stats[n]["abs"] for n in ("out", "lse")),
+            "bwd": max(stats[n]["abs"] for n in ("dq", "dk", "dv"))}
     return errs
 
 
 # ------------------------------------------------------------ phase 8
-def time_flash(kernel, device, seed: int):
+def time_flash(kernel, device, seed: int, dtype=None):
     """(forward numbers, backward numbers) at the kernel's FLASH shape,
-    bf16, cold L2."""
+    in bf16 (or `dtype`), cold L2."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.packed_flash import _unpack
@@ -1290,7 +1334,8 @@ def time_flash(kernel, device, seed: int):
     fwd, bwd, ref = _flash_fns(kernel)
     c = FLASH[kernel]
     sc, causal = c["scale"], c["causal"]
-    q, k, v, do = flash_inputs(kernel, torch.bfloat16, device, seed)
+    dtype = dtype or torch.bfloat16
+    q, k, v, do = flash_inputs(kernel, dtype, device, seed)
     o, lse = fwd(q, k, v, causal, sc)
     ms_f = cold_ms(lambda: fwd(q, k, v, causal, sc), 10)
     ms_b = cold_ms(lambda: bwd(q, k, v, o, lse, do, causal, sc), 5)
@@ -1331,7 +1376,8 @@ def time_flash(kernel, device, seed: int):
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         res.append(entry)
-        print(f"[{kernel}] {what} timing, B {B} H {H} T {T} D {D} bf16 "
+        print(f"[{kernel}] {what} timing, B {B} H {H} T {T} D {D} "
+              f"{str(dtype)[6:]} "
               f"{'causal' if causal else 'not causal'} (cold L2, mean): "
               f"kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound "
@@ -1448,6 +1494,185 @@ def drive_train(num_heads: int, warmup: int, steps: int, device,
     del built, model
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------------ phase 9b
+# the eager loop's warm-up and timed steps, and the float16 check's
+# depth, batch and steps
+EAGER_WARMUP, EAGER_STEPS = 2, 8
+FP16_LAYERS, FP16_BATCH, FP16_STEPS = 2, 4, 2
+# where GradScaler's one host read a step lives
+FOUND_INF_SITE = "paddle_tpu_torch/amp/grad_scaler.py"
+# the eager loop's loss against TrainStep O1's at every step (relative):
+# the same forward and update on the same weights and batch
+EAGER_O1_REL = 1e-5
+
+
+def _count_syncs(fn):
+    """fn wrapped to record, per call, where torch's sync debug mode saw
+    a synchronizing CUDA operation inside it: "file:line" of the
+    innermost frame of this checkout's code below this script. Only the
+    warning torch gives for such an operation counts; the notice that
+    the first set_sync_debug_mode("warn") of a process prints (that the
+    mode is a prototype) is not one."""
+    import traceback
+    import warnings
+    import torch
+    here = Path(__file__).resolve()
+    calls = []
+
+    def site() -> str:
+        ours = [f for f in traceback.extract_stack()
+                if Path(f.filename).resolve().is_relative_to(here.parent)
+                and Path(f.filename).resolve() != here]
+        if not ours:
+            return "?"
+        f = ours[-1]
+        return f"{Path(f.filename).resolve().relative_to(here.parent)}:" \
+               f"{f.lineno}"
+
+    def counted(*args, **kwargs):
+        prev = torch.cuda.get_sync_debug_mode()
+        seen = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            show = warnings.showwarning
+
+            def record(message, category, filename, lineno, *rest):
+                if "called a synchronizing CUDA operation" in str(message):
+                    seen.append(site())
+                else:
+                    show(message, category, filename, lineno, *rest)
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        calls.append(seen)
+        return out
+    counted.calls = calls
+    return counted
+
+
+def drive_eager(device, seed: int) -> dict:
+    """Phase 9b: the reference-style eager loop (train_bench.run_eager)
+    at bench_gpt's width through K1, TrainStep with O1 inside its loss on
+    the same weights and batch, and the float16 route at small depth."""
+    import math
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels import packed_flash as k2
+    from paddle_tpu_torch.tools import train_bench
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd,
+           k2.packed_flash_fwd, k2.packed_flash_bwd)
+    prev = place._default
+    paddle.set_device(f"gpu:{device.index or 0}")
+    try:
+        st = train_bench.build_eager(seed=seed, device=device)
+        # every synchronizing operation of GradScaler.minimize (unscale
+        # and its found-inf check, the optimizer step, the scale update)
+        sc = st["scaler"]
+        sc.minimize = _count_syncs(sc.minimize)
+        for f in fns:
+            f.launches = 0
+        torch.cuda.synchronize()
+        res = train_bench.run_eager(EAGER_WARMUP, EAGER_STEPS, built=st)
+        torch.cuda.synchronize()
+        counts = [f.launches for f in fns]
+        sites = sc.minimize.calls
+        syncs = [len(c) for c in sites]
+        x, y = st["x"].numpy(), st["y"].numpy()
+        del st
+        torch.cuda.empty_cache()
+        o1 = train_bench.run_o1_trainstep(
+            EAGER_WARMUP, EAGER_STEPS, built=train_bench.build_o1_trainstep(
+                seed, device, x, y))
+        torch.cuda.empty_cache()
+        fp16 = _eager_fp16(device, seed, fns)
+    finally:
+        place._default = prev
+    n = EAGER_WARMUP + EAGER_STEPS
+    L = train_bench.bench_config(6).num_layers
+    want = [L * n, L * n, 0, 0]
+    sched = train_bench.eager_schedule()
+    want_lrs = []
+    for _ in range(n):
+        want_lrs.append(sched())
+        sched.step()
+    losses = res["losses"]
+    # the two routes run the same forward and the same update on the same
+    # weights and batch: every step's loss within EAGER_O1_REL
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, o1["losses"])]
+    rel = max(rels)
+    for name, r in (("eager", res), ("TrainStep O1", o1)):
+        print(f"[eager] {name}: losses {[round(v, 5) for v in r['losses']]}"
+              f"; step s {[round(t, 4) for t in r['step_s']]}; tokens/s "
+              f"{r['tokens_per_sec']:.1f}, MFU {r['mfu']:.4f} (bench.py "
+              f"FLOPs over 989 TFLOP/s bf16), peak memory "
+              f"{r['peak_mem_gb']:.2f} GB")
+    where = sorted({w for c in sites for w in c})
+    print(f"[eager] LRs {res['lrs']} (LinearWarmup's {want_lrs}); "
+          f"GradScaler scale {res['loss_scale']:g}, skipped "
+          f"{res['skipped_steps']}, found-inf host reads "
+          f"{res['found_inf_syncs']}, synchronizing CUDA operations in "
+          f"scaler.minimize per step {syncs} (at {where})")
+    print(f"[eager] launches fwd/bwd K1 {counts[0]}/{counts[1]}, K2 "
+          f"{counts[2]}/{counts[3]} (want {want}); LAST_PATH "
+          f"{res['last_path']}, q {res['last_dtype']}; losses vs "
+          f"TrainStep O1 step by step: worst rel {rel:.2e} (limit "
+          f"{EAGER_O1_REL:g}; first {losses[0]:.7f} vs "
+          f"{o1['losses'][0]:.7f})")
+    fp16_want = FP16_LAYERS * FP16_STEPS
+    print(f"[eager] float16 at {FP16_LAYERS} layers, batch {FP16_BATCH}: "
+          f"losses {fp16['losses']}, LAST_PATH {fp16['last_path']}, q "
+          f"{fp16['last_dtype']}, K1 launches fwd/bwd {fp16['k1']} (want "
+          f"{fp16_want} each), scale {fp16['scale']:g}, skipped "
+          f"{fp16['skipped']}")
+    _require(all(math.isfinite(v) for v in losses + o1["losses"]),
+             "eager: non-finite loss")
+    _require(losses[-1] < losses[0], f"eager: loss did not fall: {losses}")
+    _require(o1["losses"][-1] < o1["losses"][0],
+             f"TrainStep O1: loss did not fall: {o1['losses']}")
+    _require(len(rels) == n and rel <= EAGER_O1_REL,
+             f"eager losses {losses} vs TrainStep O1 {o1['losses']}")
+    _require(counts == want, f"eager: launches {counts} != {want}")
+    _require(res["last_path"] == "flash" and res["last_dtype"] == "bfloat16",
+             f"eager: LAST_PATH {res['last_path']}, q {res['last_dtype']}")
+    _require(res["lrs"] == want_lrs, f"eager: LRs {res['lrs']} != "
+                                     f"{want_lrs}")
+    _require(res["found_inf_syncs"] == n and syncs == [1] * n
+             and all(w.startswith(FOUND_INF_SITE) for w in where),
+             f"eager: found-inf reads {res['found_inf_syncs']}, syncs in "
+             f"scaler.minimize {syncs} at {where} (want one a step, in "
+             f"{FOUND_INF_SITE})")
+    _require(fp16["last_path"] == "flash" and fp16["last_dtype"] == "float16"
+             and fp16["k1"] == [fp16_want, fp16_want]
+             and all(math.isfinite(v) for v in fp16["losses"]),
+             f"float16: {fp16}")
+    return {"eager": res, "o1_trainstep": o1, "counts": counts,
+            "syncs": syncs, "fp16": fp16}
+
+
+def _eager_fp16(device, seed: int, fns) -> dict:
+    """The eager loop with auto_cast(dtype="float16") at small depth:
+    attention takes K1's float16 instance."""
+    import dataclasses
+    from paddle_tpu_torch.nn.functional import attention as A
+    from paddle_tpu_torch.tools import train_bench
+    cfg = dataclasses.replace(train_bench.bench_config(6),
+                              num_layers=FP16_LAYERS)
+    st = train_bench.build_eager(cfg, seed, device, "float16", FP16_BATCH)
+    for f in fns:
+        f.launches = 0
+    losses = [train_bench.eager_step(st).item() for _ in range(FP16_STEPS)]
+    return {"losses": losses, "last_path": A.LAST_PATH,
+            "last_dtype": str(A.LAST_DTYPE)[6:],
+            "k1": [fns[0].launches, fns[1].launches],
+            "scale": st["scaler"].get_init_loss_scaling(),
+            "skipped": st["scaler"].skipped_steps}
 
 
 # ------------------------------------------------------------ phase 10
@@ -1826,7 +2051,7 @@ def run_serving(device, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ragged_decode_attention.launches
-    chunks = eng.stats.host_syncs["decode"]
+    chunks = eng.stats.host_syncs("decode")
     want = cfg.num_layers * ecfg.decode_chunk_size * chunks
     print(f"[engine] K3 launches {launches} = {cfg.num_layers} layers x "
           f"{ecfg.decode_chunk_size} trips x {chunks} chunks: "
@@ -1903,8 +2128,10 @@ def main(argv=None) -> int:
     kernels = [run_serving(device, args.seed)]
     errs = {k: check_flash(k, device, args.seed) for k in FLASH}
     timing = {k: time_flash(k, device, args.seed) for k in FLASH}
+    k1_f16 = time_flash("k1", device, args.seed, torch.float16)
     train = {6: drive_train(6, 2, 10, device, args.seed),
              12: drive_train(12, 2, 3, device, args.seed)}
+    eager = drive_eager(device, args.seed)
     k4 = check_k4(device, args.seed)
     k4_model = check_k4_on_model(device, args.seed)
     drive_resnet(device, args.seed)
@@ -1921,8 +2148,19 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": FLASH_SOURCE, "replaces": replaces,
                         "launches": counts[kernel][i],
-                        "max_abs_err": errs[kernel][("fwd", "bwd")[i]],
+                        "max_abs_err": errs[kernel]["bfloat16"][
+                            ("fwd", "bwd")[i]],
                         **timing[kernel][i]})
+        if kernel == "k1":
+            # K1's launches on phase 9b's eager path (its own count), and
+            # its float16 instance: phase 7's max |err|, phase 8's times
+            # and its launches on phase 9b's float16 run
+            kernels[-1].update(
+                eager_launches=eager["counts"][i],
+                f16_max_abs_err=errs[kernel]["float16"][("fwd", "bwd")[i]],
+                f16_ms=k1_f16[i]["ms"], f16_plain_ms=k1_f16[i]["plain_ms"],
+                f16_library_ms=k1_f16[i]["library_ms"],
+                f16_launches=eager["fp16"]["k1"][i])
     total = {key: sum(r[key] for r in k4)
              for key in ("ms", "plain_ms", "bound_ms", "composed_ms",
                          "matmul_ms", "profiler_ms")}

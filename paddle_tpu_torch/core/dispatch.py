@@ -1,0 +1,120 @@
+"""Op registry and the eager call boundary (port of paddle_tpu/core/
+dispatch.py).
+
+`@op(op_type)` declares a functional under the op type the JAX package
+registers it with ("linear", "matmul_v2", "layer_norm", ...), so the
+AMP hook (amp/auto_cast.py) sees the same names and decides the same
+casts. A call through the wrapper:
+1. applies the AMP hook when auto_cast is active (one flag test when it
+   is not), casting the floating tensor arguments;
+2. inside a Layer's forward or another op (`_State.depth` > 0), or
+   when no argument is a Tensor (plain torch.Tensors, as the serving
+   engine and the train steps pass), calls the function on what it got:
+   module bodies and kernels see plain torch.Tensors;
+3. otherwise (user code handing in Tensors) converts the Tensor
+   arguments to plain aliases, runs the function and returns its result
+   as Tensors;
+4. at user level checks the result for NaN/Inf under
+   FLAGS_check_nan_inf.
+There is no tape to record: torch's autograd graph is built by the
+function's own torch operations.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+
+from . import flags as _flags
+from .tensor import Tensor, box, plain
+
+__all__ = ["op", "get_op", "registered_ops", "register_amp_hook",
+           "outermost", "has_tensor"]
+
+_OP_REGISTRY = {}
+
+
+class _State:
+    # Layer.__call__ and op nesting depth: 0 at user level
+    depth = 0
+    # the AMP hook, fn(op_type, args, kwargs) -> (args, kwargs), or None
+    amp = None
+
+
+def register_amp_hook(fn):
+    """Install (or with None remove) the AMP cast hook."""
+    _State.amp = fn
+
+
+def has_tensor(args, kwargs) -> bool:
+    """Whether a Tensor (not a parameter, not a plain torch.Tensor) is
+    among the arguments, or in a list or tuple among them."""
+    for a in (*args, *kwargs.values()):
+        if type(a) is Tensor:
+            return True
+        if type(a) in (list, tuple) and any(type(x) is Tensor for x in a):
+            return True
+    return False
+
+
+def _unwrap(a):
+    if type(a) in (list, tuple):
+        return type(a)(plain(x) for x in a)
+    return plain(a)
+
+
+def _check_finite(op_type, out):
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    for a in outs:
+        if torch.is_tensor(a) and a.is_floating_point() \
+                and not bool(torch.isfinite(a).all()):
+            raise FloatingPointError(
+                f"Operator {op_type} output contains NaN/Inf "
+                "(FLAGS_check_nan_inf is set)")
+
+
+def outermost(fn: Callable, *args, **kwargs):
+    """Run fn at depth 1 on plain arguments and box its result; the
+    boundary of Layer.__call__ and of every op at user level."""
+    args = tuple(_unwrap(a) for a in args)
+    kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+    _State.depth += 1
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        _State.depth -= 1
+    return box(out)
+
+
+def op(op_type: str, differentiable: bool = True):
+    """Declare a functional as op `op_type` (the JAX package's name).
+    differentiable is accepted for the reference's signature: torch
+    decides from the operations the function runs."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if _State.amp is not None:
+                args, kwargs = _State.amp(op_type, args, kwargs)
+            if _State.depth:
+                return fn(*args, **kwargs)
+            if has_tensor(args, kwargs):
+                out = outermost(fn, *args, **kwargs)
+            else:
+                out = fn(*args, **kwargs)
+            if _flags.flag("check_nan_inf"):
+                _check_finite(op_type, out)
+            return out
+        wrapper.op_type = op_type
+        wrapper.raw_fn = fn
+        _OP_REGISTRY[op_type] = wrapper
+        return wrapper
+    return deco
+
+
+def get_op(op_type: str):
+    return _OP_REGISTRY.get(op_type)
+
+
+def registered_ops():
+    return sorted(_OP_REGISTRY)

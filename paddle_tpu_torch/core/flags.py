@@ -11,12 +11,18 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
-__all__ = ["define_flag", "set_flags", "flag"]
+from .unported import require_defaults
+
+__all__ = ["define_flag", "set_flags", "get_flags", "flag"]
 
 _REGISTRY: Dict[str, Any] = {}
 
 
-def define_flag(name: str, default, help_str: str = ""):
+def define_flag(name: str, default, help_str: str = "", public: bool = True):
+    """Register flag `name` (FLAGS_name in the environment overrides
+    `default`). Every flag is public: the reference's public=False marks
+    a flag in a set nothing reads, so only the default is accepted."""
+    require_defaults("define_flag", public=(public, True))
     env = os.environ.get("FLAGS_" + name)
     value = default
     if env is not None:
@@ -40,9 +46,28 @@ def set_flags(flags: Dict[str, Any]) -> None:
         _REGISTRY[key] = v
 
 
+def get_flags(flags):
+    """{name: value} for one flag name or a list of them."""
+    if isinstance(flags, str):
+        flags = [flags]
+    out = {}
+    for k in flags:
+        key = k[6:] if k.startswith("FLAGS_") else k
+        if key not in _REGISTRY:
+            raise ValueError(f"Unknown flag {k!r}")
+        out[k] = _REGISTRY[key]
+    return out
+
+
 def flag(name: str):
     return _REGISTRY[name]
 
+
+# the op boundary's NaN/Inf check (core/dispatch.py), off by default as
+# in paddle_tpu/core/flags.py
+define_flag("check_nan_inf", False,
+            "Raise FloatingPointError when an op called from user code "
+            "returns NaN/Inf.")
 
 # nn/functional/attention.py's flags (paddle_tpu/nn/functional/
 # attention.py:24-34)

@@ -1,0 +1,279 @@
+"""Tensor and to_tensor (port of paddle_tpu/core/tensor.py).
+
+The JAX package's Tensor wraps a jax.Array and records a tape of vjp
+closures. The port's Tensor IS a torch.Tensor subclass, and torch's
+autograd graph is the tape. It adds Paddle's semantics:
+- `stop_gradient` (the inverse of requires_grad; True for to_tensor's
+  results by default, False for parameters);
+- `.grad` is a Tensor, `.shape` a list, `.place` a Place;
+- `.numpy()` copies to the host (detaching first), `astype`/`cast`,
+  `clear_grad`, `set_value`, `backward(grad_tensor, retain_graph)` and a
+  `transpose` that also takes Paddle's permutation list.
+Every torch operation on a Tensor returns a Tensor (its
+`__torch_function__` boxes plain results), so user code keeps Paddle's
+semantics from op to op.
+
+That costs a Python call per operation, so the model code never sees a
+Tensor: Layer.__call__ and the registered ops (core/dispatch.py), when
+user code hands them Tensors, convert those to plain torch.Tensors once
+on the way in (`plain`, an alias that stays on the autograd graph) and
+box the result once on the way out (`box`), at the outermost call
+only. Module bodies and the kernels see plain tensors; callers that
+pass plain torch.Tensors (the train steps, the serving engine) get
+plain results and no per-op Python.
+
+Parameters are `EagerParamBase`: a Tensor and a torch.nn.Parameter at
+once, with Paddle's name, trainable, need_clip, optimize_attr and
+regularizer. Their `__torch_function__` is torch's disabled one (as
+nn.Parameter's is), so a parameter read inside a module body costs
+nothing per op; operations on a parameter return plain tensors.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from . import dtypes as _dt
+from . import place as _place
+
+__all__ = ["Tensor", "EagerParamBase", "to_tensor", "box", "plain"]
+
+_DIS = torch._C.DisableTorchFunctionSubclass
+_TensorBase = torch._C.TensorBase
+
+# process-global counter of the names of Tensors and parameters
+# (the JAX package's `_tensor_name_counter`)
+_tensor_name_counter = [0]
+
+
+def _auto_name(prefix="generated_tensor"):
+    _tensor_name_counter[0] += 1
+    return f"{prefix}_{_tensor_name_counter[0]}"
+
+
+class _Shape(list):
+    """Paddle's list shape that still compares equal to torch.Size and
+    tuples, so torch's own shape checks keep working on parameters."""
+
+    __hash__ = None
+
+    def __eq__(self, other):
+        if isinstance(other, (list, tuple)):
+            return tuple(self) == tuple(other)
+        return NotImplemented
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
+
+
+def box(out):
+    """Plain torch.Tensor results (also inside a list or tuple) as
+    Tensors; anything else unchanged."""
+    if type(out) is torch.Tensor:
+        return torch.Tensor.as_subclass(out, Tensor)
+    if type(out) in (list, tuple):
+        return type(out)(box(o) for o in out)
+    return out
+
+
+def plain(t):
+    """A Tensor as a plain torch.Tensor alias (on the autograd graph);
+    anything else unchanged. Parameters pass as they are: ops on them
+    already run without __torch_function__."""
+    if type(t) is Tensor:
+        with _DIS():
+            return torch.Tensor.as_subclass(t, torch.Tensor)
+    return t
+
+
+class Tensor(torch.Tensor):
+    """Paddle's eager tensor over a torch.Tensor (see the module
+    docstring). Build one with to_tensor, or Tensor(value,
+    stop_gradient=True, name=None, persistable=False)."""
+
+    def __new__(cls, value=None, stop_gradient: bool = True,
+                name: str = None, persistable: bool = False):
+        t = to_tensor(value if value is not None else [],
+                      stop_gradient=stop_gradient)
+        if name is not None:
+            t.name = name
+        t.persistable = persistable
+        return t
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        with _DIS():
+            out = func(*args, **(kwargs or {}))
+        return box(out)
+
+    # ------------------------------------------------------------- meta
+    @property
+    def shape(self):
+        with _DIS():
+            return _Shape(_TensorBase.size(self))
+
+    @property
+    def place(self):
+        with _DIS():
+            return _place.place_of(_TensorBase.device.__get__(self))
+
+    @property
+    def name(self):
+        n = self.__dict__.get("_name")
+        if n is None:
+            n = self.__dict__["_name"] = _auto_name()
+        return n
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_name"] = value
+
+    @property
+    def persistable(self):
+        return self.__dict__.get("_persistable", False)
+
+    @persistable.setter
+    def persistable(self, value):
+        self.__dict__["_persistable"] = bool(value)
+
+    # --------------------------------------------------------- autograd
+    @property
+    def stop_gradient(self) -> bool:
+        with _DIS():
+            return not _TensorBase.requires_grad.__get__(self)
+
+    @stop_gradient.setter
+    def stop_gradient(self, value: bool):
+        with _DIS():
+            if not value or self.is_leaf:
+                _TensorBase.requires_grad_(self, not value)
+            elif _TensorBase.requires_grad.__get__(self):
+                raise RuntimeError(
+                    "stop_gradient=True on a non-leaf Tensor: use "
+                    "detach() for a Tensor cut from the graph")
+
+    @property
+    def grad(self):
+        """The accumulated gradient as a Tensor (None before backward).
+        The stored gradient itself is made a Tensor on first read, so
+        later reads return the same object."""
+        with _DIS():
+            g = _TensorBase.grad.__get__(self)
+            if g is not None and type(g) is torch.Tensor:
+                g = torch.Tensor.as_subclass(g, Tensor)
+                _TensorBase.grad.__set__(self, g)
+        return g
+
+    @grad.setter
+    def grad(self, value):
+        with _DIS():
+            _TensorBase.grad.__set__(self, value)
+
+    def backward(self, grad_tensor=None, retain_graph: bool = False):
+        """Accumulate d(self)/d(leaf) into every leaf's .grad; a missing
+        grad_tensor is ones (Paddle's rule, for any shape)."""
+        from .autograd import backward as _backward
+        _backward(self, grad_tensor, retain_graph)
+
+    def clear_grad(self):
+        self.grad = None
+
+    clear_gradient = clear_grad
+
+    # ----------------------------------------------------------- convert
+    def numpy(self):
+        """A host copy (detached; bf16 comes back as float32, numpy has
+        no bfloat16)."""
+        with _DIS():
+            t = _TensorBase.detach(self)
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            return _TensorBase.numpy(t.cpu())
+
+    def astype(self, dtype):
+        return self.to(_dt.convert_dtype(dtype))
+
+    def cast(self, dtype):
+        return self.astype(dtype)
+
+    def set_value(self, value):
+        """Overwrite the values in place (shape kept, own dtype). Like
+        Paddle's eager set_value this is an in-place write: a graph that
+        saved this Tensor refuses to differentiate through it after
+        (torch's version counter), rather than use the new value."""
+        src = value if torch.is_tensor(value) else torch.as_tensor(
+            np.asarray(value))
+        if tuple(src.shape) != tuple(self.shape):
+            raise ValueError(f"set_value shape mismatch: {tuple(src.shape)}"
+                             f" vs {tuple(self.shape)}")
+        with torch.no_grad(), _DIS():
+            _TensorBase.copy_(self, plain(src).to(self.device))
+        return self
+
+
+def _transpose(x, perm, *dims, name=None):
+    """Paddle's x.transpose(perm) with a permutation list, or torch's
+    x.transpose(dim0, dim1). (Bound as a method with the reference's
+    first parameter x, as the JAX package binds its Tensor methods.)"""
+    if dims:
+        return torch.Tensor.transpose(x, perm, *dims)
+    return x.permute(*perm)
+
+
+Tensor.transpose = _transpose
+
+
+class EagerParamBase(Tensor, torch.nn.Parameter):
+    """A parameter: a leaf Tensor with stop_gradient False (unless made
+    not trainable), registered on a Layer like a torch.nn.Parameter."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __new__(cls, data, requires_grad: bool = True, **attrs):
+        return torch.Tensor._make_subclass(cls, plain(data).detach(),
+                                           requires_grad)
+
+    def __init__(self, data, requires_grad: bool = True, name=None,
+                 trainable: bool = True, learning_rate: float = 1.0,
+                 regularizer=None, need_clip: bool = True,
+                 do_model_average: bool = False):
+        self.name = name or _auto_name()
+        self.persistable = True
+        self.is_parameter = True
+        self.trainable = trainable
+        self.optimize_attr = {"learning_rate": learning_rate}
+        self.regularizer = regularizer
+        self.need_clip = need_clip
+        self.do_model_average = do_model_average
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        with torch.no_grad():
+            out = type(self)(self.detach().clone(), self.requires_grad)
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        memo[id(self)] = out
+        return out
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True):
+    """paddle.to_tensor: a new leaf Tensor on `place` (the default device
+    when None; see core/place.py). Python floats (and lists of them)
+    take the default float dtype; a float64 ndarray keeps float64."""
+    dtype = _dt.convert_dtype(dtype)
+    device = _place.resolve_device(place)
+    if torch.is_tensor(data):
+        t = plain(data).detach()
+    else:
+        a = np.asarray(data)
+        if dtype is None and a.dtype == np.float64 \
+                and not isinstance(data, np.ndarray):
+            dtype = _dt.get_default_dtype()
+        if a.dtype == object:
+            raise TypeError(f"to_tensor: cannot convert {type(data)}")
+        t = torch.from_numpy(np.array(a, copy=True))
+    t = t.to(device=device, dtype=dtype or t.dtype, copy=True)
+    return torch.Tensor._make_subclass(Tensor, t, not stop_gradient)

@@ -4,14 +4,19 @@ paddle_tpu/distributed/tp_layers.py).
 The JAX layers mark their weights with a PartitionSpec over the 'tp'
 mesh axis and let GSPMD insert the collectives; without a mesh they are
 plain layers. The port has no mesh yet (real tensor parallelism over
-NCCL is a later slice), so these classes add no behaviour to Linear and
-Embedding: they exist only so that models/gpt.py builds its layers under
-the same names as the JAX package's call sites. Parameter names
-(`qkv.weight`, `lm_head.weight`, ...) come from the attribute names in
-the models, not from these classes."""
+NCCL is a later slice), so these classes are Linear and Embedding
+under the JAX package's names, with one difference the reference has
+too: RowParallelLinear adds its bias after the product (where the
+tensor-parallel sum would go), so under AMP O1 the bias add runs in
+float32 (bf16 product + f32 bias), as in the JAX package. Parameter
+names (`qkv.weight`, `lm_head.weight`, ...) come from the attribute
+names in the models, not from these classes."""
 from __future__ import annotations
 
+from ..nn import functional as F
+from ..nn import initializer as I
 from ..nn.layer.common import Embedding, Linear
+from ..nn.layer.layers import Layer
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding"]
@@ -41,6 +46,20 @@ class RowParallelLinear(Linear):
                          None if has_bias else False)
         self.input_is_parallel = input_is_parallel
 
+    def forward(self, x):
+        out = F.linear(x, self.weight, None)
+        return out if self.bias is None else out + self.bias
+
 
 class VocabParallelEmbedding(Embedding):
     """Embedding table [vocab, dim] (sharded on vocab under tp > 1)."""
+
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
+                 name=None):
+        Layer.__init__(self)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = None
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 0.02))

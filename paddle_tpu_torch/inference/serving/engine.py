@@ -364,12 +364,11 @@ class EngineStats:
     def inc_host_sync(self, phase: str) -> None:
         self._syncs[phase].inc()
 
-    @property
-    def host_syncs(self) -> Dict[str, int]:
-        """Exact device->host sync counts per phase, {"prefill": n,
-        "decode": m} (the reference reads one with host_syncs(phase)).
-        Decode syncs equal the number of chunks."""
-        return {p: int(c.value) for p, c in self._syncs.items()}
+    def host_syncs(self, phase: str) -> int:
+        """Exact device->host sync count of one phase ("prefill" or
+        "decode"), as the reference reads it. Decode syncs equal the
+        number of chunks."""
+        return int(self._syncs[phase].value)
 
     def set_syncs_per_token(self, v: float) -> None:
         self._g_syncs_per_token.set(v)
@@ -453,7 +452,7 @@ class EngineStats:
         d["decode_tokens_per_sec"] = (
             self.generated_tokens / busy if busy > 0 else 0.0)
         d["host_syncs_per_token"] = (
-            self.host_syncs["decode"] / self.generated_tokens
+            self.host_syncs("decode") / self.generated_tokens
             if self.generated_tokens else 0.0)
         return d
 
@@ -570,7 +569,9 @@ class LLMEngine:
 
     # ------------------------------------------------------------ intake
     def add_request(self, prompt_ids, sampling: SamplingParams = None,
-                    request_id: str = None) -> str:
+                    request_id: str = None, arrival_time: float = None,
+                    arrival: int = None, resume_tokens=None,
+                    readmit: bool = False, trace_id: str = None) -> str:
         """Queue one request. Raises ValueError for an empty or oversized
         request (or an unknown tenant), TenantQuotaExceeded when its
         tenant's quota window is spent, and EngineOverloaded when the
@@ -579,7 +580,14 @@ class LLMEngine:
         oldest waiting request is evicted instead (its terminal output
         streams from the next step()). The request gets the trace id
         `tr-<engine label>-N`. With a host tier its host-resident prefix
-        is promoted now, while it waits."""
+        is promoted now, while it waits. arrival_time, arrival,
+        resume_tokens, readmit and trace_id, the fleet's failover
+        surface (ROADMAP Queue 1 item 5), take only their defaults."""
+        require_defaults("LLMEngine.add_request",
+                         arrival_time=(arrival_time, None),
+                         arrival=(arrival, None),
+                         resume_tokens=(resume_tokens, None),
+                         readmit=(readmit, False), trace_id=(trace_id, None))
         sampling = sampling or SamplingParams()
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
@@ -985,7 +993,7 @@ class LLMEngine:
         self.stats.set_prefill_spend(prefill_spend)
         if self.stats.generated_tokens:
             self.stats.set_syncs_per_token(
-                self.stats.host_syncs["decode"]
+                self.stats.host_syncs("decode")
                 / self.stats.generated_tokens)
         self.stats.set_step_gauges(
             running=self.scheduler.num_running(),

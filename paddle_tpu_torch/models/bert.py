@@ -1,5 +1,5 @@
 """BERT/ERNIE bidirectional encoders with the MLM + NSP pretraining heads,
-as torch.nn.Modules.
+as Layers (torch.nn.Modules).
 
 Port of paddle_tpu/models/bert.py (BASELINE configs 3 and 4: BERT-base
 and ERNIE-large pretraining). Parameter names and layouts are the JAX
@@ -30,14 +30,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
-from ..core.place import DeviceLike, resolve_device
+from ..core.place import DeviceLike, default_device
 from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..nn import functional as F
-from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
-from ..nn.layer.layers import load_jax_state
+from ..nn.layer import Dropout, Embedding, LayerList, LayerNorm, Linear
+from ..nn.layer.layers import Layer, load_jax_state
 from ..ops.kernels import packed_flash
 from .gpt import sliced_qkv
 
@@ -70,7 +69,7 @@ def ernie_large():
                       num_heads=16, max_position=512, type_vocab_size=4)
 
 
-class BertSelfAttention(nn.Module):
+class BertSelfAttention(Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
@@ -101,7 +100,7 @@ class BertSelfAttention(nn.Module):
         return self.out(out.transpose(1, 2).reshape(B, T, -1))
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     """Post-LN encoder block (residual, then LayerNorm), GELU tanh."""
 
     def __init__(self, cfg: BertConfig):
@@ -123,19 +122,22 @@ class BertLayer(nn.Module):
 
 
 @torch.no_grad()
-def _draw(module: nn.Module, seed: int) -> None:
+def _draw(module: Layer, seed: int) -> None:
     """The JAX package's initializer families, drawn on the CPU from
     `seed`: the vocab embedding normal(0, 0.02), the other embeddings
     normal(0, 1), linear weights Xavier-normal; biases and LayerNorms
     keep their zeros and ones."""
     g = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
+        # drawn on the CPU whatever device the layers were built on
+        draw = torch.empty(p.shape)
         if name.endswith("word_emb.weight"):
-            p.normal_(0.0, 0.02, generator=g)
+            p.copy_(draw.normal_(0.0, 0.02, generator=g))
         elif name.endswith("_emb.weight"):
-            p.normal_(0.0, 1.0, generator=g)
+            p.copy_(draw.normal_(0.0, 1.0, generator=g))
         elif p.ndim == 2:
-            p.normal_(0.0, math.sqrt(2.0 / sum(p.shape)), generator=g)
+            p.copy_(draw.normal_(0.0, math.sqrt(2.0 / sum(p.shape)),
+                                 generator=g))
 
 
 class _JaxParams:
@@ -149,13 +151,14 @@ class _JaxParams:
 
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        return self.parameters()[0].device
 
 
-class Bert(_JaxParams, nn.Module):
+class Bert(_JaxParams, Layer):
     """Encoder trunk: embeddings, N bidirectional blocks and the pooler,
     over an explicit device. Weights are drawn on the CPU from `seed`
-    and then moved, so one seed gives the same model on either device."""
+    and copied into layers built on `device`, so one seed gives the same
+    model on either device."""
 
     def __init__(self, cfg: Optional[BertConfig] = None,
                  device: DeviceLike = None, seed: int = 0, **kwargs):
@@ -165,17 +168,18 @@ class Bert(_JaxParams, nn.Module):
             raise ValueError(f"hidden_size {cfg.hidden_size} is not "
                              f"divisible by num_heads {cfg.num_heads}")
         self.cfg = cfg
-        self.word_emb = VocabParallelEmbedding(cfg.vocab_size,
-                                               cfg.hidden_size)
-        self.pos_emb = Embedding(cfg.max_position, cfg.hidden_size)
-        self.type_emb = Embedding(cfg.type_vocab_size, cfg.hidden_size)
-        self.emb_ln = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
-        self.drop = Dropout(cfg.dropout)
-        self.layers = nn.ModuleList(BertLayer(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size)
+        with default_device(device):
+            self.word_emb = VocabParallelEmbedding(cfg.vocab_size,
+                                                   cfg.hidden_size)
+            self.pos_emb = Embedding(cfg.max_position, cfg.hidden_size)
+            self.type_emb = Embedding(cfg.type_vocab_size, cfg.hidden_size)
+            self.emb_ln = LayerNorm(cfg.hidden_size,
+                                    epsilon=cfg.layer_norm_eps)
+            self.drop = Dropout(cfg.dropout)
+            self.layers = LayerList([BertLayer(cfg)
+                                     for _ in range(cfg.num_layers)])
+            self.pooler = Linear(cfg.hidden_size, cfg.hidden_size)
         _draw(self, seed)
-        self.to(resolve_device(device))
 
     def forward(self, input_ids, token_type_ids=None, attn_mask=None):
         """(sequence output [B, T, C], pooled tanh(pooler(x[:, 0])))."""
@@ -194,7 +198,7 @@ class Bert(_JaxParams, nn.Module):
         return x, F.tanh(self.pooler(x[:, 0]))
 
 
-class BertForPretraining(_JaxParams, nn.Module):
+class BertForPretraining(_JaxParams, Layer):
     """MLM + NSP heads over the trunk. The MLM logits are
     h @ word_emb.weight^T + mlm_bias, tied to the word embedding, whose
     one parameter (and, under O2, one f32 master) takes the gradients of
@@ -205,14 +209,16 @@ class BertForPretraining(_JaxParams, nn.Module):
         super().__init__()
         cfg = cfg or BertConfig(**kwargs)
         self.cfg = cfg
-        self.bert = Bert(cfg, device="cpu", seed=seed)
-        self.mlm_transform = Linear(cfg.hidden_size, cfg.hidden_size)
-        self.mlm_ln = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
-        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
-        self.nsp = Linear(cfg.hidden_size, 2)
+        self.bert = Bert(cfg, device=device, seed=seed)
+        with default_device(device):
+            self.mlm_transform = Linear(cfg.hidden_size, cfg.hidden_size)
+            self.mlm_ln = LayerNorm(cfg.hidden_size,
+                                    epsilon=cfg.layer_norm_eps)
+            self.mlm_bias = self.create_parameter([cfg.vocab_size],
+                                                  is_bias=True)
+            self.nsp = Linear(cfg.hidden_size, 2)
         _draw(self.mlm_transform, seed + 1)
         _draw(self.nsp, seed + 2)
-        self.to(resolve_device(device))
 
     def forward(self, input_ids, token_type_ids=None, attn_mask=None,
                 masked_positions=None):

@@ -1,4 +1,4 @@
-"""GPT: the decoder-only transformer, as a torch.nn.Module.
+"""GPT: the decoder-only transformer, as a Layer (a torch.nn.Module).
 
 Port of paddle_tpu/models/gpt.py. Parameter names and layouts are the
 JAX package's: a linear weight is [in, out] (Paddle's layout), so
@@ -24,14 +24,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
-from ..core.place import DeviceLike, resolve_device
+from ..core.place import DeviceLike, default_device
+from ..core.tensor import plain
 from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..nn import functional as F
-from ..nn.layer import Dropout, Embedding, LayerNorm
-from ..nn.layer.layers import load_jax_state
+from ..nn.layer import Dropout, Embedding, LayerList, LayerNorm
+from ..nn.layer.layers import Layer, load_jax_state
 from ..ops.kernels import packed_flash
 
 __all__ = ["GPTConfig", "GPT", "GPTAttention", "sliced_qkv", "gpt_loss_fn"]
@@ -95,7 +95,7 @@ def sliced_qkv(x, qkv_layer, num_heads: int, head_dim: int,
     return out
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.cfg = cfg
@@ -125,7 +125,7 @@ class GPTAttention(nn.Module):
         return self.out(out.transpose(1, 2).reshape(B, T, -1))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         inner = cfg.ffn_mult * cfg.hidden_size
@@ -138,9 +138,13 @@ class GPTMLP(nn.Module):
         return self.down(F.gelu(self.up(x), approximate=True))
 
 
-class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+class GPTBlock(Layer):
+    """layer_idx names the block's place in the stack (the reference's
+    planned remat and MoE placement read it; neither is ported yet)."""
+
+    def __init__(self, cfg: GPTConfig, layer_idx: int = 0):
         super().__init__()
+        self.layer_idx = layer_idx
         self.ln1 = LayerNorm(cfg.hidden_size)
         self.attn = GPTAttention(cfg)
         self.ln2 = LayerNorm(cfg.hidden_size)
@@ -151,12 +155,12 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-class GPT(nn.Module):
+class GPT(Layer):
     """GPT over an explicit device. Weights are drawn on the CPU from
     `seed` (normal(0, 0.02) token embedding, normal(0, 1) position
     embedding, Xavier-uniform linears, zero biases, unit LayerNorms, the
-    JAX package's initializer families) and then moved, so one seed
-    gives the same model on the CPU and the GPU."""
+    JAX package's initializer families) and copied into layers built on
+    `device`, so one seed gives the same model on the CPU and the GPU."""
 
     def __init__(self, cfg: Optional[GPTConfig] = None,
                  device: DeviceLike = None, seed: int = 0, **kwargs):
@@ -164,28 +168,31 @@ class GPT(nn.Module):
         cfg = cfg or GPTConfig(**kwargs)
         _check_supported(cfg)
         self.cfg = cfg
-        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size)
-        self.drop = Dropout(cfg.dropout)
-        self.blocks = nn.ModuleList(GPTBlock(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.ln_f = LayerNorm(cfg.hidden_size)
-        self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
-                                            has_bias=False)
+        with default_device(device):
+            self.wte = VocabParallelEmbedding(cfg.vocab_size,
+                                              cfg.hidden_size)
+            self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size)
+            self.drop = Dropout(cfg.dropout)
+            self.blocks = LayerList([GPTBlock(cfg, layer_idx=i)
+                                     for i in range(cfg.num_layers)])
+            self.ln_f = LayerNorm(cfg.hidden_size)
+            self.lm_head = ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size, has_bias=False)
         self._init_weights(seed)
-        self.to(resolve_device(device))
 
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:
         g = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
+            # drawn on the CPU whatever device the layers were built on
+            draw = torch.empty(p.shape)
             if name == "wte.weight":
-                p.normal_(0.0, 0.02, generator=g)
+                p.copy_(draw.normal_(0.0, 0.02, generator=g))
             elif name == "wpe.weight":
-                p.normal_(0.0, 1.0, generator=g)
+                p.copy_(draw.normal_(0.0, 1.0, generator=g))
             elif name.endswith(".weight") and p.ndim == 2:
                 lim = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
-                p.uniform_(-lim, lim, generator=g)
+                p.copy_(draw.uniform_(-lim, lim, generator=g))
             elif "ln" in name and name.endswith(".weight"):
                 p.fill_(1.0)
             else:
@@ -207,7 +214,7 @@ class GPT(nn.Module):
     def loss(self, input_ids, labels):
         """Mean hard-label cross-entropy of the next-token logits."""
         logits = self(input_ids)
-        labels = torch.as_tensor(labels, device=self.device)
+        labels = torch.as_tensor(plain(labels), device=self.device)
         return F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
                                labels.reshape(-1))
 

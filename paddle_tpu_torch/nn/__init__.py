@@ -1,10 +1,13 @@
-"""nn of the port (paddle_tpu/nn): the layers, functionals and clipping
-the GPT and ResNet train steps use."""
-from . import functional
+"""nn of the port (paddle_tpu/nn): Layer and ParamAttr, the layers,
+functionals, initializers and clipping that the eager surface and the
+GPT, ResNet, BERT and LeNet train steps use."""
+from . import functional, initializer
 from .clip import ClipGradByGlobalNorm
-from .layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
-                    Embedding, LayerNorm, Linear, MaxPool2D, ReLU, Sequential)
+from .layer import (GELU, AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
+                    Embedding, HookRemoveHelper, Layer, LayerList, LayerNorm,
+                    Linear, MaxPool2D, ParamAttr, ReLU, Sequential)
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Linear", "Embedding",
-           "Dropout", "LayerNorm", "BatchNorm2D", "Conv2D", "ReLU",
-           "Sequential", "MaxPool2D", "AdaptiveAvgPool2D"]
+__all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Layer",
+           "HookRemoveHelper", "ParamAttr", "Linear", "Embedding", "Dropout",
+           "LayerNorm", "BatchNorm2D", "Conv2D", "ReLU", "GELU",
+           "Sequential", "LayerList", "MaxPool2D", "AdaptiveAvgPool2D"]

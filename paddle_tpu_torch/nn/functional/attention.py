@@ -6,7 +6,9 @@ attention (`_sdpa`), as the JAX package does:
   (ops/kernels/packed_flash.py); the caller has applied its gate;
 - no mask, no active dropout, the `use_flash_attention` flag on, the
   query at least `flash_attention_min_seq` long and the shape within
-  K1's scope (ops/kernels/flash_attention.py `supported`): kernel K1;
+  K1's scope (ops/kernels/flash_attention.py `supported`): kernel K1,
+  whatever q's dtype (it has float32, bfloat16 and float16 instances,
+  so AMP's bf16 and fp16 both reach it; another dtype on CUDA raises);
 - anything else, composed attention, deliberately.
 `LAST_PATH` records which ("flash" or "composed").
 
@@ -23,6 +25,8 @@ import math
 import torch
 
 from ...core import flags as _flags
+from ...core import random as _random
+from ...core.dispatch import op
 from ...ops.kernels import flash_attention as _k1
 from ...ops.kernels import packed_flash as _k2
 
@@ -30,15 +34,18 @@ __all__ = ["scaled_dot_product_attention"]
 
 NEG_INF = -1e30
 
-# which path the last call took: "flash" | "composed"
+# which path the last call took: "flash" | "composed", and its q dtype
 LAST_PATH = None
+LAST_DTYPE = None
 
 
 def _sdpa(q, k, v, mask, causal, scale, drop_mask, dropout_p,
           heads_major=False):
     """Composed attention in the inputs' dtype. q/k/v [B, T, H, D]
     (Paddle's layout) or [B, H, T, D] with heads_major; the output keeps
-    the input layout."""
+    the input layout. Masked scores are -1e30 in that dtype, which in
+    float16 is -inf (the JAX package's -1e30 rounds there too)."""
+    neg = NEG_INF if torch.finfo(q.dtype).min <= NEG_INF else -math.inf
     if heads_major:
         qh, kh, vh = q, k, v
     else:
@@ -48,10 +55,10 @@ def _sdpa(q, k, v, mask, causal, scale, drop_mask, dropout_p,
         t, s = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(t, s, dtype=torch.bool,
                           device=logits.device).tril()
-        logits = logits.masked_fill(~keep, NEG_INF)
+        logits = logits.masked_fill(~keep, neg)
     if mask is not None:
         if mask.dtype == torch.bool:
-            logits = logits.masked_fill(~mask, NEG_INF)
+            logits = logits.masked_fill(~mask, neg)
         else:
             logits = logits + mask
     probs = torch.softmax(logits, dim=-1)
@@ -61,6 +68,7 @@ def _sdpa(q, k, v, mask, causal, scale, drop_mask, dropout_p,
     return out if heads_major else out.transpose(1, 2)
 
 
+@op("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None, name=None,
@@ -72,8 +80,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     _packed_pairs (internal): q/k/v arrive as [batch, heads/2, seq,
     2*head_dim], adjacent head pairs merged for K2; the output stays
     packed. The caller applies the gate (packed_flash.route_gate)."""
-    global LAST_PATH
+    global LAST_PATH, LAST_DTYPE
     q, k, v = query, key, value
+    LAST_DTYPE = q.dtype
     if _packed_pairs:
         sc = scale if scale is not None else 1.0 / math.sqrt(
             q.shape[-1] // 2)
@@ -100,7 +109,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             shape = (q.shape[0], q.shape[1], q_seq, kv_seq)
         else:
             shape = (q.shape[0], q.shape[2], q_seq, kv_seq)
-        keep = torch.rand(shape, device=q.device) >= dropout_p
+        keep = torch.rand(shape, generator=_random.generator(q.device),
+                          device=q.device) >= dropout_p
         drop_mask = keep.to(q.dtype)
     return _sdpa(q, k, v, attn_mask, is_causal, sc, drop_mask,
                  float(dropout_p), _heads_major)

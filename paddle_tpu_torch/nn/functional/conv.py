@@ -18,6 +18,8 @@ from typing import List, Tuple, Union
 
 from torch.nn import functional as F
 
+from ...core.dispatch import op
+
 __all__ = ["conv2d"]
 
 
@@ -60,10 +62,8 @@ def _norm_padding(padding, x_hw, kernel, strides, dilations
     return [tuple(p) for p in padding]
 
 
-def conv2d(x, weight, bias=None, stride=1, padding: Union[int, str, list] = 0,
-           dilation=1, groups=1, data_format="NCHW"):
-    """2-D convolution of NCHW x with weight [out, in/groups, kh, kw]."""
-    _require_nchw(data_format)
+@op("conv2d")
+def _conv2d(x, weight, bias, stride, padding, dilation, groups):
     strides, dilations = _pair(stride), _pair(dilation)
     kernel = tuple(weight.shape[2:])
     pads = _norm_padding(padding, tuple(x.shape[2:]), kernel, strides,
@@ -75,3 +75,11 @@ def conv2d(x, weight, bias=None, stride=1, padding: Union[int, str, list] = 0,
         x = F.pad(x, (l, r, t, b))
         sym = (0, 0)
     return F.conv2d(x, weight, bias, strides, sym, dilations, groups)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding: Union[int, str, list] = 0,
+           dilation=1, groups=1, data_format="NCHW", name=None):
+    """2-D convolution of NCHW x with weight [out, in/groups, kh, kw]
+    (op "conv2d", on the AMP white list)."""
+    _require_nchw(data_format)
+    return _conv2d(x, weight, bias, stride, padding, dilation, groups)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import op
 from ...core.unported import require_defaults
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
@@ -114,6 +115,11 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                      soft_label=(soft_label, False),
                      axis=(_negative(axis, input), -1),
                      use_softmax=(use_softmax, True))
+    return _cross_entropy(input, label, ignore_index, reduction)
+
+
+@op("softmax_with_cross_entropy")
+def _cross_entropy(input, label, ignore_index, reduction):
     nll, valid = _hard_nll(input, label, ignore_index)
     if reduction == "mean":
         cnt = valid.sum().to(nll.dtype).clamp(min=1.0)
@@ -134,6 +140,12 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     require_defaults("softmax_with_cross_entropy",
                      soft_label=(soft_label, False),
                      axis=(_negative(axis, logits), -1))
+    return _softmax_with_cross_entropy(logits, label, ignore_index,
+                                       return_softmax)
+
+
+@op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(logits, label, ignore_index, return_softmax):
     nll, _ = _hard_nll(logits, label, ignore_index)
     loss = nll[..., None]
     if return_softmax:

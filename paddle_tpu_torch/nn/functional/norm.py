@@ -35,13 +35,21 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from ...core.dispatch import op
+
 __all__ = ["layer_norm", "batch_norm", "batch_norm_act"]
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+@op("layer_norm")
+def _layer_norm(x, normalized_shape, weight, bias, epsilon):
+    return F.layer_norm(x, normalized_shape, weight, bias, epsilon)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
-    return F.layer_norm(x, list(normalized_shape), weight, bias, epsilon)
+    return _layer_norm(x, list(normalized_shape), weight, bias, epsilon)
 
 
 def _channel_axis(x, data_format) -> int:
@@ -213,33 +221,62 @@ def _use_stats(training, use_global_stats):
     return (not training) if use_global_stats is None else use_global_stats
 
 
+class _Stats:
+    """The running mean and variance, handed to the ops in a holder the
+    AMP hook does not cast (their EMA rebinds the buffers in place)."""
+
+    __slots__ = ("mean", "var")
+
+    def __init__(self, mean, var):
+        self.mean, self.var = mean, var
+
+
+@op("batch_norm_infer")
+def _bn_infer(x, stats, weight, bias, epsilon, c_axis, add, act):
+    out = _apply_scale_shift(x, stats.mean, stats.var, weight, bias,
+                             epsilon, c_axis)
+    if add is not None:
+        out = out + add
+    return torch.relu(out) if act else out
+
+
+@op("batch_norm_train")
+def _bn_train(x, stats, weight, bias, momentum, epsilon, c_axis):
+    out, mean, var = _BNCore.apply(x, weight, bias, epsilon, c_axis)
+    _update_running_stats(stats.mean, stats.var, mean, var, momentum)
+    return out
+
+
+@op("fused_bn_add_act_train")
+def _bn_act_train(x, stats, weight, bias, momentum, epsilon, c_axis, add):
+    out, mean, var = _BNActCore.apply(x, add, weight, bias, epsilon, c_axis)
+    _update_running_stats(stats.mean, stats.var, mean, var, momentum)
+    return out
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
-               data_format="NCHW", use_global_stats=None):
+               data_format="NCHW", use_global_stats=None, name=None):
     """Paddle's batch_norm: batch statistics (and the running-stat EMA)
     when training or use_global_stats is False, else the running stats;
     use_global_stats=None follows `training`."""
     c_axis = _channel_axis(x, data_format)
+    stats = _Stats(running_mean, running_var)
     if _use_stats(training, use_global_stats):
-        return _apply_scale_shift(x, running_mean, running_var, weight,
-                                  bias, epsilon, c_axis)
-    out, mean, var = _BNCore.apply(x, weight, bias, epsilon, c_axis)
-    _update_running_stats(running_mean, running_var, mean, var, momentum)
-    return out
+        return _bn_infer(x, stats, weight, bias, epsilon, c_axis, None,
+                         False)
+    return _bn_train(x, stats, weight, bias, momentum, epsilon, c_axis)
 
 
 def batch_norm_act(x, running_mean, running_var, weight=None, bias=None,
                    training=False, momentum=0.9, epsilon=1e-5,
-                   data_format="NCHW", add=None, use_global_stats=None):
+                   data_format="NCHW", add=None, use_global_stats=None,
+                   name=None):
     """relu(batch_norm(x) (+ add)) with the residual-light backward; the
     statistics follow batch_norm's rule exactly."""
     c_axis = _channel_axis(x, data_format)
+    stats = _Stats(running_mean, running_var)
     if _use_stats(training, use_global_stats):
-        out = _apply_scale_shift(x, running_mean, running_var, weight, bias,
-                                 epsilon, c_axis)
-        if add is not None:
-            out = out + add
-        return torch.relu(out)
-    out, mean, var = _BNActCore.apply(x, add, weight, bias, epsilon, c_axis)
-    _update_running_stats(running_mean, running_var, mean, var, momentum)
-    return out
+        return _bn_infer(x, stats, weight, bias, epsilon, c_axis, add, True)
+    return _bn_act_train(x, stats, weight, bias, momentum, epsilon, c_axis,
+                         add)

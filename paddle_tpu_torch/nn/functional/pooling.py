@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from torch.nn import functional as F
 
+from ...core.dispatch import op
 from ...core.unported import require_defaults
 from .conv import _require_nchw
 
@@ -21,16 +22,26 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     """Max pooling; return_mask (the argmax indices) is not ported yet."""
     require_defaults("max_pool2d", return_mask=(return_mask, False))
     _require_nchw(data_format)
-    return F.max_pool2d(x, kernel_size,
-                        kernel_size if stride is None else stride, padding,
-                        ceil_mode=ceil_mode)
+    return _max_pool2d(x, kernel_size,
+                       kernel_size if stride is None else stride, padding,
+                       ceil_mode)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+@op("pool_max")
+def _max_pool2d(x, kernel_size, stride, padding, ceil_mode):
+    return F.max_pool2d(x, kernel_size, stride, padding, ceil_mode=ceil_mode)
+
+
+@op("adaptive_pool")
+def _adaptive_avg_pool2d(x, output_size):
+    output_size = tuple(x.shape[2 + i] if o is None else int(o)
+                        for i, o in enumerate(output_size))
+    return F.adaptive_avg_pool2d(x, output_size)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """Mean over adaptive bins; a None in output_size keeps that dim."""
     _require_nchw(data_format)
     if isinstance(output_size, int):
         output_size = (output_size, output_size)
-    output_size = tuple(x.shape[2 + i] if o is None else int(o)
-                        for i, o in enumerate(output_size))
-    return F.adaptive_avg_pool2d(x, output_size)
+    return _adaptive_avg_pool2d(x, tuple(output_size))

@@ -1,13 +1,25 @@
-"""ReLU (port of paddle_tpu/nn/layer/activation.py `ReLU`)."""
+"""ReLU and GELU (port of paddle_tpu/nn/layer/activation.py)."""
 from __future__ import annotations
 
-from torch import nn
+from ..functional.activation import gelu, relu
+from .layers import Layer
 
-from ..functional.activation import relu
-
-__all__ = ["ReLU"]
+__all__ = ["ReLU", "GELU"]
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
     def forward(self, x):
         return relu(x)
+
+
+class GELU(Layer):
+    def __init__(self, approximate=False, name=None):
+        super().__init__()
+        self._approximate = approximate
+
+    def forward(self, x):
+        return gelu(x, self._approximate)
+

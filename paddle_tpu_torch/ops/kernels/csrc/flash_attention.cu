@@ -16,8 +16,9 @@
 // writes lse = m + log(l) per row (f32, [B, H, T]; for K2 that is
 // [B, H/2, 2, T]). The backward is FA2's: delta = rowsum(do * o);
 // p = exp(scale s - lse); ds = p (do v^T - delta) * scale; dq = ds k;
-// dk = ds^T q; dv = p^T do. The bf16 instances round p and ds to bf16 before
-// the products that take them, at the points where the TPU kernels do
+// dk = ds^T q; dv = p^T do. The 16-bit instances (bf16, f16) round p and ds
+// to the inputs' type before the products that take them, at the points
+// where the TPU kernels do
 // (upstream flash_attention.py `p.astype(v.dtype)` and `ds.astype(...)`;
 // packed_flash.py:111,158,166,277); the row sum l is taken from the f32 p.
 // The TPU package has two backwards for K2 (one program holding the whole
@@ -35,25 +36,28 @@
 // (counted as 4 and 10 B*H*D per causal pair) per layer against ~3e8 bytes;
 // at the bf16 tensor-core peak (989 TFLOP/s) that is ~0.05 ms and ~0.13 ms.
 //
-// bf16 design (Hopper, sm_90a): every CTA has three warpgroups. Warpgroup 0
+// 16-bit design (Hopper, sm_90a), one template over the element type T with
+// a bf16 and an f16 instance (wgmma takes both with the same fragments and
+// descriptors; the instruction's type, the tensor maps' type and the
+// rounding of P and dS follow T): every CTA has three warpgroups. Warpgroup 0
 // is the producer: it gives its registers away (setmaxnreg 24) and one of
 // its threads issues TMA loads into shared memory, signalled through
 // mbarriers (a "full" and an "empty" barrier per stage of a 2-stage ring).
 // Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 rows each, and run
-// every product as wgmma on bf16 operands with f32 accumulators:
+// every product as wgmma on 16-bit operands with f32 accumulators:
 // - forward: one CTA per 128 query rows of one (batch, head), heaviest
 //   causal tiles launched first. Q is loaded once; K and V tiles of 128
 //   rows stream through the ring. S = Q K^T (m64n128k16, both operands
 //   K-major in shared memory); the online softmax runs on the accumulator
 //   fragment (row max and sum over the 4 lanes of a quad); P, rounded to
-//   bf16, is the register A operand of O += P V, where V is the MN-major B
+//   T, is the register A operand of O += P V, where V is the MN-major B
 //   operand (the transpose bit). kv tiles past the diagonal are skipped and
 //   only diagonal tiles are masked. Shared memory at D 128: Q 32 KB +
 //   2 x (K 32 KB + V 32 KB).
 // - dk/dv: one CTA per 128 kv rows; K and V are loaded once, Q and dO tiles
 //   of 64 rows with their lse and delta slices stream through the ring,
 //   from the diagonal on when causal. S^T = K Q^T and dP^T = V dO^T (m64n64);
-//   P^T and dS^T are formed in registers, rounded to bf16 and are the A
+//   P^T and dS^T are formed in registers, rounded to T and are the A
 //   operands of dV += P^T dO and dK += dS^T Q (dO and Q MN-major).
 // - dq: one CTA per 128 query rows; Q and dO are loaded once, K and V tiles
 //   of 64 rows stream through the ring. S and dP are recomputed, and
@@ -62,8 +66,8 @@
 //   The two backward kernels each write their outputs once, with no atomics,
 //   so the gradients are deterministic; the price is 7 products where an
 //   atomic dq would need 5.
-// - delta: rowsum(do * o) over the bf16 output, one warp per row (the SIMT
-//   kernel below serves both dtypes).
+// - delta: rowsum(do * o) over the 16-bit output, one warp per row (the
+//   SIMT kernel below serves every dtype).
 // Operands reach shared memory only through TMA: one 5-D tensor map per
 // operand, dims (d, half, t, pair, b) with the wrapper's strides, so K1's
 // strided views and K2's packed halves load with no copy; 64-column boxes
@@ -78,13 +82,14 @@
 // 4 x 4 block of scores in registers, operands staged in shared memory as
 // f32, FMA on the SIMT cores; the same forward / dq / dk-dv split.
 //
-// What the bf16 design still leaves: FA3's intra-warpgroup ping-pong of the
+// What the 16-bit design still leaves: FA3's intra-warpgroup ping-pong of the
 // softmax with the next tile's wgmma (here a consumer waits for each product
 // before the elementwise work that follows it), a persistent tile scheduler,
 // fp8, and a TMA store of the outputs (they leave the accumulators as 4-byte
 // stores).
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,6 +114,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // 8 consecutive f32 elements (two float4)
 __device__ __forceinline__ void load8(const float* p, float* v) {
@@ -483,7 +489,8 @@ constexpr size_t dkv_smem(int D) {
 
 
 // ================================================================ Hopper
-// bf16 kernels: TMA rings in shared memory feeding wgmma (see the header)
+// 16-bit kernels (bf16 and f16 instances, T): TMA rings in shared memory
+// feeding wgmma (see the header)
 
 constexpr int kHThreads = 3 * kWG;       // producer + two consumer warpgroups
 constexpr int kConsumerThreads = 2 * kWG;
@@ -515,23 +522,23 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// a consumer's 64 x D accumulator (D/64 blocks of m64n64) to bf16 rows
+// a consumer's 64 x D accumulator (D/64 blocks of m64n64) to T rows
 // row0 and row0 + 8 of the thread, each scaled by rscale[r]
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const Layout& L,
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, const Layout& L,
                                            int b, int h, int row0,
                                            const float (&acc)[D / 64][32],
                                            const float (&rscale)[2],
                                            const Frag& f) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    __nv_bfloat16* p = dst + L.off(b, h, row0 + 8 * r);
+    T* p = dst + L.off(b, h, row0 + 8 * r);
 #pragma unroll
     for (int cb = 0; cb < D / 64; ++cb)
 #pragma unroll
       for (int jb = 0; jb < 8; ++jb)
         *reinterpret_cast<uint32_t*>(p + 64 * cb + 8 * jb + f.cl) =
-            pack_bf16(acc[cb][4 * jb + 2 * r] * rscale[r],
+            pack2<T>(acc[cb][4 * jb + 2 * r] * rscale[r],
                       acc[cb][4 * jb + 2 * r + 1] * rscale[r]);
   }
 }
@@ -545,7 +552,7 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
 }
 
 
-// ------------------------------------------------------- forward (bf16)
+// ------------------------------------------------------- forward (16-bit)
 template <int D>
 struct FwdTiles {
   static constexpr int kRows = 128;                // q and kv tile rows
@@ -557,14 +564,14 @@ struct FwdTiles {
   static constexpr int kBytes = kV + kStages * kTile;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kHThreads, 1)
-    fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                       Layout lo, int H, int hsplit, int Tq, int Tk,
-                       float scale, int causal) {
+    fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        T* __restrict__ o, float* __restrict__ lse,
+                        Layout lo, int H, int hsplit, int Tq, int Tk,
+                        float scale, int causal) {
   using S = FwdTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
@@ -618,7 +625,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk / 4) * S::kBlock + (kk % 4) * 32;
-        wgmma_ss_n128(sc, sw128_desc(qs + off), sw128_desc(ks + off), kk > 0);
+        wgmma_ss_n128<T>(sc, sw128_desc(qs + off), sw128_desc(ks + off),
+                         kk > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -651,7 +659,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
       uint32_t pa[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      for (int i = 0; i < 32; ++i) pa[i] = pack2<T>(sc[2 * i], sc[2 * i + 1]);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb) {
 #pragma unroll
@@ -665,7 +673,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       for (int kk = 0; kk < S::kRows / 16; ++kk)
 #pragma unroll
         for (int cb = 0; cb < D / 64; ++cb)
-          wgmma_rs_n64(acc[cb], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+          wgmma_rs_n64<T>(acc[cb], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                        pa[4 * kk + 3],
                        sw128_desc(vs + cb * S::kBlock + kk * 16 * 128));
       wg_commit();
@@ -680,7 +688,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       l[r] = quad_sum(l[r]);
       inv[r] = 1.f / l[r];
     }
-    store_rows<D>(o, lo, b, h, row0, acc, inv, f);
+    store_rows<T, D>(o, lo, b, h, row0, acc, inv, f);
     if (f.lane % 4 == 0) {
       float* lrow = lse + ((long long)b * H + h) * Tq + row0;
 #pragma unroll
@@ -689,7 +697,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
   }
 }
 
-// ------------------------------------------------------- dk, dv (bf16)
+// ------------------------------------------------------- dk, dv (16-bit)
 template <int D>
 struct DkvTiles {
   static constexpr int kKvRows = 128, kQRows = 64;
@@ -705,18 +713,17 @@ struct DkvTiles {
   static constexpr int kBytes = kDelta + kStages * kRowBytes;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kHThreads, 1)
-    fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tdo,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, Layout lk,
-                           Layout lv, int H, int hsplit, int Tq, int Tk,
-                           float scale, int causal) {
+    fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv,
+                            Layout lk, Layout lv, int H, int hsplit, int Tq,
+                            int Tk, float scale, int causal) {
   using S = DkvTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t kv_full, full[kStages], empty[kStages];
@@ -788,8 +795,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const int a = (kk / 4) * S::kKvBlock + (kk % 4) * 32;
         const int bq = (kk / 4) * S::kQBlock + (kk % 4) * 32;
-        wgmma_ss_n64(st, sw128_desc(ka + a), sw128_desc(qs + bq), kk > 0);
-        wgmma_ss_n64(dpt, sw128_desc(va + a), sw128_desc(dos + bq), kk > 0);
+        wgmma_ss_n64<T>(st, sw128_desc(ka + a), sw128_desc(qs + bq), kk > 0);
+        wgmma_ss_n64<T>(dpt, sw128_desc(va + a), sw128_desc(dos + bq), kk > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -812,8 +819,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
       uint32_t pa[16], da[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
-        pa[e] = pack_bf16(st[2 * e], st[2 * e + 1]);
-        da[e] = pack_bf16(dpt[2 * e], dpt[2 * e + 1]);
+        pa[e] = pack2<T>(st[2 * e], st[2 * e + 1]);
+        da[e] = pack2<T>(dpt[2 * e], dpt[2 * e + 1]);
       }
       pin(pa);
       pin(da);
@@ -829,9 +836,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
 #pragma unroll
         for (int cb = 0; cb < D / 64; ++cb) {
           const int bo = cb * S::kQBlock + kk * 16 * 128;
-          wgmma_rs_n64(dva[cb], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+          wgmma_rs_n64<T>(dva[cb], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                        pa[4 * kk + 3], sw128_desc(dos + bo));
-          wgmma_rs_n64(dka[cb], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+          wgmma_rs_n64<T>(dka[cb], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                        da[4 * kk + 3], sw128_desc(qs + bo));
         }
       wg_commit();
@@ -844,12 +851,12 @@ __global__ void __launch_bounds__(kHThreads, 1)
       mbar_arrive(&empty[s]);
     }
     const float one[2] = {1.f, 1.f};
-    store_rows<D>(dk, lk, b, h, row0, dka, one, f);
-    store_rows<D>(dv, lv, b, h, row0, dva, one, f);
+    store_rows<T, D>(dk, lk, b, h, row0, dka, one, f);
+    store_rows<T, D>(dv, lv, b, h, row0, dva, one, f);
   }
 }
 
-// ------------------------------------------------------- dq (bf16)
+// ------------------------------------------------------- dq (16-bit)
 template <int D>
 struct DqTiles {
   static constexpr int kQRows = 128, kKvRows = 64;
@@ -862,17 +869,16 @@ struct DqTiles {
   static constexpr int kBytes = kV + kStages * kKvTile;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kHThreads, 1)
-    fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdo,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, Layout lq, int H,
-                          int hsplit, int Tq, int Tk, float scale,
-                          int causal) {
+    fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dq, Layout lq, int H, int hsplit,
+                           int Tq, int Tk, float scale, int causal) {
   using S = DqTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
@@ -942,8 +948,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const int a = (kk / 4) * S::kQBlock + (kk % 4) * 32;
         const int bk = (kk / 4) * S::kKvBlock + (kk % 4) * 32;
-        wgmma_ss_n64(sc, sw128_desc(qa + a), sw128_desc(ks + bk), kk > 0);
-        wgmma_ss_n64(dp, sw128_desc(doa + a), sw128_desc(vs + bk), kk > 0);
+        wgmma_ss_n64<T>(sc, sw128_desc(qa + a), sw128_desc(ks + bk), kk > 0);
+        wgmma_ss_n64<T>(dp, sw128_desc(doa + a), sw128_desc(vs + bk), kk > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -959,7 +965,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       }
       uint32_t da[16];
 #pragma unroll
-      for (int e = 0; e < 16; ++e) da[e] = pack_bf16(dp[2 * e], dp[2 * e + 1]);
+      for (int e = 0; e < 16; ++e) da[e] = pack2<T>(dp[2 * e], dp[2 * e + 1]);
       pin(da);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb) pin(dqa[cb]);
@@ -969,7 +975,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       for (int kk = 0; kk < S::kKvRows / 16; ++kk)
 #pragma unroll
         for (int cb = 0; cb < D / 64; ++cb)
-          wgmma_rs_n64(dqa[cb], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+          wgmma_rs_n64<T>(dqa[cb], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                        da[4 * kk + 3],
                        sw128_desc(ks + cb * S::kKvBlock + kk * 16 * 128));
       wg_commit();
@@ -979,7 +985,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       mbar_arrive(&empty[s]);
     }
     const float one[2] = {1.f, 1.f};
-    store_rows<D>(dq, lq, b, h, row0, dqa, one, f);
+    store_rows<T, D>(dq, lq, b, h, row0, dqa, one, f);
   }
 }
 
@@ -1058,9 +1064,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------- bf16 (Hopper)
+// ------------------------------------------------------ bf16, f16 (Hopper)
 // one operand's tensor map: dims (d, half, t, pair, b) with the layout's
-// strides, boxes of 64 d columns x `rows` rows, 128-byte swizzle
+// strides, boxes of 64 d columns x `rows` rows, 128-byte swizzle; Elem is
+// the operand's 16-bit type
+template <typename Elem>
 int tensor_map(CUtensorMap* map, const void* base, const Layout& L, int D,
                int H, int T, int B, int rows) {
   const EncodeTiled encode = encoder();
@@ -1076,7 +1084,10 @@ int tensor_map(CUtensorMap* map, const void* base, const Layout& L, int D,
   const cuuint32_t box[5] = {kColBlock, 1, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
+      map,
+      kIsHalf<Elem> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      5, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1095,95 +1106,96 @@ int launch_hopper(Kernel kern, int bytes, dim3 grid, cudaStream_t stream,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+template <typename T, int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                     float* lse, const long long* lay, int B, int H, int Tq,
                     int Tk, float scale, int causal, cudaStream_t stream) {
   using S = FwdTiles<D>;
   Layout lq = unpack(lay), lo = unpack(lay + 15);
   CUtensorMap tq, tk, tv;
   int e;
-  if ((e = tensor_map(&tq, q, lq, D, H, Tq, B, S::kRows)) ||
-      (e = tensor_map(&tk, k, unpack(lay + 5), D, H, Tk, B, S::kRows)) ||
-      (e = tensor_map(&tv, v, unpack(lay + 10), D, H, Tk, B, S::kRows)))
+  if ((e = tensor_map<T>(&tq, q, lq, D, H, Tq, B, S::kRows)) ||
+      (e = tensor_map<T>(&tk, k, unpack(lay + 5), D, H, Tk, B, S::kRows)) ||
+      (e = tensor_map<T>(&tv, v, unpack(lay + 10), D, H, Tk, B, S::kRows)))
     return e;
-  auto* out = static_cast<__nv_bfloat16*>(o);
+  auto* out = static_cast<T*>(o);
   int hsplit = lq.hsplit;
   void* args[] = {&tq, &tk, &tv, &out, &lse, &lo, &H, &hsplit,
                   &Tq, &Tk, &scale, &causal};
-  return launch_hopper(fa_fwd_bf16_kernel<D>, S::kBytes,
+  return launch_hopper(fa_fwd_wgmma_kernel<T, D>, S::kBytes,
                        dim3(B * H, Tq / S::kRows), stream, args);
 }
 
-template <int D>
-int launch_bwd_bf16(const void* q, const void* k, const void* v,
+template <typename T, int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* delta, void* dq, void* dk, void* dv,
                     const long long* lay, int B, int H, int Tq, int Tk,
                     float scale, int causal, cudaStream_t stream) {
   Layout lq = unpack(lay), lk = unpack(lay + 5), lv = unpack(lay + 10);
   const Layout lo = unpack(lay + 15), ldo = unpack(lay + 20);
-  int e = launch_delta<__nv_bfloat16, D>(o, dout, delta, lo, ldo, B, H, Tq,
-                                         stream);
+  int e = launch_delta<T, D>(o, dout, delta, lo, ldo, B, H, Tq, stream);
   if (e != 0) return e;
   int hsplit = lq.hsplit;
   const float* delta_in = delta;
 
   using Q = DqTiles<D>;
   CUtensorMap tq, tk, tv, tdo;
-  if ((e = tensor_map(&tq, q, lq, D, H, Tq, B, Q::kQRows)) ||
-      (e = tensor_map(&tdo, dout, ldo, D, H, Tq, B, Q::kQRows)) ||
-      (e = tensor_map(&tk, k, lk, D, H, Tk, B, Q::kKvRows)) ||
-      (e = tensor_map(&tv, v, lv, D, H, Tk, B, Q::kKvRows)))
+  if ((e = tensor_map<T>(&tq, q, lq, D, H, Tq, B, Q::kQRows)) ||
+      (e = tensor_map<T>(&tdo, dout, ldo, D, H, Tq, B, Q::kQRows)) ||
+      (e = tensor_map<T>(&tk, k, lk, D, H, Tk, B, Q::kKvRows)) ||
+      (e = tensor_map<T>(&tv, v, lv, D, H, Tk, B, Q::kKvRows)))
     return e;
-  auto* dq_out = static_cast<__nv_bfloat16*>(dq);
+  auto* dq_out = static_cast<T*>(dq);
   void* dq_args[] = {&tq,     &tk, &tv,     &tdo, &lse, &delta_in,
                      &dq_out, &lq, &H,      &hsplit, &Tq,  &Tk,
                      &scale,  &causal};
-  e = launch_hopper(fa_bwd_dq_bf16_kernel<D>, Q::kBytes,
+  e = launch_hopper(fa_bwd_dq_wgmma_kernel<T, D>, Q::kBytes,
                     dim3(B * H, Tq / Q::kQRows), stream, dq_args);
   if (e != 0) return e;
 
   using KV = DkvTiles<D>;
-  if ((e = tensor_map(&tq, q, lq, D, H, Tq, B, KV::kQRows)) ||
-      (e = tensor_map(&tdo, dout, ldo, D, H, Tq, B, KV::kQRows)) ||
-      (e = tensor_map(&tk, k, lk, D, H, Tk, B, KV::kKvRows)) ||
-      (e = tensor_map(&tv, v, lv, D, H, Tk, B, KV::kKvRows)))
+  if ((e = tensor_map<T>(&tq, q, lq, D, H, Tq, B, KV::kQRows)) ||
+      (e = tensor_map<T>(&tdo, dout, ldo, D, H, Tq, B, KV::kQRows)) ||
+      (e = tensor_map<T>(&tk, k, lk, D, H, Tk, B, KV::kKvRows)) ||
+      (e = tensor_map<T>(&tv, v, lv, D, H, Tk, B, KV::kKvRows)))
     return e;
-  auto* dk_out = static_cast<__nv_bfloat16*>(dk);
-  auto* dv_out = static_cast<__nv_bfloat16*>(dv);
+  auto* dk_out = static_cast<T*>(dk);
+  auto* dv_out = static_cast<T*>(dv);
   void* dkv_args[] = {&tq, &tk,     &tv,    &tdo, &lse, &delta_in,
                       &dk_out, &dv_out, &lk, &lv, &H, &hsplit,
                       &Tq, &Tk, &scale, &causal};
-  return launch_hopper(fa_bwd_dkv_bf16_kernel<D>, KV::kBytes,
+  return launch_hopper(fa_bwd_dkv_wgmma_kernel<T, D>, KV::kBytes,
                        dim3(B * H, Tk / KV::kKvRows), stream, dkv_args);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. head_dim: 64 or 128. layouts: 5 int64 per
-// tensor (sb, sh, shalf, st, hsplit) for q, k, v, o. Tq, Tk multiples of 64
-// for float32 and of 128 for bfloat16. Returns a cudaError_t (0 on
-// success); -1 for an unsupported instance, -2 / -3 when a tensor map
-// cannot be made (no cuTensorMapEncodeTiled / an operand it refuses).
+// dtype: 0 float32, 1 bfloat16, 2 float16. head_dim: 64 or 128. layouts:
+// 5 int64 per tensor (sb, sh, shalf, st, hsplit) for q, k, v, o. Tq, Tk
+// multiples of 64 for float32 and of 128 for bfloat16 and float16. Returns
+// a cudaError_t (0 on success); -1 for an unsupported instance, -2 / -3
+// when a tensor map cannot be made (no cuTensorMapEncodeTiled / an operand
+// it refuses).
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v, void* o,
                                    float* lse, const long long* layouts,
                                    int B, int H, int Tq, int Tk, float scale,
                                    int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return launch_fwd<64>(q, k, v, o, lse, layouts, B, H, Tq, Tk,
-                                 scale, causal, s);
-  if (dtype == 0 && head_dim == 128)
-    return launch_fwd<128>(q, k, v, o, lse, layouts, B, H, Tq, Tk,
-                                  scale, causal, s);
+#define FA_FWD(LAUNCH) \
+  LAUNCH(q, k, v, o, lse, layouts, B, H, Tq, Tk, scale, causal, s)
+  if (dtype == 0 && head_dim == 64) return FA_FWD(launch_fwd<64>);
+  if (dtype == 0 && head_dim == 128) return FA_FWD(launch_fwd<128>);
   if (dtype == 1 && head_dim == 64)
-    return launch_fwd_bf16<64>(q, k, v, o, lse, layouts, B, H, Tq, Tk, scale,
-                               causal, s);
+    return FA_FWD((launch_fwd_wgmma<__nv_bfloat16, 64>));
   if (dtype == 1 && head_dim == 128)
-    return launch_fwd_bf16<128>(q, k, v, o, lse, layouts, B, H, Tq, Tk,
-                                scale, causal, s);
+    return FA_FWD((launch_fwd_wgmma<__nv_bfloat16, 128>));
+  if (dtype == 2 && head_dim == 64)
+    return FA_FWD((launch_fwd_wgmma<__half, 64>));
+  if (dtype == 2 && head_dim == 128)
+    return FA_FWD((launch_fwd_wgmma<__half, 128>));
+#undef FA_FWD
   return -1;
 }
 
@@ -1198,17 +1210,19 @@ extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
                                    int Tq, int Tk, float scale, int causal,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                 layouts, B, H, Tq, Tk, scale, causal, s);
-  if (dtype == 0 && head_dim == 128)
-    return launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                  layouts, B, H, Tq, Tk, scale, causal, s);
+#define FA_BWD(LAUNCH)                                                   \
+  LAUNCH(q, k, v, o, dout, lse, delta, dq, dk, dv, layouts, B, H, Tq, Tk, \
+         scale, causal, s)
+  if (dtype == 0 && head_dim == 64) return FA_BWD(launch_bwd<64>);
+  if (dtype == 0 && head_dim == 128) return FA_BWD(launch_bwd<128>);
   if (dtype == 1 && head_dim == 64)
-    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                               layouts, B, H, Tq, Tk, scale, causal, s);
+    return FA_BWD((launch_bwd_wgmma<__nv_bfloat16, 64>));
   if (dtype == 1 && head_dim == 128)
-    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                layouts, B, H, Tq, Tk, scale, causal, s);
+    return FA_BWD((launch_bwd_wgmma<__nv_bfloat16, 128>));
+  if (dtype == 2 && head_dim == 64)
+    return FA_BWD((launch_bwd_wgmma<__half, 64>));
+  if (dtype == 2 && head_dim == 128)
+    return FA_BWD((launch_bwd_wgmma<__half, 128>));
+#undef FA_BWD
   return -1;
 }

@@ -9,11 +9,11 @@ dv in the inputs' dtype.
 Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
 `_fa_core:176` / `_fa_fwd:186` / `_fa_bwd:203` (jax's upstream Pallas
 TPU flash kernel, public entry `flash_attention:243`) with the
-hand-written CUDA kernels of csrc/flash_attention.cu: in bf16,
-warp-specialised Hopper kernels (TMA rings in shared memory feeding
-wgmma, P and dS rounded to bf16 where the TPU kernels round them); in
-f32, SIMT kernels. Its header says what bounds them and what the design
-still leaves. The same source, at head dim 64 on the packed-pair
+hand-written CUDA kernels of csrc/flash_attention.cu: in bf16 and
+f16, warp-specialised Hopper kernels (one template: TMA rings in shared
+memory feeding wgmma, P and dS rounded to the inputs' type where the
+TPU kernels round them); in f32, SIMT kernels. Its header says what
+bounds them and what the design still leaves. The same source, at head dim 64 on the packed-pair
 layout, is kernel K2 (packed_flash.py).
 
 `flash_attention_reference` is the plain PyTorch version: composed f32
@@ -26,7 +26,7 @@ forward and the backward kernels.
 
 Scope (`supported`): Tq and Tk multiples of 128, head dim 64 or 128 (the
 kernel's instances; the TPU kernel also took other multiples of 8 >= 32,
-which the port routes to composed attention), f32 or bf16.
+which the port routes to composed attention), f32, bf16 or f16.
 """
 from __future__ import annotations
 
@@ -43,8 +43,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 128         # the bf16 kernels' q/kv tile rows (f32's divide it)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TILE = 128         # the 16-bit kernels' q/kv tile rows (f32's divide it)
 
 
 def supported(q_seq: int, kv_seq: int, head_dim: int) -> bool:
@@ -93,10 +93,10 @@ def _layout(t: torch.Tensor, hsplit: int) -> Tuple[int, ...]:
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     """The kernels move 16 bytes at a time (the f32 ones per thread, the
-    bf16 ones through TMA tensor maps): d contiguous, every other stride a
-    multiple of 8 elements, base 16-byte aligned. A tensor that is not so
-    (a gradient arriving with odd strides) is copied into a contiguous
-    one; the kernel runs either way."""
+    16-bit ones through TMA tensor maps): d contiguous, every other
+    stride a multiple of 8 elements, base 16-byte aligned. A tensor that
+    is not so (a gradient arriving with odd strides) is copied into a
+    contiguous one; the kernel runs either way."""
     ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
           and t.data_ptr() % 16 == 0)
     return t if ok else t.contiguous()
@@ -108,8 +108,8 @@ def _check(tensors: Sequence[torch.Tensor], head_dim: int) -> None:
         raise ValueError(f"q is on {q.device}; the kernel takes CUDA "
                          f"tensors")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
-                        f"bfloat16")
+        raise TypeError(f"dtype {q.dtype}: the kernel takes float32, "
+                        f"bfloat16 or float16")
     for t in tensors[1:]:
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")

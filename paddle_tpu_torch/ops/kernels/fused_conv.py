@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...core.unported import require_defaults
 from . import _build
 from .ragged_paged_attention import sm_count
 
@@ -109,8 +110,8 @@ def fused_scale_relu_matmul_reference(x, z, w, scale, shift):
     return (t.float() @ w.float()).to(torch.bfloat16)
 
 
-def fused_scale_relu_matmul(x, z, w, scale, shift, *,
-                            block_n: Optional[int] = None):
+def fused_scale_relu_matmul(x, z, w, scale, shift, bm=512, bn=128, bk=256,
+                            *, block_n: Optional[int] = None):
     """relu(x * scale + shift (+ z)) @ w as above, for x, z [M, K] bf16, w
     [K, N] bf16 and scale, shift [K] f32 with K and N multiples of 16 (the
     kernel's domain; other shapes and dtypes raise on either device). CPU
@@ -119,7 +120,10 @@ def fused_scale_relu_matmul(x, z, w, scale, shift, *,
     `fused_scale_relu_matmul.launches`. The kernel's tile width and grid
     are `k4_tile`'s; `block_n` (64, 128 or 256) pins the width for tests
     (the grid is then one CTA per SM or per tile) and changes nothing on
-    the CPU."""
+    the CPU. bm, bn and bk, the TPU kernel's block sizes, take only
+    their defaults: the Hopper kernel's tiling is k4_tile's."""
+    require_defaults("fused_scale_relu_matmul", bm=(bm, 512), bn=(bn, 128),
+                     bk=(bk, 256))
     _check_shapes(x, z, w, scale, shift)
     if block_n is not None and block_n not in K4_BLOCK_NS:
         raise ValueError(f"block_n {block_n}: K4 takes {K4_BLOCK_NS}")

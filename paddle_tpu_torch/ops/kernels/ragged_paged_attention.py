@@ -46,6 +46,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ...core.unported import require_defaults
 from . import _build
 
 __all__ = ["ragged_decode_attention", "ragged_attention_reference",
@@ -167,7 +168,8 @@ def sm_count(device: torch.device) -> int:
 
 
 def ragged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
-                            scale: Optional[float] = None, *,
+                            scale: Optional[float] = None,
+                            interpret: bool = False, *,
                             blocks_per_split: Optional[int] = None):
     """One attention step over ragged paged KV state.
 
@@ -180,7 +182,11 @@ def ragged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     `blocks_per_split` (1..128) overrides the split size that the wrapper
     picks (`default_blocks_per_split(N, H, MB, sm_count(q.device))`);
     the result does not
-    depend on it beyond the order of summation."""
+    depend on it beyond the order of summation. interpret (the Pallas
+    interpret mode) takes only its default: CPU tensors run the plain
+    version instead."""
+    require_defaults("ragged_decode_attention",
+                     interpret=(interpret, False))
     args = (q, k_pool, v_pool, block_tables, lengths)
     if not q.is_cuda and all(t.device.type == "cpu" for t in args):
         return ragged_attention_reference(*args, scale)

@@ -19,9 +19,12 @@ All of it in place on the parameter (or its f32 master) and its state.
 
 Constructor parameters stay in the reference's order. multi_precision
 is accepted and ignored, as in the reference: master weights come from
-amp.decorate(level="O2") in both packages. Not ported yet, so only
-their defaults are accepted: lazy_mode, and AdamW's lr_ratio and
-apply_decay_param_fun.
+amp.decorate(level="O2") in both packages; so is AdamW's lr_ratio,
+which the reference accepts and never reads. AdamW's
+apply_decay_param_fun(name) -> bool chooses the parameters that decay:
+the name is the parameter's Paddle name on the eager route and its
+structured name under jit.TrainStep, as in the reference. lazy_mode is
+not ported yet, so only its default is accepted.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
                  multi_precision=False, rescale_grad=1.0, name=None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
         self._rescale_grad = rescale_grad
@@ -61,7 +65,8 @@ class Adam(Optimizer):
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None):
         require_defaults(type(self).__name__, lazy_mode=(lazy_mode, False))
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -90,20 +95,24 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
-    """Decoupled weight decay: p *= (1 - lr coeff) before the Adam step."""
+    """Decoupled weight decay: p *= (1 - lr coeff) before the Adam step,
+    for the parameters apply_decay_param_fun admits (all by default)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None):
-        require_defaults("AdamW", lr_ratio=(lr_ratio, None),
-                         apply_decay_param_fun=(apply_decay_param_fun, None))
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision)
         self._coeff = weight_decay if isinstance(weight_decay, float) \
             else 0.01
+        self._apply_decay_param_fun = apply_decay_param_fun
 
     def _update(self, p, g, state, lr):
-        if self._coeff:
+        decay = True
+        if self._apply_decay_param_fun is not None and \
+                self._current_param_name is not None:
+            decay = self._apply_decay_param_fun(self._current_param_name)
+        if decay and self._coeff:
             p.mul_(1.0 - lr * self._coeff)
         return super()._update(p, g, state, lr)

@@ -96,7 +96,7 @@ def main(argv: Optional[list] = None) -> int:
                         "max": ttft.max() * 1e3},
             "wall_s": wall, "generated_tokens": d["generated_tokens"],
             "k3_launches": ragged_decode_attention.launches,
-            "decode_chunks": eng.stats.host_syncs["decode"]}), flush=True)
+            "decode_chunks": eng.stats.host_syncs("decode")}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,7 +4,8 @@ the geometries of bench.py's `bench_gpt`, `bench_resnet`, `bench_bert`,
 
     python -m paddle_tpu_torch.tools.train_bench
         [--model gpt|resnet50|bert|ernie|lenet] [--heads 6|12]
-        [--multistep K] [--steps N] [--warmup N] [--seed N] [--profile]
+        [--eager] [--multistep K] [--steps N] [--warmup N] [--seed N]
+        [--profile]
 
 gpt (default): GPT(vocab 32768, hidden 768, 12 layers, max_seq_len 1024)
 with random weights from --seed, cast with amp.decorate(level="O2",
@@ -14,6 +15,21 @@ one random batch of 32 x 1024 tokens (the same batch every step, as
 bench_gpt does). With 6 heads of 128 attention runs through kernel K1,
 with 12 heads of 64 through K2. MFU counts bench.py's FLOPs per token
 (6 x matmul parameters + 12 L h T, copied below).
+
+gpt --eager: the Paddle eager loop at the same geometry (random weights
+from --seed, float32 parameters): `paddle.set_device`, AdamW over
+LinearWarmup(CosineAnnealingDecay(1e-4, T_max=1000), warmup_steps=4,
+start_lr=0, end_lr=1e-4) with ClipGradByGlobalNorm(1.0), GradScaler(2^15),
+and per step `auto_cast(level="O1", dtype="bfloat16")` around the loss,
+`scaler.scale(loss).backward()`, `scaler.minimize`, `opt.clear_grad()`,
+`sched.step()`, on one batch x = tokens[:, :-1], y = tokens[:, 1:] of
+32 x 1025 random tokens. Under O1 the linears hand bf16 q/k/v to
+attention, so K1 runs in bf16 (6 heads). It also prints each step's
+learning rate, GradScaler's scale, skipped steps and found-inf host
+reads, and the same readings for jit.TrainStep with the O1 context
+inside its loss function on the same weights and batch (`o1_trainstep`);
+with --profile, both routes' profiles (GradScaler's unscale, check and
+update in the eager loop's `optimizer` range).
 
 resnet50: resnet50(num_classes=1000) with random weights from --seed,
 amp.decorate O2 bf16, Momentum(0.1), jit.TrainStep over the hard-label
@@ -61,6 +77,8 @@ from typing import Dict, Optional
 import numpy as np
 
 __all__ = ["bench_config", "flops_per_token", "build", "run",
+           "eager_schedule", "eager_batch", "build_eager", "run_eager",
+           "build_o1_trainstep", "run_o1_trainstep",
            "build_resnet", "run_resnet", "resnet_batch", "ce_loss_fn",
            "mlm_config", "flops_per_sample", "build_mlm", "run_mlm",
            "build_lenet", "run_lenet", "H100_BF16_FLOPS",
@@ -202,6 +220,156 @@ def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
                    if tps and dev.type == "cuda" else None),
            "peak_mem_gb": t2["peak_mem_gb"],
            "last_path": A.LAST_PATH, "launches": launches}
+    if profile:
+        out["profile"] = profile_steps(step, (x, y), 3, _GPT_GROUPS,
+                                       ("cross_entropy", "optimizer"))
+    return out
+
+
+def eager_schedule():
+    """The eager loop's scheduler: 4 linear warm-up steps from 0 into a
+    cosine decay from 1e-4 over 1000 steps."""
+    from ..optimizer import lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=1000),
+                           warmup_steps=4, start_lr=0.0, end_lr=1e-4)
+
+
+def eager_batch(cfg, seed: int, batch: int = BATCH, seq: int = SEQ):
+    """tokens [batch, seq + 1] from `seed`: (tokens[:, :-1],
+    tokens[:, 1:]) as numpy int64."""
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, cfg.vocab_size, (batch, seq + 1))
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def build_eager(cfg=None, seed: int = 0, device=None, dtype="bfloat16",
+                batch: int = BATCH):
+    """The eager loop's state: {model, sched, opt, scaler, x, y, dtype}.
+    x and y are Tensors on the model's device."""
+    import paddle_tpu_torch as paddle
+    from ..models.gpt import GPT
+    cfg = cfg or bench_config(6)
+    model = GPT(cfg, device=device, seed=seed)
+    sched = eager_schedule()
+    opt = paddle.optimizer.AdamW(
+        sched, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    x, y = eager_batch(cfg, seed, batch, cfg.max_seq_len)
+    place = paddle.CPUPlace() if model.device.type == "cpu" else \
+        paddle.CUDAPlace(model.device.index or 0)
+    return {"model": model, "sched": sched, "opt": opt, "scaler": scaler,
+            "x": paddle.to_tensor(x, place=place),
+            "y": paddle.to_tensor(y, place=place), "dtype": dtype}
+
+
+def eager_step(st):
+    """One step of the reference-style loop; returns the (unscaled)
+    loss. GradScaler's unscale, check and update run inside an
+    `optimizer` profiler range, as TrainStep's clip and update do."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from ..models.gpt import gpt_loss_fn
+    with paddle.amp.auto_cast(level="O1", dtype=st["dtype"]):
+        loss = gpt_loss_fn(st["model"], st["x"], st["y"])
+    scaled = st["scaler"].scale(loss)
+    scaled.backward()
+    with torch.profiler.record_function("optimizer"):
+        st["scaler"].minimize(st["opt"], scaled)
+    st["opt"].clear_grad()
+    st["sched"].step()
+    return loss
+
+
+def run_eager(warmup: int = 2, steps: int = 10, seed: int = 0,
+              built=None, profile: bool = False) -> dict:
+    """The eager loop: losses, step times (each ends in the loss's
+    fetch), tokens/s and MFU over the timed steps, peak device memory,
+    the learning rate each step used, GradScaler's scale, skipped steps
+    and found-inf host reads, and the flash kernels' launches."""
+    from ..nn.functional import attention as A
+    st = built or build_eager(seed=seed)
+    model, dev = st["model"], st["model"].device
+    lrs = []
+
+    def step():
+        lrs.append(st["opt"].get_lr())
+        return eager_step(st)
+
+    before = flash_launches()
+    t = _time_steps(step, (), warmup, steps, dev)
+    launches = {k: v - before[k] for k, v in flash_launches().items()}
+    tokens = st["x"].numel()
+    tps = tokens * steps / t["timed_s"] if steps else None
+    sc = st["scaler"]
+    out = {"route": "eager", "num_heads": model.cfg.num_heads,
+            "num_layers": model.cfg.num_layers,
+            "batch": int(st["x"].shape[0]), "seq": int(st["x"].shape[1]),
+            "losses": t["losses"], "step_s": t["step_s"],
+            "tokens_per_sec": tps,
+            "mfu": (tps * flops_per_token(model.cfg) / H100_BF16_FLOPS
+                    if tps and dev.type == "cuda" else None),
+            "peak_mem_gb": t["peak_mem_gb"], "lrs": lrs,
+            "loss_scale": sc.get_init_loss_scaling(),
+            "skipped_steps": sc.skipped_steps,
+            "found_inf_syncs": sc.host_syncs,
+            "last_path": A.LAST_PATH,
+            "last_dtype": str(A.LAST_DTYPE).replace("torch.", ""),
+            "launches": launches}
+    if profile:
+        out["profile"] = profile_steps(lambda: eager_step(st), (), 3,
+                                       _GPT_GROUPS,
+                                       ("cross_entropy", "optimizer"))
+    return out
+
+
+def build_o1_trainstep(seed: int = 0, device=None, x=None, y=None):
+    """(model, step, x, y): jit.TrainStep over the eager loop's model,
+    optimizer and batch, with auto_cast O1 inside the loss function;
+    step(x, y) runs it and then steps the scheduler, as the eager loop
+    does."""
+    import paddle_tpu_torch as paddle
+    from ..models.gpt import GPT, gpt_loss_fn
+    cfg = bench_config(6)
+    model = GPT(cfg, device=device, seed=seed)
+    sched = eager_schedule()
+    opt = paddle.optimizer.AdamW(
+        sched, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+    def o1_loss(m, a, b):
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            return gpt_loss_fn(m, a, b)
+
+    train = paddle.jit.TrainStep(model, o1_loss, opt)
+
+    def step(a, b):
+        loss = train(a, b)
+        sched.step()
+        return loss
+    if x is None:
+        x, y = eager_batch(cfg, seed)
+    return (model, step, paddle.to_tensor(x, place=model.device.type),
+            paddle.to_tensor(y, place=model.device.type))
+
+
+def run_o1_trainstep(warmup: int = 2, steps: int = 10, seed: int = 0,
+                     built=None, profile: bool = False) -> dict:
+    """jit.TrainStep with O1 in its loss function: the readings of
+    run_eager's for the same loop without GradScaler."""
+    from ..nn.functional import attention as A
+    model, step, x, y = built or build_o1_trainstep(seed)
+    dev = model.device
+    before = flash_launches()
+    t = _time_steps(step, (x, y), warmup, steps, dev)
+    launches = {k: v - before[k] for k, v in flash_launches().items()}
+    tps = x.numel() * steps / t["timed_s"] if steps else None
+    out = {"route": "o1_trainstep", "losses": t["losses"],
+           "step_s": t["step_s"], "tokens_per_sec": tps,
+           "mfu": (tps * flops_per_token(model.cfg) / H100_BF16_FLOPS
+                   if tps and dev.type == "cuda" else None),
+           "peak_mem_gb": t["peak_mem_gb"], "last_path": A.LAST_PATH,
+           "launches": launches}
     if profile:
         out["profile"] = profile_steps(step, (x, y), 3, _GPT_GROUPS,
                                        ("cross_entropy", "optimizer"))
@@ -406,6 +574,8 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--model", choices=("gpt", "resnet50", "bert", "ernie",
                                         "lenet"), default="gpt")
     ap.add_argument("--heads", type=int, default=6)
+    ap.add_argument("--eager", action="store_true",
+                    help="gpt: the eager loop and TrainStep O1 beside it")
     ap.add_argument("--multistep", type=int, default=None)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=None,
@@ -417,7 +587,16 @@ def main(argv: Optional[list] = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     steps = args.steps if args.steps is not None else (
         LENET_STEPS if args.model == "lenet" else 10)
-    if args.model == "gpt":
+    if args.model == "gpt" and args.eager:
+        import paddle_tpu_torch as paddle
+        paddle.set_device("gpu")
+        res = run_eager(args.warmup, steps, args.seed,
+                        profile=args.profile)
+        torch.cuda.empty_cache()
+        res["o1_trainstep"] = run_o1_trainstep(args.warmup, steps,
+                                               args.seed,
+                                               profile=args.profile)
+    elif args.model == "gpt":
         res = run(args.heads, args.warmup, steps, args.seed,
                   profile=args.profile)
     elif args.model == "resnet50":

@@ -20,15 +20,14 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...core import flags
-from ...core.place import DeviceLike, resolve_device
+from ...core.place import DeviceLike, default_device
 from ...nn import functional as F
 from ...nn.functional.conv import _require_nchw
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU, Sequential)
-from ...nn.layer.layers import load_jax_state
+from ...nn.layer.layers import Layer, load_jax_state
 from ...nn.layer.norm import _BatchNormBase
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18", "resnet34",
@@ -53,7 +52,7 @@ def _bn_relu(bn, x, add=None):
     return F.relu(out)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -80,7 +79,7 @@ class BasicBlock(nn.Module):
         return _bn_relu(self.bn2, out, add=identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -111,12 +110,12 @@ class BottleneckBlock(nn.Module):
         return _bn_relu(self.bn3, out, add=identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """ResNet over an explicit device. Weights are drawn on the CPU from
     `seed` in the JAX package's initializer families (convs
     KaimingUniform over fan_in = in_channels * kh * kw, fc XavierNormal,
-    BN weight ones, biases zeros) and then moved, so one seed gives the
-    same model on the CPU and the GPU."""
+    BN weight ones, biases zeros) and copied into layers built on
+    `device`, so one seed gives the same model on the CPU and the GPU."""
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW",
@@ -129,27 +128,27 @@ class ResNet(nn.Module):
                 "stem_space_to_depth (a TPU layout recipe) is not ported yet")
         layers = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                   101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}[depth]
-        self.groups = groups
-        self.base_width = width
-        self.num_classes = num_classes
-        self.with_pool = with_pool
-        self.inplanes = 64
-        self.dilation = 1
-        self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
-                            bias_attr=False)
-        self.bn1 = BatchNorm2D(self.inplanes)
-        self.relu = ReLU()
-        self.maxpool = MaxPool2D(3, 2, 1)
-        self.layer1 = self._make_layer(block, 64, layers[0])
-        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
-        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
-        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
-        if with_pool:
-            self.avgpool = AdaptiveAvgPool2D((1, 1))
-        if num_classes > 0:
-            self.fc = Linear(512 * block.expansion, num_classes)
+        with default_device(device):
+            self.groups = groups
+            self.base_width = width
+            self.num_classes = num_classes
+            self.with_pool = with_pool
+            self.inplanes = 64
+            self.dilation = 1
+            self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                                bias_attr=False)
+            self.bn1 = BatchNorm2D(self.inplanes)
+            self.relu = ReLU()
+            self.maxpool = MaxPool2D(3, 2, 1)
+            self.layer1 = self._make_layer(block, 64, layers[0])
+            self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+            self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+            self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+            if with_pool:
+                self.avgpool = AdaptiveAvgPool2D((1, 1))
+            if num_classes > 0:
+                self.fc = Linear(512 * block.expansion, num_classes)
         self._init_weights(seed)
-        self.to(resolve_device(device))
 
     def _make_layer(self, block, planes, blocks, stride=1):
         downsample = None
@@ -172,10 +171,12 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv2D):
                 lim = math.sqrt(6.0 / m.fan_in)
-                m.weight.uniform_(-lim, lim, generator=g)
+                m.weight.copy_(torch.empty(m.weight.shape).uniform_(
+                    -lim, lim, generator=g))
             elif isinstance(m, Linear):
                 fi, fo = m.weight.shape
-                m.weight.normal_(0.0, math.sqrt(2.0 / (fi + fo)), generator=g)
+                m.weight.copy_(torch.empty(fi, fo).normal_(
+                    0.0, math.sqrt(2.0 / (fi + fo)), generator=g))
 
     @property
     def device(self) -> torch.device:

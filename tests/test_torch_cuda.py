@@ -33,14 +33,23 @@ PyTorch is installed:
   forward (out, lse) and backward (dq, dk, dv), against their plain
   versions at T 128, 512 (ERNIE-large's), 640, 1024 and 2176, causal
   and not, in f32 (within
-  1e-4 of each tensor's largest entry: blocked sums in another order)
-  and bf16 (within 2e-2: both round f32 results to bf16, 2**-8
-  relative, and the inputs of the gradients' products differ by that);
+  1e-4 of each tensor's largest entry: blocked sums in another order),
+  bf16 (within 2e-2: both round f32 results to bf16, 2**-8 relative,
+  and the inputs of the gradients' products differ by that) and f16
+  (within 2.5e-3, the bf16 limit over the ratio of the two types' unit
+  roundoffs, 8);
   also non-causal K1 with Tq != Tk, a grid of 8-16 CTAs (fewer than the
   132 SMs), and bitwise-equal bf16 gradients from two runs (no atomics);
 - a tiny GPT TrainStep on CUDA (through K1 and K2) against the same
   step on the CPU (through their plain versions): losses within 1e-4
   relative over 3 steps, in f32;
+- the eager O1 loop (train_bench.eager_step) on a tiny GPT on CUDA in
+  bf16 through K1 against the same loop on the CPU in f32 (losses
+  within 2e-2 relative over 4 steps), and the same loop in float16
+  through K1's float16 instance against the CPU's f32 loop (within
+  2.5e-3: f16's unit roundoff is 2**-11);
+- a bare Layer built without set_device makes its parameters on the
+  card, as to_tensor makes tensors there;
 - a tiny BERT MLM + NSP TrainStep (2 layers, 2 heads of 64, T 128,
   flash_attention_min_seq 128) on CUDA, through K2 non-causal, against
   the same step on the CPU through its plain version: losses within
@@ -283,7 +292,7 @@ def test_engine_ragged_matches_bucketed_and_counts_launches(cuda):
         before = ragged_decode_attention.launches
         res[kernel] = eng.run(max_steps=200)
         launched = ragged_decode_attention.launches - before
-        chunks = eng.stats.host_syncs["decode"]
+        chunks = eng.stats.host_syncs("decode")
         assert launched == (2 * 8 * chunks if kernel == "ragged" else 0)
         eng.cache.check_integrity()
     for rid in res["ragged"]:
@@ -327,7 +336,7 @@ def test_prefix_engine_cuda_matches_cpu(cuda, kw):
     assert got == want
     ps = eng.cache.prefix_stats()
     assert ps["hits"] > 0 and ps["cow_forks"] > 0, ps
-    assert launched == 2 * 8 * eng.stats.host_syncs["decode"] > 0
+    assert launched == 2 * 8 * eng.stats.host_syncs("decode") > 0
     if kw.get("kv_cache_dtype") == "int8":
         assert all(q.dtype == torch.int8 and q.is_cuda
                    for (qk, qv), _ in eng.cache.stored_pools()
@@ -347,7 +356,7 @@ def test_tiered_engine_cuda_matches_cpu(cuda):
     ps = eng.cache.prefix_stats()
     assert ps == cpu_eng.cache.prefix_stats()
     assert ps["tier_demotions"] > 0 and ps["promote_hit"] > 0, ps
-    assert launched == 2 * 8 * eng.stats.host_syncs["decode"] > 0
+    assert launched == 2 * 8 * eng.stats.host_syncs("decode") > 0
 
 
 def _tenant_run(device):
@@ -389,7 +398,7 @@ def test_tenant_engine_cuda_matches_cpu(cuda):
     launched = ragged_decode_attention.launches - before
     assert got[:3] == want[:3]
     assert got[2], "no quota refusal: vacuous test"
-    assert launched == 2 * 8 * got[3].stats.host_syncs["decode"] > 0
+    assert launched == 2 * 8 * got[3].stats.host_syncs("decode") > 0
 
 
 def test_facade_cuda_matches_cpu(cuda):
@@ -468,7 +477,8 @@ def _flash_case(kernel, cuda, T, causal, dtype, seed=0, b=2, h=2, tk=None):
 @pytest.mark.parametrize("T", [128, 512, 640, 1024, 2176])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
 def test_flash_kernels_match_plain(cuda, kernel, T, causal, dtype, tol):
     got, want = _flash_case(kernel, cuda, T, causal, dtype)
     _assert_flash_close(got, want, tol)
@@ -482,7 +492,8 @@ def _assert_flash_close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
 @pytest.mark.parametrize("tq,tk", [(256, 640), (640, 256)])
 def test_flash_k1_query_and_key_lengths_differ(cuda, tq, tk, dtype, tol):
     """Non-causal K1 with Tq != Tk, which `supported` admits."""
@@ -535,8 +546,8 @@ def test_flash_kernel_reads_strided_views(cuda):
     with pytest.raises(ValueError):
         k1.launch_fwd(q[:, :, :100], k[:, :, :100], v[:, :, :100], True,
                       0.125)
-    with pytest.raises(TypeError):
-        k1.launch_fwd(q.half(), k.half(), v.half(), True, 0.125)
+    with pytest.raises(TypeError):      # no float64 instance
+        k1.launch_fwd(q.double(), k.double(), v.double(), True, 0.125)
 
 
 @pytest.mark.parametrize("heads", [1, 2])
@@ -571,6 +582,83 @@ def test_train_step_cuda_matches_cpu(cuda, heads):
     finally:
         flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def _eager_losses(device, dtype, steps):
+    """The eager loop (train_bench: AdamW over LinearWarmup, GradScaler,
+    auto_cast O1 at `dtype`) on a tiny GPT with one head of 128 at T
+    128, and its K1 launches."""
+    import dataclasses
+    from paddle_tpu_torch.tools import train_bench
+    cfg = dataclasses.replace(train_bench.bench_config(1), vocab_size=256,
+                              hidden_size=128, num_layers=2, max_seq_len=128)
+    st = train_bench.build_eager(cfg, 3, device, dtype, batch=2)
+    before = (k1.flash_attention_fwd.launches,
+              k1.flash_attention_bwd.launches)
+    losses = [train_bench.eager_step(st).item() for _ in range(steps)]
+    return losses, (k1.flash_attention_fwd.launches - before[0],
+                    k1.flash_attention_bwd.launches - before[1])
+
+
+@pytest.fixture
+def min_seq_128():
+    from paddle_tpu_torch.core import flags
+    prev = flags.flag("flash_attention_min_seq")
+    flags.set_flags({"FLAGS_flash_attention_min_seq": 128})
+    yield
+    flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
+
+
+def test_eager_o1_loop_cuda_matches_cpu_f32(cuda, min_seq_128):
+    """The eager O1 loop in bf16 on the card (K1 in bf16, one forward and
+    one backward launch a layer and step) against the same loop in f32
+    on the CPU: losses within 2e-2 relative over 4 steps (bf16 rounds
+    every linear's inputs to 8 significant bits, 2**-8 relative, and the
+    loss sums those errors over the sequence)."""
+    from paddle_tpu_torch.nn.functional import attention as A
+    got, launches = _eager_losses(cuda, "bfloat16", 4)
+    assert A.LAST_PATH == "flash" and A.LAST_DTYPE == torch.bfloat16
+    assert launches == (2 * 4, 2 * 4)
+    want, cpu_launches = _eager_losses("cpu", "float32", 4)
+    assert cpu_launches == (0, 0)
+    np.testing.assert_allclose(got, want, rtol=2e-2)
+    assert got[-1] < got[0]
+
+
+def test_eager_float16_runs_k1_on_card(cuda, min_seq_128):
+    """auto_cast(dtype="float16"): attention runs K1's float16 instance
+    (one forward and one backward launch a layer and step), and the
+    losses follow the CPU's f32 loop within 2.5e-3 relative over 4 steps
+    (the bf16 test's 2e-2 over the ratio of the unit roundoffs, 8)."""
+    from paddle_tpu_torch.nn.functional import attention as A
+    got, launches = _eager_losses(cuda, "float16", 4)
+    assert A.LAST_PATH == "flash" and A.LAST_DTYPE == torch.float16
+    assert launches == (2 * 4, 2 * 4)
+    want, _ = _eager_losses("cpu", "float32", 4)
+    np.testing.assert_allclose(got, want, rtol=2.5e-3)
+
+
+def test_bare_layer_parameters_default_to_the_card(cuda):
+    """Without set_device, `paddle.nn.Linear(3, 1)` makes its parameters
+    on the card, where to_tensor puts its input, so the reference program
+    `lin(paddle.to_tensor(x))` runs; a BatchNorm2D's statistics go there
+    too."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+    prev, place._default = place._default, None
+    try:
+        lin = paddle.nn.Linear(3, 1)
+        x = paddle.to_tensor(np.ones((2, 3), np.float32))
+        y = lin(x)
+        bn = paddle.nn.BatchNorm2D(4, weight_attr=False, bias_attr=False)
+    finally:
+        place._default = prev
+    assert lin.weight.device.type == "cuda" and x.device.type == "cuda"
+    assert y.shape == [2, 1] and y.device.type == "cuda"
+    np.testing.assert_allclose(
+        y.numpy(), (np.ones((2, 3), np.float32) @ lin.weight.numpy()
+                    + lin.bias.numpy()), rtol=1e-6)
+    assert bn._mean.device.type == "cuda"
 
 
 def test_bert_train_step_cuda_matches_cpu(cuda):

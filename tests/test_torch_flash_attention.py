@@ -194,12 +194,12 @@ def _bf16_inputs(seed=0):
     return [rng.randn(1, 2, 256, 128).astype(np.float32) for _ in range(4)]
 
 
-def _against_plain(kernel, causal, scale, got, arrs):
+def _against_plain(kernel, causal, scale, got, arrs, dtype="bfloat16"):
     """{tensor: agreement} of (out, lse, dq, dk, dv) with the port's f32
-    plain version on the same bf16 inputs."""
+    plain version on the same 16-bit inputs."""
     ref = (k1.flash_attention_reference if kernel == "k1"
            else k2.packed_flash_reference)
-    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     qr, kr, vr = (t.requires_grad_(True) for t in ts[:3])
     ro, rlse = ref(qr, kr, vr, causal, scale, return_lse=True)
     want = (ro, rlse, *torch.autograd.grad(ro, (qr, kr, vr), ts[3]))
@@ -207,12 +207,12 @@ def _against_plain(kernel, causal, scale, got, arrs):
         ("out", "lse", "dq", "dk", "dv"), got, want)}
 
 
-def _bf16_readings(kernel, causal):
+def _bf16_readings(kernel, causal, dtype="bfloat16"):
     """The Pallas reference kernel against the port's f32 plain version
-    on bf16 inputs at [1, 2, 256, 128] (K2: each row one packed pair of
-    heads of 64)."""
+    on bf16 (or `dtype`) inputs at [1, 2, 256, 128] (K2: each row one
+    packed pair of heads of 64)."""
     arrs = _bf16_inputs()
-    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    jq, jk, jv, jdo = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
     scale = 1.0 / math.sqrt(128 if kernel == "k1" else 64)
     with pltpu.force_tpu_interpret_mode():
         if kernel == "k1":
@@ -228,15 +228,15 @@ def _bf16_readings(kernel, causal):
         grads = vjp(jdo)
     got = [torch.from_numpy(np.array(g.astype(jnp.float32)))
            for g in (out, lse, *grads)]
-    return _against_plain(kernel, causal, scale, got, arrs)
+    return _against_plain(kernel, causal, scale, got, arrs, dtype)
 
 
-def _emulated_readings(kernel, causal):
+def _emulated_readings(kernel, causal, dtype="bfloat16"):
     """chip_smoke.reference_rounding (the reference's rounding points in
     plain PyTorch) on the same inputs, against the same plain version."""
     import chip_smoke
     arrs = _bf16_inputs()
-    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     scale = 1.0 / math.sqrt(128 if kernel == "k1" else 64)
     if kernel == "k1":
         got = chip_smoke.reference_rounding(*ts, causal, scale)
@@ -245,7 +245,7 @@ def _emulated_readings(kernel, causal):
             *(k2._unpack(t) for t in ts), causal, scale)
         got = (k2._repack(out), lse.reshape(1, 2, 2, 256), k2._repack(dq),
                k2._repack(dk), k2._repack(dv))
-    return _against_plain(kernel, causal, scale, got, arrs)
+    return _against_plain(kernel, causal, scale, got, arrs, dtype)
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k2"])
@@ -291,3 +291,32 @@ def test_bf16_limits_derive_from_reference_kernels(kernel, causal):
             pinned = chip_smoke.FLASH_PALLAS_READINGS[entry][name][metric]
             assert got == pytest.approx(pinned, rel=0.05, abs=1e-9), \
                 (entry, name, metric, got, pinned)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_limits_hold_reference_kernels(kernel, causal):
+    """The float16 limits of chip_smoke.FLASH_TOL (the bf16 limits over
+    F16_ROUNDOFF_RATIO, the ratio of bf16's and f16's unit roundoffs;
+    lse's kept) hold the Pallas reference kernel's own float16 reading,
+    and reference_rounding in float16, which phase 7 holds to them at
+    the chip check's shape, reproduces it (relative L2 within 25 %; the
+    excess, a maximum, only under the limit)."""
+    import chip_smoke
+    assert chip_smoke.F16_ROUNDOFF_RATIO == 2 ** (10 - 7)   # mantissa bits
+    pallas = _bf16_readings(kernel, causal, "float16")
+    emulated = _emulated_readings(kernel, causal, "float16")
+    entries = [kernel] if causal else {"k2": ["k2_nc"]}.get(kernel, [])
+    for entry in entries or [kernel]:
+        bf16 = chip_smoke.FLASH_TOL["bfloat16"][entry]
+        for name, limits in chip_smoke.FLASH_TOL["float16"][entry].items():
+            for metric, limit in limits.items():
+                ratio = 1 if name == "lse" else chip_smoke.F16_ROUNDOFF_RATIO
+                assert limit == bf16[name][metric] / ratio
+                assert pallas[name][metric] <= limit, \
+                    (entry, name, metric, pallas[name][metric], limit)
+                assert emulated[name][metric] <= limit, \
+                    (entry, name, metric, emulated[name][metric], limit)
+            if name != "lse":
+                r = emulated[name]["l2"] / pallas[name]["l2"]
+                assert 0.8 <= r <= 1.25, (name, r)

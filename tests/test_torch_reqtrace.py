@@ -296,7 +296,20 @@ def test_checker_on_200_request_churn_with_cancels(models):
 
 
 # ------------------------------------------------ flight recorder: auto
-def test_quarantine_auto_flight_dump(models, tmp_path):
+@pytest.fixture
+def fresh_flight_recorders():
+    """Leave both packages' process-wide flight recorders as they were
+    found: disarmed, with no dump paths (tests/test_reqtrace.py, which
+    may run later in the same process, counts the JAX ring's dumps)."""
+    yield
+    for obs in (jobs, tobs):
+        obs.reqtrace.disarm()
+        with obs.reqtrace.RING._lock:
+            obs.reqtrace.RING._dumps.clear()
+
+
+def test_quarantine_auto_flight_dump(models, tmp_path,
+                                     fresh_flight_recorders):
     dumps = []
     jeng, teng = _pair(models, jfaults=JFaults("nan_logits@1"),
                        tfaults=ServingFaultInjector("nan_logits@1"))

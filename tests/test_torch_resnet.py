@@ -42,6 +42,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu.nn.functional.norm import _bn_act_core, _bn_core
 from paddle_tpu.vision.models import resnet as jres
 
+import paddle_tpu_torch
 from paddle_tpu_torch import amp, jit
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.nn import functional as F
@@ -50,6 +51,18 @@ from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.vision.models import resnet as tres
 
 EPS = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    """Port layers built bare (outside a model given device="cpu") make
+    their parameters on the default device, CUDA unless set_device says
+    otherwise: these tests ask for the CPU, and restore the default."""
+    from paddle_tpu_torch.core import place
+    prev = place._default
+    paddle_tpu_torch.set_device("cpu")
+    yield
+    place._default = prev
 
 
 def _jloss(m, x, y):

@@ -505,7 +505,7 @@ def test_phase6_tracing_adds_no_device_read(tiny):
             finally:
                 tobs.reqtrace.enable()
         syncs = eng.stats.host_syncs
-        reads.append((counts["n"], syncs["prefill"] + syncs["decode"]))
+        reads.append((counts["n"], syncs("prefill") + syncs("decode")))
     assert reads[0] == reads[1] and reads[0][0] == reads[0][1] > 0
     ttft = np.array([eng.get_request(r).first_token_time
                      - eng.get_request(r).arrival_time for r in rids])
