@@ -86,8 +86,9 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    gives on the card;
 7. flash kernels K1 (6 heads of 128) and K2 (12 heads of 64, packed
    pairs) against their plain versions at the GPT train step's attention
-   shape (B 32, T 1024, causal), and K2 at ERNIE-large's (k2_nc: B 32,
-   16 heads of 64 in 8 pairs, T 512, not causal): out, lse, dq, dk and
+   shape (B 32, T 1024, causal), K2 at ERNIE-large's (k2_nc: B 32,
+   16 heads of 64 in 8 pairs, T 512, not causal) and K1 at
+   Transformer-base's (k1_d64, k1_d64_x, below): out, lse, dq, dk and
    dv in f32, in bf16 and in f16, each held to the limits of FLASH_TOL
    (relative L2 error, and per element against one bf16 ulp of the plain
    value; the bf16 limits derived from the TPU reference kernels' own
@@ -172,12 +173,42 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 15. LeNet at bench_lenet's recipe (batch 64 of 1 x 28^2, Adam(1e-3),
    jit.TrainStep, 100 timed steps) and bench_lenet_multistep's
    (jit.MultiStepTrainStep, K 50): losses finite and falling;
-   samples/s of each printed.
+   samples/s of each printed;
+16. Transformer-base (paddle_tpu_torch/tools/seq2seq_bench.py: 6 + 6
+   layers, d_model 512, 8 heads of 64, d_ff 2048, vocabulary 37000,
+   dropout 0.1, label smoothing 0.1, Adam over NoamDecay with global-norm
+   clip, O1 bf16, eager, 32 pairs of 512 + 512 tokens; 2 warm-up + 5
+   timed steps): the first step's loss within 1e-4 relative of composed
+   attention's under the same dropout masks, losses finite and falling,
+   K1 12 forward and 12 backward launches a step (encoder
+   self-attention and decoder cross-attention, non-causal, head dim 64,
+   [B, T, H, D]) and K2 none, LAST_PATH "flash" with bf16 q; then the
+   eval encoder (6 K1 forward launches) and a greedy decode of 16 tokens
+   for 4 sources through gen_cache equal to the uncached decode;
+   tokens/s, MFU (seq2seq_bench.transformer_flops) and peak memory
+   printed;
+17. the medium LSTM language model (2 x 650, vocabulary 10000, 20 x 35,
+   dropout 0.5, SGD(1.0) with clip 5; 2 + 8 steps): losses finite and
+   falling; then BeamSearchDecoder (beam 4) under dynamic_decode (20
+   steps) over the trained LSTMCells from 8 rows' states: ids and
+   parents equal to a CPU run's on the same weights, scores within
+   BEAM_SCORE_REL; tokens/s printed;
+18. paddle.save / paddle.load of phase 16's model and Adam state into a
+   new model and optimizer: the next step's loss and the loss after it
+   bitwise equal to the original's; then SGD, Adamax, Adadelta,
+   Adagrad, RMSProp (plain and centered), Lamb, Lars and LarsMomentum,
+   5 steps each on an MLP on the card and on the CPU from the same
+   weights: parameters within OPT_REL, losses falling.
+Phases 7-8 also hold and time K1 at head dim 64 non-causal on [B, T, H,
+D] views at Transformer-base's shape (k1_d64: B 32, 8 heads, T 512) and
+at a cross shape (k1_d64_x: 512 queries, 768 keys).
 
 The last three lines are: one JSON object with each kernel's numbers
 (K4's times summed over the five geometries; K2's non-causal forward and
 backward as entries of their own, with their launches from phase 13;
-K1's entries also carry `eager_launches`, phase 9b's counts),
+K1 at head dim 64 likewise, with its launches from phase 16; K1's
+entries also carry `eager_launches`, phase 9b's counts, and
+`transformer_launches`, phase 16's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 float32 matmuls and convolutions run in full float32 (TF32 off)
 throughout.
@@ -1061,19 +1092,32 @@ def run_facade(model, ecfg, device, seed: int) -> None:
 # T 1024, causal; K1 6 heads of 128, K2 12 heads of 64 packed in 6 pairs
 # of 128 lanes) and ERNIE-large's (k2_nc: B 32, T 512, not causal; K2,
 # 16 heads of 64 in 8 pairs)
+#
+# and Transformer-base's (k1_d64: B 32, 8 heads of 64, T 512, not causal;
+# K1 on Paddle's [B, T, H, D] layout, read in place as a strided view),
+# with one cross shape beside it (k1_d64_x: 512 queries over 768 keys)
 FLASH = {
     "k1": dict(batch=32, heads=6, seq=1024, width=128, head_dim=128,
                scale=1.0 / 128 ** 0.5, causal=True),
     "k2": dict(batch=32, heads=6, seq=1024, width=128, head_dim=64,
                scale=1.0 / 8.0, causal=True),
     "k2_nc": dict(batch=32, heads=8, seq=512, width=128, head_dim=64,
-                  scale=1.0 / 8.0, causal=False)}
+                  scale=1.0 / 8.0, causal=False),
+    "k1_d64": dict(batch=32, heads=8, seq=512, width=64, head_dim=64,
+                   scale=1.0 / 8.0, causal=False, layout="bthd"),
+    "k1_d64_x": dict(batch=32, heads=8, seq=512, kv_seq=768, width=64,
+                     head_dim=64, scale=1.0 / 8.0, causal=False,
+                     layout="bthd")}
+
+
+def _is_k1(kernel) -> bool:
+    return kernel.startswith("k1")
 
 
 def _flash_fns(kernel):
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
     from paddle_tpu_torch.ops.kernels import packed_flash as k2
-    if kernel == "k1":
+    if _is_k1(kernel):
         return (k1.flash_attention_fwd, k1.flash_attention_bwd,
                 k1.flash_attention_reference)
     return k2.packed_flash_fwd, k2.packed_flash_bwd, k2.packed_flash_reference
@@ -1081,17 +1125,28 @@ def _flash_fns(kernel):
 
 def _shape(kernel) -> str:
     c = FLASH[kernel]
-    return (f"B {c['batch']} T {c['seq']} "
-            f"{'causal' if c['causal'] else 'not causal'}")
+    tk = f" Tk {c['kv_seq']}" if "kv_seq" in c else ""
+    lay = " [B,T,H,D] view" if c.get("layout") == "bthd" else ""
+    return (f"B {c['batch']} T {c['seq']}{tk} "
+            f"{'causal' if c['causal'] else 'not causal'}{lay}")
 
 
 def flash_inputs(kernel, dtype, device, seed):
-    """q, k, v and do at the kernel's FLASH shape, N(0, 1) from `seed`."""
+    """q, k, v and do at the kernel's FLASH shape, N(0, 1) from `seed`,
+    heads-major [B, H, T, W]; with layout "bthd", views of [B, T, H, W]
+    tensors (the layout MultiHeadAttention hands K1); k and v over
+    kv_seq keys where one is given."""
     import torch
     c = FLASH[kernel]
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(c["batch"], c["heads"], c["seq"], c["width"],
-                        generator=g).to(device, dtype) for _ in range(4)]
+    lens = (c["seq"], c.get("kv_seq", c["seq"]),
+            c.get("kv_seq", c["seq"]), c["seq"])
+    if c.get("layout") == "bthd":
+        return [torch.randn(c["batch"], t, c["heads"], c["width"],
+                            generator=g).to(device, dtype).transpose(1, 2)
+                for t in lens]
+    return [torch.randn(c["batch"], c["heads"], t, c["width"],
+                        generator=g).to(device, dtype) for t in lens]
 
 
 # agreement limits per tensor. f32: relative L2 error and max |err| over
@@ -1114,7 +1169,11 @@ def flash_inputs(kernel, dtype, device, seed):
 # (FLASH_REF_READINGS, phase 7 on the H100). k2_nc, K2 at ERNIE-large's
 # non-causal shape, takes its limits by the same rule from
 # reference_rounding(causal=False) at B 32 x T 512; its Pallas readings
-# are those of packed_flash_attention(causal=False). tests/
+# are those of packed_flash_attention(causal=False). k1_d64 and
+# k1_d64_x (K1 at head dim 64, not causal, Transformer-base's shape and
+# a cross shape) take theirs by the same rule, their Pallas readings
+# those of `_fa_core` at [1, 2, 256, 64] not causal (tests/
+# test_torch_transformer.py holds them). tests/
 # test_torch_flash_attention.py recomputes the Pallas readings, holds
 # reference_rounding to them where both run, and checks each limit's
 # derivation; phase 7 requires reference_rounding's readings within the
@@ -1136,7 +1195,13 @@ FLASH_PALLAS_READINGS = {
               "lse": dict(l2=2.855e-8, excess=0.0),
               "dq": dict(l2=2.635e-3, excess=9.261e-3),
               "dk": dict(l2=2.644e-3, excess=1.283e-2),
-              "dv": dict(l2=2.586e-3, excess=7.199e-3)}}
+              "dv": dict(l2=2.586e-3, excess=7.199e-3)},
+    # `_fa_core` at [1, 2, 256, 64], not causal
+    "k1_d64": {"out": dict(l2=2.533e-3, excess=5.690e-3),
+               "lse": dict(l2=2.590e-8, excess=0.0),
+               "dq": dict(l2=2.696e-3, excess=6.279e-3),
+               "dk": dict(l2=2.616e-3, excess=8.781e-3),
+               "dv": dict(l2=2.563e-3, excess=8.055e-3)}}
 # reference_rounding at each kernel's FLASH shape (k1, k2: B 32, T 1024,
 # causal; k2_nc: B 32, T 512, not causal), --seed 0 (NVIDIA H100 80GB
 # HBM3, 700 W)
@@ -1155,7 +1220,20 @@ FLASH_REF_READINGS = {
               "lse": dict(l2=0.0, excess=0.0),
               "dq": dict(l2=2.646e-3, excess=1.463e-2),
               "dk": dict(l2=2.594e-3, excess=1.615e-2),
-              "dv": dict(l2=2.566e-3, excess=1.382e-2)}}
+              "dv": dict(l2=2.566e-3, excess=1.382e-2)},
+    # K1 at Transformer-base's shape (B 32, 8 heads of 64, T 512, not
+    # causal, [B, T, H, D] views) and its cross shape (Tk 768), --seed 0
+    # (NVIDIA H100 80GB HBM3, 700 W)
+    "k1_d64": {"out": dict(l2=2.411e-3, excess=8.271e-3),
+               "lse": dict(l2=0.0, excess=0.0),
+               "dq": dict(l2=2.646e-3, excess=1.276e-2),
+               "dk": dict(l2=2.593e-3, excess=1.774e-2),
+               "dv": dict(l2=2.570e-3, excess=1.392e-2)},
+    "k1_d64_x": {"out": dict(l2=2.426e-3, excess=9.477e-3),
+                 "lse": dict(l2=0.0, excess=0.0),
+                 "dq": dict(l2=2.638e-3, excess=1.802e-2),
+                 "dk": dict(l2=2.594e-3, excess=1.725e-2),
+                 "dv": dict(l2=2.570e-3, excess=1.215e-2)}}
 _BF16_FLOOR = {"out": dict(l2=5e-4, excess=1e-3),
                "lse": dict(l2=1e-6, excess=1e-3),
                "dq": dict(l2=4e-3, excess=0.5),
@@ -1180,7 +1258,17 @@ FLASH_TOL = {
                   "lse": dict(l2=1e-6, excess=1e-3),
                   "dq": dict(l2=5.2e-3, excess=0.5),
                   "dk": dict(l2=5.1e-3, excess=0.5),
-                  "dv": dict(l2=5.1e-3, excess=2.7e-2)}}}
+                  "dv": dict(l2=5.1e-3, excess=2.7e-2)},
+        "k1_d64": {"out": dict(l2=4.8e-3, excess=1.6e-2),
+                   "lse": dict(l2=1e-6, excess=1e-3),
+                   "dq": dict(l2=5.2e-3, excess=0.5),
+                   "dk": dict(l2=5.1e-3, excess=0.5),
+                   "dv": dict(l2=5.1e-3, excess=2.7e-2)},
+        "k1_d64_x": {"out": dict(l2=4.8e-3, excess=1.8e-2),
+                     "lse": dict(l2=1e-6, excess=1e-3),
+                     "dq": dict(l2=5.2e-3, excess=0.5),
+                     "dk": dict(l2=5.1e-3, excess=0.5),
+                     "dv": dict(l2=5.1e-3, excess=2.4e-2)}}}
 # float16: the kernels are the bf16 kernels' template at T = __half, so
 # they round P, dS and their outputs at the same points, to a type whose
 # unit roundoff is 2^-11 where bf16's is 2^-8. The f16 limit of each
@@ -1236,7 +1324,7 @@ def reference_rounding(q, k, v, do, causal: bool, scale: float):
 
 def _reference_rounding_of(kernel, q, k, v, do, causal, scale):
     """reference_rounding on K1's heads-major or K2's packed tensors."""
-    if kernel == "k1":
+    if _is_k1(kernel):
         return reference_rounding(q, k, v, do, causal, scale)
     from paddle_tpu_torch.ops.kernels.packed_flash import _repack, _unpack
     out, lse, dq, dk, dv = reference_rounding(
@@ -1347,7 +1435,7 @@ def time_flash(kernel, device, seed: int, dtype=None):
     del ro
     # yardstick only (never called by the port): SDPA on heads-major
     # [B, H, T, D] (K2's inputs unpacked beforehand, not timed)
-    if kernel != "k1":
+    if not _is_k1(kernel):
         q, k, v, do = (_unpack(t).contiguous() for t in (q, k, v, do))
     lib_f = cold_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal), 10)
@@ -1362,21 +1450,24 @@ def time_flash(kernel, device, seed: int, dtype=None):
     lib_fb = cold_ms(fwd_bwd, 10)
     del so
     B, H, T, D = q.shape[0], q.shape[1], q.shape[2], q.shape[3]
+    Tk = k.shape[2]
     # (row, col) score pairs: row >= col under the causal mask
-    pairs = T * (T + 1) // 2 if causal else T * T
-    elem = B * H * T * D
+    pairs = T * (T + 1) // 2 if causal else T * Tk
+    # 16-bit elements: q and o (forward), and do and dq (backward), over
+    # the queries; k and v (and dk, dv) over the keys; lse f32
+    eq, ek = B * H * T * D, B * H * Tk * D
     res = []
     for what, ms, plain, lib, flops, nbytes in (
             ("forward", ms_f, plain_f, lib_f, 4 * B * H * D * pairs,
-             4 * elem * 2 + B * H * T * 4),
+             (2 * eq + 2 * ek) * 2 + B * H * T * 4),
             ("backward", ms_b, plain_b, lib_b, 10 * B * H * D * pairs,
-             8 * elem * 2 + B * H * T * 4)):
+             (4 * eq + 4 * ek) * 2 + B * H * T * 4)):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         entry = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         res.append(entry)
-        print(f"[{kernel}] {what} timing, B {B} H {H} T {T} D {D} "
+        print(f"[{kernel}] {what} timing, B {B} H {H} T {T} Tk {Tk} D {D} "
               f"{str(dtype)[6:]} "
               f"{'causal' if causal else 'not causal'} (cold L2, mean): "
               f"kernel {ms:.4f} ms, plain "
@@ -2024,6 +2115,260 @@ def drive_lenet(device, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 16
+# Transformer-base: warm-up and timed steps; the greedy decode's sources
+# and new tokens
+TRANSFORMER_STEPS = (2, 5)
+DECODE = dict(rows=4, steps=16)
+
+
+def drive_transformer(device, seed: int) -> dict:
+    """Phase 16 (seq2seq_bench.run_transformer): the first step's loss
+    with use_flash_attention on and off under the same paddle.seed (the
+    same dropout masks) within 1e-4 relative; then every count at 0 and
+    2 warm-up + 5 timed steps: losses finite and falling, K1 12 forward
+    and 12 backward launches a step, K2 none, LAST_PATH "flash" with
+    bf16 q; then, in eval mode, the encoder over the same sources (6 K1
+    forward launches) and a greedy decode of 16 tokens for 4 sources
+    through gen_cache equal, token for token, to the decode without
+    caches. Returns the run's numbers with the model and optimizer
+    state (`built`), and K1's launches."""
+    import math
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels import packed_flash as k2
+    from paddle_tpu_torch.tools import seq2seq_bench as sb
+    st = sb.build_transformer(seed, device)
+    L = st["cfg"]["layers"]
+
+    def first_loss(flash: bool) -> float:
+        flags.set_flags({"FLAGS_use_flash_attention": flash})
+        try:
+            paddle.seed(seed + 1)
+            with torch.no_grad():
+                return sb.transformer_forward(st).item()
+        finally:
+            flags.set_flags({"FLAGS_use_flash_attention": True})
+    composed, flash = first_loss(False), first_loss(True)
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd,
+           k2.packed_flash_fwd, k2.packed_flash_bwd)
+    paddle.seed(seed + 1)
+    for f in fns:
+        f.launches = 0
+    torch.cuda.synchronize()
+    warm, steps = TRANSFORMER_STEPS
+    res = sb.run_transformer(warm, steps, built=st)
+    torch.cuda.synchronize()
+    counts = [f.launches for f in fns]
+    n = warm + steps
+    want = [2 * L * n, 2 * L * n, 0, 0]
+    losses = res["losses"]
+    print(f"[transformer] losses {[round(v, 5) for v in losses]}")
+    print(f"[transformer] step s {[round(t, 4) for t in res['step_s']]}; "
+          f"tokens/s (source + target) {res['tokens_per_sec']:.1f}, MFU "
+          f"{res['mfu']:.4f} ({res['flops_per_step']:.4e} FLOP a step by "
+          f"seq2seq_bench.transformer_flops; bf16 peak 989 TFLOP/s), peak "
+          f"memory {res['peak_mem_gb']:.2f} GB")
+    rel = abs(flash - composed) / abs(composed)
+    print(f"[transformer] launches fwd/bwd K1 {counts[0]}/{counts[1]}, K2 "
+          f"{counts[2]}/{counts[3]} (want {want}); LAST_PATH "
+          f"{res['last_path']} ({res['last_dtype']} q); first loss "
+          f"{losses[0]:.7f}, flash route alone {flash:.7f} vs composed "
+          f"{composed:.7f} (rel {rel:.3e}, limit 1e-4)")
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    _require(counts == want, f"transformer launches {counts} != {want}")
+    _require(res["last_path"] == "flash" and res["last_dtype"] == "bfloat16",
+             f"LAST_PATH {res['last_path']} {res['last_dtype']}")
+    _require(rel <= 1e-4, f"first loss flash {flash} vs composed "
+                          f"{composed}")
+    _require(losses[0] == flash, f"first step's loss {losses[0]} != the "
+                                 f"route check's {flash}")
+    k1.flash_attention_fwd.launches = 0
+    st["model"].eval()
+    with torch.no_grad(), paddle.amp.auto_cast(level="O1",
+                                               dtype="bfloat16"):
+        st["model"].encode(st["src"])
+    st["model"].train()
+    enc = k1.flash_attention_fwd.launches
+    print(f"[transformer] eval encoder: K1 forward launches {enc} "
+          f"(want {L})")
+    _require(enc == L, f"eval encoder K1 launches {enc} != {L}")
+    src = st["src"][:DECODE["rows"]]
+    ids_c, margins = sb.greedy_decode(st["model"], src, DECODE["steps"])
+    ids_u, _ = sb.greedy_decode(st["model"], src, DECODE["steps"],
+                                cached=False)
+    same = bool((ids_c == ids_u).all())
+    print(f"[transformer] greedy decode, {DECODE['rows']} sources x "
+          f"{DECODE['steps']} tokens: cached == uncached {same}; smallest "
+          f"top-2 margin a step {min(margins):.3e}")
+    _require(same, f"cached greedy decode {ids_c.numpy().tolist()} != "
+                   f"uncached {ids_u.numpy().tolist()}")
+    res.update(counts=counts, built=st, encoder_launches=enc)
+    return res
+
+
+# ------------------------------------------------------------ phase 17
+LSTM_STEPS = (2, 8)
+BEAM = dict(rows=8, beam_size=4, max_step_num=20)
+# the beam's scores on CUDA against the CPU run's (relative): f32 GEMMs
+# sum in other orders on the two devices (TF32 off), about 1e-7 a
+# log-probability over 20 steps of 10000-way softmaxes
+BEAM_SCORE_REL = 1e-5
+
+
+def drive_lstm(device, seed: int) -> dict:
+    """Phase 17 (seq2seq_bench.run_lstm, beam_search): losses finite and
+    falling over 2 warm-up + 8 steps; then beam search (beam 4, 20 steps)
+    from 8 rows' states: ids and parents on CUDA equal to the CPU run's on
+    the same weights, scores within BEAM_SCORE_REL."""
+    import copy
+    import math
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.tools import seq2seq_bench as sb
+    st = sb.build_lstm(seed, device)
+    warm, steps = LSTM_STEPS
+    res = sb.run_lstm(warm, steps, built=st)
+    losses = res["losses"]
+    print(f"[lstm] losses {[round(v, 4) for v in losses]}")
+    print(f"[lstm] step s {[round(t, 4) for t in res['step_s']]}; tokens/s "
+          f"{res['tokens_per_sec']:.1f}, peak memory "
+          f"{res['peak_mem_gb']:.3f} GB")
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    prefixes = st["x"][:BEAM["rows"]]
+    t0 = time.perf_counter()
+    out = sb.beam_search(st["model"], prefixes, BEAM["beam_size"],
+                         BEAM["max_step_num"])
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(st["model"]).to(device="cpu")
+    ref = sb.beam_search(cpu_model, prefixes.cpu(), BEAM["beam_size"],
+                         BEAM["max_step_num"])
+    got = {k: v.cpu().numpy() for k, v in out.items()}
+    want = {k: v.numpy() for k, v in ref.items()}
+    rel = float(np.abs(got["scores"] - want["scores"]).max()
+                / np.abs(want["scores"]).max())
+    same = all(np.array_equal(got[k], want[k])
+               for k in ("predicted_ids", "parent_ids"))
+    print(f"[lstm] beam search {got['predicted_ids'].shape} in {beam_s:.3f}"
+          f" s: ids and parents equal to the CPU run's {same}; scores max "
+          f"rel err {rel:.3e} (limit {BEAM_SCORE_REL:g})")
+    _require(same, "beam ids / parents differ between CUDA and the CPU")
+    _require(rel <= BEAM_SCORE_REL, f"beam scores rel err {rel}")
+    res.update(beam_s=beam_s, beam_rel=rel)
+    return res
+
+
+# ------------------------------------------------------------ phase 18
+OPT_STEPS = 5
+# parameters after OPT_STEPS steps on CUDA against the CPU (worst
+# relative L2 error over the parameters): the same f32 updates, the
+# gradients' GEMMs summed in other orders (TF32 off)
+OPT_REL = 1e-5
+
+
+def _new_optimizers():
+    from paddle_tpu_torch import optimizer as O
+    return {
+        "SGD": lambda p: O.SGD(0.1, parameters=p),
+        "Adamax": lambda p: O.Adamax(0.01, parameters=p),
+        "Adadelta": lambda p: O.Adadelta(1.0, parameters=p),
+        "Adagrad": lambda p: O.Adagrad(0.05, parameters=p),
+        "RMSProp": lambda p: O.RMSProp(0.01, momentum=0.9, parameters=p),
+        "RMSProp centered": lambda p: O.RMSProp(
+            0.01, momentum=0.9, centered=True, parameters=p),
+        "Lamb": lambda p: O.Lamb(0.01, parameters=p),
+        "Lars": lambda p: O.Lars(0.1, parameters=p),
+        "LarsMomentum": lambda p: O.LarsMomentum(0.1, momentum=0.5,
+                                                 parameters=p)}
+
+
+def check_optimizers(device, seed: int) -> dict:
+    """Phase 18a: each new optimizer, OPT_STEPS eager steps on an MLP
+    (32 -> 64 -> ReLU -> 10, batch 64) from the same weights and batch on
+    the card and on the CPU; worst relative L2 error of the parameters
+    within OPT_REL, and the loss falls."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    nn, F = paddle.nn, paddle.nn.functional
+    rng = np.random.RandomState(seed)
+    x = rng.randn(64, 32).astype(np.float32)
+    y = rng.randint(0, 10, (64,))
+    worst = {}
+    for name, make in _new_optimizers().items():
+        params, losses = {}, {}
+        for dev in (device, "cpu"):
+            paddle.seed(seed)
+            with default_device(dev):
+                model = nn.Sequential(nn.Linear(32, 64), nn.ReLU(),
+                                      nn.Linear(64, 10))
+                xt, yt = paddle.to_tensor(x), paddle.to_tensor(y)
+            opt = make(model.parameters())
+            ls = []
+            for _ in range(OPT_STEPS):
+                loss = F.cross_entropy(model(xt), yt)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                ls.append(loss.item())
+            params[str(dev)] = [p.detach().cpu() for p in model.parameters()]
+            losses[str(dev)] = ls
+        rel = max(((a - w).norm() / w.norm()).item() for a, w in
+                  zip(params[str(device)], params["cpu"]))
+        worst[name] = rel
+        cl = losses[str(device)]
+        print(f"[optimizers] {name}: {OPT_STEPS} steps, loss {cl[0]:.5f} -> "
+              f"{cl[-1]:.5f}; parameters CUDA vs CPU worst rel L2 "
+              f"{rel:.3e} (limit {OPT_REL:g})")
+        _require(rel <= OPT_REL, f"{name}: CUDA vs CPU {rel} > {OPT_REL}")
+        _require(cl[-1] < cl[0], f"{name}: loss did not fall {cl}")
+    return worst
+
+
+def check_save_load(built: dict, device, seed: int) -> None:
+    """Phase 18b: paddle.save of phase 16's Transformer state_dict and
+    Adam state_dict, paddle.load into a new model and optimizer (other
+    random weights), then one more training step and the loss after it
+    on both, each under the same paddle.seed: both losses bitwise
+    equal."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import seq2seq_bench as sb
+    with tempfile.TemporaryDirectory() as d:
+        paddle.save(built["model"].state_dict(), f"{d}/model.pdparams")
+        paddle.save(built["opt"].state_dict(), f"{d}/adam.pdopt")
+        new = sb.build_transformer(seed + 7, device)
+        for k in ("src", "tgt_in", "tgt_out", "tgt_mask"):
+            new[k] = built[k]
+        # the optimizer's state is keyed by parameter name; a new process
+        # would generate the original's names, this one must give them
+        old_names = {k: p.name for k, p in
+                     built["model"].named_parameters()}
+        for k, p in new["model"].named_parameters():
+            p.name = old_names[k]
+        missing, unexpected = new["model"].set_state_dict(
+            paddle.load(f"{d}/model.pdparams"))
+        new["opt"].set_state_dict(paddle.load(f"{d}/adam.pdopt"))
+    _require(not missing and not unexpected,
+             f"state names differ: {missing} {unexpected}")
+    got = []
+    for st in (built, new):
+        paddle.seed(seed + 2)
+        step_loss = sb.transformer_step(st)
+        paddle.seed(seed + 3)
+        got.append((step_loss, sb.transformer_forward(st).item()))
+    print(f"[save/load] Transformer + Adam state through paddle.save / "
+          f"paddle.load: step loss {got[0][0]!r} vs {got[1][0]!r}, next "
+          f"loss {got[0][1]!r} vs {got[1][1]!r} (bitwise)")
+    _require(got[0] == got[1], f"reloaded losses {got[1]} != {got[0]}")
+    del new
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e; returns K3's kernel entry (its launches from phase
     6, each later pass's in pass_launches)."""
@@ -2104,7 +2449,11 @@ FLASH_ENTRIES = (
     ("packed_flash_fwd_noncausal", "k2_nc", 0,
      "paddle_tpu/ops/pallas/packed_flash.py:212"),
     ("packed_flash_bwd_noncausal", "k2_nc", 1,
-     "paddle_tpu/ops/pallas/packed_flash.py:368"))
+     "paddle_tpu/ops/pallas/packed_flash.py:368"),
+    ("flash_attention_fwd_d64_noncausal", "k1_d64", 0,
+     "paddle_tpu/ops/pallas/flash_attention.py:186"),
+    ("flash_attention_bwd_d64_noncausal", "k1_d64", 1,
+     "paddle_tpu/ops/pallas/flash_attention.py:203"))
 
 
 def main(argv=None) -> int:
@@ -2142,8 +2491,14 @@ def main(argv=None) -> int:
     ernie = drive_mlm("ernie", 2, 15, device, args.seed)
     drive_mlm("bert", 2, 10, device, args.seed)
     drive_lenet(device, args.seed)
+    transformer = drive_transformer(device, args.seed)
+    check_save_load(transformer.pop("built"), device, args.seed)
+    torch.cuda.empty_cache()
+    drive_lstm(device, args.seed)
+    check_optimizers(device, args.seed)
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
-              "k2_nc": ernie["counts"][2:]}
+              "k2_nc": ernie["counts"][2:],
+              "k1_d64": transformer["counts"][:2]}
     for name, kernel, i, replaces in FLASH_ENTRIES:
         kernels.append({"name": name, "route": "cuda",
                         "source": FLASH_SOURCE, "replaces": replaces,
@@ -2157,6 +2512,7 @@ def main(argv=None) -> int:
             # and its launches on phase 9b's float16 run
             kernels[-1].update(
                 eager_launches=eager["counts"][i],
+                transformer_launches=transformer["counts"][i],
                 f16_max_abs_err=errs[kernel]["float16"][("fwd", "bwd")[i]],
                 f16_ms=k1_f16[i]["ms"], f16_plain_ms=k1_f16[i]["plain_ms"],
                 f16_library_ms=k1_f16[i]["library_ms"],

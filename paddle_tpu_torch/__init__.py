@@ -22,8 +22,11 @@ boundaries; and the eager surface of this module: Tensor and
 to_tensor, paddle.grad and the grad-mode contexts, seed, set_device,
 the dtypes, the creation, math, shape and matmul ops, nn.Layer with
 ParamAttr, the optimizers' step()/clear_grad() with the LR schedulers,
-amp.auto_cast and GradScaler. A name of paddle_tpu's top level that is
-not ported is absent here.
+amp.auto_cast and GradScaler; the sequence-model half of nn
+(Transformer, RNNs, seq2seq decoding, losses, activations,
+initializers, clipping), the optimizers SGD to Lars, and save/load in
+the JAX package's checkpoint format. A name of paddle_tpu's top level
+that is not ported is absent here.
 """
 from .core import errors
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
@@ -41,12 +44,17 @@ from .core.tensor import Tensor, to_tensor
 from .core.unported import not_ported as _not_ported
 from .ops.creation import (arange, full, full_like, ones, ones_like, rand,
                            randint, randn, zeros, zeros_like)
+from .framework_io import load, save
+from .ops.extra_ops import gather_tree
 from .ops.linalg import bmm, matmul
-from .ops.manipulation import (concat, flatten, reshape, split, squeeze,
-                               stack, transpose, unsqueeze)
-from .ops.math import (abs, add, cast, clip, divide, exp, log, max,
+from .ops.logic import logical_not, logical_or
+from .ops.manipulation import (concat, expand, flatten, index_select,
+                               reshape, split, squeeze, stack,
+                               take_along_axis, transpose, unsqueeze, where)
+from .ops.math import (abs, add, all, cast, clip, divide, exp, log, max,
                        maximum, mean, min, minimum, multiply, neg, pow,
                        sqrt, square, subtract, sum, tanh)
+from .ops.search import argmax, topk
 
 from . import (amp, distributed, inference, jit, models, nn, obs, optimizer,
                regularizer, vision)

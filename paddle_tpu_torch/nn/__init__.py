@@ -1,13 +1,22 @@
-"""nn of the port (paddle_tpu/nn): Layer and ParamAttr, the layers,
-functionals, initializers and clipping that the eager surface and the
-GPT, ResNet, BERT and LeNet train steps use."""
-from . import functional, initializer
-from .clip import ClipGradByGlobalNorm
-from .layer import (GELU, AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
-                    Embedding, HookRemoveHelper, Layer, LayerList, LayerNorm,
-                    Linear, MaxPool2D, ParamAttr, ReLU, Sequential)
+"""nn of the port (paddle_tpu/nn): Layer and ParamAttr, the layers
+(activations, common, containers, losses, norms, convolution, pooling,
+recurrent and Transformer), the functionals, initializers, clipping,
+utils (weight and spectral norm) and seq2seq decoding."""
+from . import functional, initializer, utils
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   GradientClipByGlobalNorm, GradientClipByNorm,
+                   GradientClipByValue, clip_grad_norm_)
+from .decode import (BasicDecoder, BeamSearchDecoder, DecodeHelper, Decoder,
+                     GreedyEmbeddingHelper, SampleEmbeddingHelper,
+                     TrainingHelper, dynamic_decode)
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
+from .layer import common, loss, norm, rnn  # noqa: F401
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Layer",
-           "HookRemoveHelper", "ParamAttr", "Linear", "Embedding", "Dropout",
-           "LayerNorm", "BatchNorm2D", "Conv2D", "ReLU", "GELU",
-           "Sequential", "LayerList", "MaxPool2D", "AdaptiveAvgPool2D"]
+__all__ = ["functional", "initializer", "utils", *_layers,
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "GradientClipByValue", "GradientClipByNorm",
+           "GradientClipByGlobalNorm", "clip_grad_norm_", "Decoder",
+           "BeamSearchDecoder", "dynamic_decode", "BasicDecoder",
+           "DecodeHelper", "TrainingHelper", "GreedyEmbeddingHelper",
+           "SampleEmbeddingHelper"]

@@ -41,7 +41,8 @@ LAST_DTYPE = None
 
 def _sdpa(q, k, v, mask, causal, scale, drop_mask, dropout_p,
           heads_major=False):
-    """Composed attention in the inputs' dtype. q/k/v [B, T, H, D]
+    """Composed attention in the inputs' dtype (promoted with a float
+    mask's). q/k/v [B, T, H, D]
     (Paddle's layout) or [B, H, T, D] with heads_major; the output keeps
     the input layout. Masked scores are -1e30 in that dtype, which in
     float16 is -inf (the JAX package's -1e30 rounds there too)."""
@@ -64,7 +65,10 @@ def _sdpa(q, k, v, mask, causal, scale, drop_mask, dropout_p,
     probs = torch.softmax(logits, dim=-1)
     if drop_mask is not None:
         probs = probs * drop_mask / max(1.0 - dropout_p, 1e-12)
-    out = torch.einsum("bhts,bhsd->bhtd", probs, vh)
+    # a float mask wider than q (an f32 mask on AMP's bf16 q/k/v) widens
+    # the scores, and the product with v then runs in that dtype, as
+    # jnp's promotion does
+    out = torch.einsum("bhts,bhsd->bhtd", probs, vh.to(probs.dtype))
     return out if heads_major else out.transpose(1, 2)
 
 

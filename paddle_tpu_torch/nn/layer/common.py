@@ -1,11 +1,16 @@
-"""Linear, Embedding and Dropout (port of paddle_tpu/nn/layer/common.py).
+"""Common layers (port of paddle_tpu/nn/layer/common.py, its
+sequence-model half): Linear, Identity, the dropouts, Embedding,
+Flatten, CosineSimilarity, PairwiseDistance and Bilinear. Upsample*,
+Pad*D, ZeroPad2D and PixelShuffle belong to the vision-side slice
+(ROADMAP Queue 1 item 4c).
 
-Parameter layouts are Paddle's: Linear.weight is [in, out]. The weights
-are drawn at construction with the reference's defaults (Layer.
-create_parameter, nn/initializer.py): XavierNormal for Linear's weight
-and a zero bias, Normal(0, 1) for Embedding, with the padding_idx row
-zeroed. weight_attr / bias_attr take a ParamAttr (or a name, or an
-initializer); bias_attr=False drops the bias."""
+Parameter layouts are Paddle's: Linear.weight is [in, out], Bilinear's
+[out, in1, in2]. The weights are drawn at construction with the
+reference's defaults (Layer.create_parameter, nn/initializer.py):
+XavierNormal for weights and a zero bias, Normal(0, 1) for Embedding,
+with the padding_idx row zeroed. weight_attr / bias_attr take a
+ParamAttr (or a name, or an initializer); bias_attr=False drops the
+bias."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +20,9 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Identity", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Embedding", "Flatten", "CosineSimilarity",
+           "PairwiseDistance", "Bilinear"]
 
 
 class Linear(Layer):
@@ -32,6 +39,14 @@ class Linear(Layer):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Embedding(Layer):
@@ -64,9 +79,91 @@ class Dropout(Layer):
     def __init__(self, p: float = 0.5, axis=None, mode="upscale_in_train",
                  name=None):
         super().__init__()
-        require_defaults("Dropout", axis=(axis, None),
-                         mode=(mode, "upscale_in_train"))
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
         self.p = p
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        from ...ops import manipulation as M
+        return M.flatten(x, self.start_axis, self.stop_axis)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class PairwiseDistance(Layer):
+    """||x - y + epsilon||_p over the last axis (the reference adds
+    epsilon to the difference before the norm)."""
+
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return torch.linalg.vector_norm(x - y + self.epsilon, ord=self.p,
+                                        dim=-1, keepdim=self.keepdim)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            shape=[out_features, in1_features, in2_features],
+            attr=weight_attr)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            shape=[out_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)

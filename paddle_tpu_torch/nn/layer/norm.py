@@ -1,5 +1,8 @@
-"""LayerNorm and BatchNorm2D (port of paddle_tpu/nn/layer/norm.py)."""
+"""LayerNorm, BatchNorm2D and SpectralNorm (port of paddle_tpu/nn/layer/
+norm.py; SpectralNorm backs nn.utils.spectral_norm)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -8,7 +11,7 @@ from .. import initializer as I
 from ..functional.norm import batch_norm, layer_norm
 from .layers import Layer
 
-__all__ = ["LayerNorm", "BatchNorm2D"]
+__all__ = ["LayerNorm", "BatchNorm2D", "SpectralNorm"]
 
 
 class LayerNorm(Layer):
@@ -72,3 +75,49 @@ class _BatchNormBase(Layer):
 
 class BatchNorm2D(_BatchNormBase):
     pass
+
+
+class SpectralNorm(Layer):
+    """weight / sigma, sigma its largest singular value by power
+    iteration over the weight laid out [shape[axis], -1]: u and v
+    (weight_u [h], weight_v [w], drawn from Normal(0, 1), no gradient)
+    advance power_iters steps every forward, in place, and sigma =
+    u^T W v. dtype is accepted for the reference's signature (the
+    parameters take the layer's default dtype)."""
+
+    def __init__(self, weight_shape, axis=0, power_iters=1, epsilon=1e-12,
+                 name=None, dtype="float32"):
+        super().__init__()
+        self._axis = axis
+        self._power_iters = power_iters
+        self._epsilon = epsilon
+        h = weight_shape[axis]
+        w = math.prod(weight_shape) // h
+        self.weight_u = self.create_parameter(
+            shape=[h], default_initializer=I.Normal(0.0, 1.0))
+        self.weight_u.stop_gradient = True
+        self.weight_v = self.create_parameter(
+            shape=[w], default_initializer=I.Normal(0.0, 1.0))
+        self.weight_v.stop_gradient = True
+
+    def forward(self, weight):
+        perm = [self._axis] + [i for i in range(weight.ndim)
+                               if i != self._axis]
+        w = weight.permute(*perm) if self._axis != 0 else weight
+        mat = w.reshape(w.shape[0], -1)
+        with torch.no_grad():
+            u, v = self.weight_u.detach(), self.weight_v.detach()
+            m = mat.detach()
+            for _ in range(self._power_iters):
+                v = m.t() @ u
+                v = v / (torch.linalg.vector_norm(v) + self._epsilon)
+                u = m @ v
+                u = u / (torch.linalg.vector_norm(u) + self._epsilon)
+            self.weight_u.copy_(u)
+            self.weight_v.copy_(v)
+        sigma = (mat * torch.outer(u, v)).sum()
+        out = w / sigma
+        if self._axis != 0:
+            inv = sorted(range(len(perm)), key=perm.__getitem__)
+            out = out.permute(*inv)
+        return out

@@ -1,6 +1,8 @@
 """Shape ops (port of the parts of paddle_tpu/ops/manipulation.py that the
 eager surface reaches): reshape, transpose, concat, stack, split,
-squeeze, unsqueeze and flatten, under the JAX package's op types.
+squeeze, unsqueeze and flatten, and the expand, index_select,
+take_along_axis and where that nn/decode.py reaches, under the JAX
+package's op types.
 Indexing and __setitem__ are the Tensor's own (torch's, on the autograd
 graph); in-place writes into a Tensor that other ops saved make
 torch's backward refuse, where the JAX package rebinds."""
@@ -11,7 +13,8 @@ import torch
 from ..core.dispatch import op
 
 __all__ = ["reshape", "transpose", "concat", "stack", "split", "squeeze",
-           "unsqueeze", "flatten"]
+           "unsqueeze", "flatten", "expand", "index_select",
+           "take_along_axis", "where"]
 
 
 def _ints(v):
@@ -120,3 +123,47 @@ def _flatten(x, start, stop):
 
 def flatten(x, start_axis=0, stop_axis=-1, name=None):
     return _flatten(x, start_axis, stop_axis)
+
+
+@op("expand")
+def _expand(x, shape):
+    return x.expand(shape)
+
+
+def expand(x, shape, name=None):
+    """x broadcast to `shape` (-1 keeps x's size on that axis)."""
+    shape = _ints(shape)
+    pad = len(shape) - x.ndim
+    shape = [x.shape[i - pad] if s == -1 else s for i, s in enumerate(shape)]
+    return _expand(x, shape)
+
+
+@op("index_select")
+def _index_select(x, index, axis):
+    return torch.index_select(x, axis, index.long())
+
+
+def index_select(x, index, axis=0, name=None):
+    return _index_select(x, index, axis)
+
+
+@op("take_along_axis")
+def _take_along_axis(x, indices, axis):
+    return torch.gather(x, axis, indices.long())
+
+
+def take_along_axis(arr, indices, axis, name=None):
+    return _take_along_axis(arr, indices, axis)
+
+
+@op("where")
+def _where(cond, x, y):
+    return torch.where(cond, x, y)
+
+
+def where(condition, x=None, y=None, name=None):
+    """x where condition holds, else y. With neither x nor y, the
+    indices of the true entries (one tensor per axis)."""
+    if x is None and y is None:
+        return torch.nonzero(condition, as_tuple=True)
+    return _where(condition, x, y)

@@ -16,7 +16,7 @@ from ..core.dtypes import convert_dtype
 
 __all__ = ["add", "subtract", "multiply", "divide", "pow", "maximum",
            "minimum", "abs", "neg", "exp", "log", "sqrt", "tanh", "square",
-           "sum", "mean", "max", "min", "clip", "cast"]
+           "sum", "mean", "max", "min", "clip", "cast", "all"]
 
 
 def _binop(name, fn):
@@ -120,3 +120,15 @@ def _cast(x, dtype):
 def cast(x, dtype):
     return _cast(x, convert_dtype(dtype))
 
+
+
+@op("all", differentiable=False)
+def _all(x, axis, keepdim):
+    if axis is None:
+        return torch.all(x)
+    return torch.all(x, dim=axis, keepdim=keepdim)
+
+
+def all(x, axis=None, keepdim=False, name=None):  # noqa: A001
+    """Whether every entry is true (over `axis`, or all of x)."""
+    return _all(x, _dims(axis), keepdim)

@@ -1,8 +1,12 @@
 """optimizer of the port (paddle_tpu/optimizer): the Optimizer base with
-the eager API and TrainStep's functional bridge, Momentum, Adam and
-AdamW, and the learning-rate schedulers (`lr`)."""
+the eager API and TrainStep's functional bridge, SGD, Momentum, Adam,
+AdamW, Adamax, Adadelta, Adagrad, RMSProp, Lamb and Lars, and the
+learning-rate schedulers (`lr`)."""
 from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW, Momentum
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                         Lars, LarsMomentum, Momentum, RMSProp)
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adadelta", "Adagrad", "RMSProp", "Lamb", "Lars", "LarsMomentum",
+           "lr"]

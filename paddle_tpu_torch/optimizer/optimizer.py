@@ -56,8 +56,9 @@ class Optimizer:
         # eager state per parameter, keyed by id(param)
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._global_step = 0
-        # the name of the parameter being updated (AdamW's
-        # apply_decay_param_fun reads it)
+        # the parameter being updated and its name (AdamW's
+        # apply_decay_param_fun, Lamb's and Lars's exclusions read them)
+        self._current_param = None
         self._current_param_name = None
         # AMP O2 master weights (amp.decorate turns this on)
         self._multi_precision = False
@@ -139,6 +140,7 @@ class Optimizer:
             if g is None:
                 continue
             w, g = plain(p).detach(), plain(g)
+            self._current_param = p
             self._current_param_name = getattr(p, "name", None)
             self._apply_one(w, self._regularized(w, g), self._state_for(p),
                             lr * self._param_lr(p))
@@ -217,7 +219,7 @@ class Optimizer:
                 continue
             if self.regularization is not None:
                 g = self.regularization.apply(p, g)
-            self._current_param_name = k
+            self._current_param, self._current_param_name = p, k
             self._apply_one(p, g, opt_state[k], lr)
         return flat_params, opt_state
 

@@ -80,6 +80,15 @@ PyTorch is installed:
   steps and running stats within 1e-4 of their largest entry; and one
   AMP O2 step on CUDA: finite loss, bf16 parameters, f32 running stats.
 
+- a tiny Transformer (seq2seq_bench, d_model 128 in 2 heads of 64,
+  T 128, flash_attention_min_seq 128) on CUDA through K1 non-causal
+  against the same loop on the CPU (losses within 1e-4 relative over 3
+  steps in f32, K1 launched once a layer pair each way; O1 bf16 within
+  2e-2); the LSTM language model's loop and beam search on CUDA against
+  the CPU (losses within 1e-5, beam ids and parents equal, scores within
+  1e-5); the new optimizers on CUDA against the CPU (parameters within
+  1e-5 relative L2 after 5 steps); paddle.save / load of card tensors.
+
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
 """
@@ -896,3 +905,115 @@ def test_resnet_train_step_cuda_matches_cpu(cuda):
     assert np.isfinite(loss)
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
     assert all(b.dtype == torch.float32 for b in model.buffers())
+
+
+# ------------------------------------------------ slice 6b: nn, optimizers
+def _tiny_transformer(device, dtype="float32", steps=3):
+    """seq2seq_bench's Transformer loop at d_model 128 (2 heads of 64),
+    2 + 2 layers, vocabulary 97, 2 rows of 128 tokens, dropout 0 (so the
+    two devices draw nothing), f32 or O1 bf16: its losses and K1's
+    launches."""
+    from paddle_tpu_torch.tools import seq2seq_bench as sb
+    cfg = dict(vocab=97, d_model=128, nhead=2, layers=2, d_ff=64,
+               dropout=0.0)
+    st = sb.build_transformer(0, device, cfg=cfg, batch=(2, 128))
+    before = (k1.flash_attention_fwd.launches,
+              k1.flash_attention_bwd.launches)
+    losses = []
+    for _ in range(steps):
+        if dtype == "float32":
+            loss = sb.transformer_loss(st["model"], st["src"], st["tgt_in"],
+                                       st["tgt_out"], st["tgt_mask"])
+            loss.backward()
+            st["opt"].step()
+            st["opt"].clear_grad()
+            st["sched"].step()
+            losses.append(float(loss.item()))
+        else:
+            losses.append(sb.transformer_step(st))
+    return losses, (k1.flash_attention_fwd.launches - before[0],
+                    k1.flash_attention_bwd.launches - before[1])
+
+
+def test_transformer_cuda_matches_cpu(cuda, min_seq_128):
+    """The Transformer loop in f32 on the card (encoder self-attention
+    and decoder cross-attention through K1's f32 kernel at head dim 64,
+    non-causal: 2 forward and 2 backward launches a layer pair and step)
+    against the same loop on the CPU (K1's plain version): losses within
+    1e-4 relative over 3 steps (blocked sums in another order); the O1
+    bf16 loop on the card falls and follows within 2e-2."""
+    got, launches = _tiny_transformer(cuda)
+    assert launches == (2 * 2 * 3, 2 * 2 * 3)
+    want, cpu_launches = _tiny_transformer("cpu")
+    assert cpu_launches == (0, 0)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    bf16, _ = _tiny_transformer(cuda, "bfloat16")
+    np.testing.assert_allclose(bf16, want, rtol=2e-2)
+    assert bf16[-1] < bf16[0]
+
+
+def test_lstm_lm_and_beam_search_cuda_match_cpu(cuda):
+    """The LSTM language model's SGD loop (dropout 0) on the card against
+    the CPU: losses within 1e-5 relative over 3 steps; then beam search
+    (beam 3, 6 steps) from 4 rows of a fresh model with weights in
+    U(-0.5, 0.5) (distinct scores: a few steps of SGD on one batch make
+    the tiny model emit one token, and beams whose scores tie to
+    rounding may swap between devices): ids and parents equal, scores
+    within 1e-5."""
+    from paddle_tpu_torch.tools import seq2seq_bench as sb
+    cfg = dict(vocab=50, hidden=32, num_steps=9, batch=6, dropout=0.0)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        st = sb.build_lstm(0, dev, cfg=cfg)
+        losses = [sb.lstm_step(st) for _ in range(3)]
+        fresh = sb.build_lstm(1, dev, cfg=dict(cfg, init_scale=0.5))
+        out = sb.beam_search(fresh["model"], fresh["x"][:4], 3, 6)
+        runs[str(dev)] = (losses, {k: v.cpu().numpy() for k, v in
+                                   out.items()})
+    (gl, go), (wl, wo) = runs[str(cuda)], runs["cpu"]
+    np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    for k in ("predicted_ids", "parent_ids"):
+        np.testing.assert_array_equal(go[k], wo[k])
+    np.testing.assert_allclose(go["scores"], wo["scores"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["SGD", "Adamax", "Adadelta", "Adagrad",
+                                  "RMSProp", "Lamb", "Lars"])
+def test_new_optimizers_cuda_match_cpu(cuda, name):
+    """5 steps on a Linear from the same weights and batch on the card
+    and on the CPU: parameters within 1e-5 relative L2."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    rng = np.random.RandomState(0)
+    x = rng.randn(16, 8).astype(np.float32)
+    y = rng.randn(16, 4).astype(np.float32)
+    params = {}
+    for dev in (cuda, "cpu"):
+        paddle.seed(0)
+        with default_device(dev):
+            layer = paddle.nn.Linear(8, 4)
+            xt, yt = paddle.to_tensor(x), paddle.to_tensor(y)
+        o = getattr(paddle.optimizer, name)(0.05,
+                                            parameters=layer.parameters())
+        for _ in range(5):
+            ((layer(xt) - yt) ** 2).mean().backward()
+            o.step()
+            o.clear_grad()
+        params[str(dev)] = [p.detach().cpu() for p in layer.parameters()]
+    for a, w in zip(params[str(cuda)], params["cpu"]):
+        assert ((a - w).norm() / w.norm()).item() < 1e-5
+
+
+def test_save_load_moves_card_tensors(cuda, tmp_path):
+    """paddle.save of tensors on the card (f32, int64, bf16) and load:
+    the same values, loaded onto the default device (the card)."""
+    import paddle_tpu_torch as paddle
+    pytest.importorskip("ml_dtypes")
+    obj = {"w": torch.randn(3, 4, device=cuda),
+           "ids": torch.arange(5, device=cuda),
+           "h": torch.randn(2, 3, device=cuda).to(torch.bfloat16)}
+    paddle.save(obj, str(tmp_path / "x.pdparams"))
+    got = paddle.load(str(tmp_path / "x.pdparams"))
+    for k, v in obj.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v)

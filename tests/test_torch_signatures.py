@@ -76,6 +76,7 @@ NO_COUNTERPART = {
     "paddle_tpu_torch.tools.k3_sweep",
     "paddle_tpu_torch.tools.measure",
     "paddle_tpu_torch.tools.profile_serving",
+    "paddle_tpu_torch.tools.seq2seq_bench",
     "paddle_tpu_torch.tools.serving_traffic",
     "paddle_tpu_torch.tools.train_bench",
 }
@@ -422,18 +423,6 @@ UNPORTED = {
     "MaxPool2D.return_mask": lambda: tnn.MaxPool2D(3, return_mask=True),
     "max_pool2d.return_mask": lambda: F.max_pool2d(
         torch.zeros(1, 1, 4, 4), 2, return_mask=True),
-    "dropout.axis": lambda: F.dropout(torch.ones(4, 4), 0.5, 1),
-    "Dropout.mode": lambda: tnn.Dropout(0.5, mode="downscale_in_infer"),
-    "cross_entropy.weight": lambda: F.cross_entropy(
-        torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
-        torch.ones(3)),
-    "cross_entropy.soft_label": lambda: F.cross_entropy(
-        torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True),
-    "cross_entropy.axis": lambda: F.cross_entropy(
-        torch.zeros(2, 3), torch.zeros(2, dtype=torch.long), axis=0),
-    "softmax_with_cross_entropy.soft_label": lambda:
-        F.softmax_with_cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3),
-                                     True),
     "Adam.lazy_mode": lambda: Adam(0.1, lazy_mode=True),
     "Embedding.sparse": lambda: tnn.Embedding(10, 4, sparse=True),
     "embedding.sparse": lambda: F.embedding(
@@ -637,7 +626,121 @@ def _ported_adamw_lr_ratio():
         np.testing.assert_array_equal(tp[k].numpy(), plain_run[k].numpy())
 
 
+def _ce_pair(port_kw, jax_kw=None, soft=False, axis=-1, probs=False):
+    """cross_entropy in both packages on the same logits [3, 5, 4] (or
+    their softmax with probs): values and input gradients in float32
+    within 1e-6."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(3, 5, 4).astype(np.float32)
+    if probs:
+        x = np.exp(x) / np.exp(x).sum(axis=axis, keepdims=True)
+    c = x.shape[axis]
+    if soft:
+        lab = rng.rand(*x.shape).astype(np.float32)
+        lab /= lab.sum(axis=axis, keepdims=True)
+    else:
+        shape = list(x.shape)
+        shape[axis] = 1
+        lab = rng.randint(0, c, size=shape).astype(np.int64)
+    kw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+          for k, v in port_kw.items()}
+    jkw = {k: (paddle.to_tensor(v) if isinstance(v, np.ndarray) else v)
+           for k, v in (jax_kw or port_kw).items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = F.cross_entropy(tx, torch.from_numpy(lab), **kw)
+    got.backward()
+    jx = paddle.to_tensor(x, stop_gradient=False)
+    want = JF.cross_entropy(jx, paddle.to_tensor(lab), **jkw)
+    want.backward()
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), jx.grad.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def _ported_ce_weight():
+    _ce_pair({"weight": np.array([0.5, 1.0, 2.0, 0.25], np.float32)})
+
+
+def _ported_ce_soft_label():
+    _ce_pair({"soft_label": True}, soft=True)
+
+
+def _ported_ce_axis():
+    _ce_pair({"axis": 1}, axis=1)
+
+
+def _ported_ce_use_softmax():
+    _ce_pair({"use_softmax": False}, probs=True)
+
+
+def _ported_swce(soft=False, axis=-1):
+    rng = np.random.RandomState(12)
+    x = rng.randn(4, 6, 3).astype(np.float32)
+    if soft:
+        lab = rng.rand(*x.shape).astype(np.float32)
+        lab /= lab.sum(axis=axis, keepdims=True)
+    else:
+        shape = list(x.shape)
+        shape[axis] = 1
+        lab = rng.randint(0, x.shape[axis], size=shape).astype(np.int64)
+    got = F.softmax_with_cross_entropy(torch.from_numpy(x),
+                                       torch.from_numpy(lab), soft,
+                                       axis=axis)
+    want = JF.softmax_with_cross_entropy(paddle.to_tensor(x),
+                                         paddle.to_tensor(lab), soft,
+                                         axis=axis)
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def _ported_dropout_axis():
+    """A mask shared along the axes not listed: whole columns of x are
+    kept (scaled by 2) or dropped, as in the JAX package."""
+    paddle_tpu_torch.seed(3)
+    out = F.dropout(torch.ones(64, 32), 0.5, 1).numpy()
+    assert set(np.unique(out)) <= {0.0, 2.0}
+    assert (out == out[:1]).all() and 0 < out[0].mean() < 2
+
+
+def _dropout_modes(layer_kw):
+    x = np.random.RandomState(5).rand(16, 8).astype(np.float32) + 0.5
+    tl = tnn.Dropout(0.25, **layer_kw)
+    jl = paddle.nn.Dropout(0.25, **layer_kw)
+    tl.eval(), jl.eval()
+    np.testing.assert_allclose(tl(torch.from_numpy(x)).numpy(),
+                               jl(paddle.to_tensor(x)).numpy(), rtol=1e-7)
+    tl.train()
+    out = tl(torch.from_numpy(x)).numpy()
+    return x, out
+
+
+def _ported_dropout_mode():
+    """downscale_in_infer: kept values unscaled in training, x * (1 - p)
+    in eval, as in the JAX package."""
+    x, out = _dropout_modes({"mode": "downscale_in_infer"})
+    assert np.all((out == 0) | (out == x)) and (out == 0).any()
+
+
+def _ported_dropout_layer_axis():
+    x, out = _dropout_modes({"axis": 0})
+    kept = out != 0
+    assert (kept == kept[:, :1]).all()
+    np.testing.assert_allclose(out[kept], x[kept] / 0.75, rtol=1e-6)
+
+
 PORTED = {
+    "dropout.axis": _ported_dropout_axis,
+    "Dropout.mode": _ported_dropout_mode,
+    "Dropout.axis": _ported_dropout_layer_axis,
+    "cross_entropy.weight": _ported_ce_weight,
+    "cross_entropy.soft_label": _ported_ce_soft_label,
+    "cross_entropy.axis": _ported_ce_axis,
+    "cross_entropy.use_softmax": _ported_ce_use_softmax,
+    "softmax_with_cross_entropy.soft_label":
+        lambda: _ported_swce(soft=True),
+    "softmax_with_cross_entropy.axis": lambda: _ported_swce(axis=1),
     "Linear.weight_attr": _ported_linear_weight_attr,
     "AdamW.apply_decay_param_fun": _ported_adamw_apply_decay_param_fun,
     "AdamW.lr_ratio": _ported_adamw_lr_ratio,
@@ -652,11 +755,42 @@ PORTED = {
 @pytest.mark.parametrize("case", sorted(PORTED))
 def test_ported_parameter_reaches_its_feature(case, gpt_pair):
     """Each parameter that took only its default until slice 5b (the
-    engine's and scheduler's) or slice 6a (Linear's weight_attr, AdamW's
-    apply_decay_param_fun and lr_ratio) now takes a value and reaches
-    its feature."""
+    engine's and scheduler's), slice 6a (Linear's weight_attr, AdamW's
+    apply_decay_param_fun and lr_ratio) or slice 6b (dropout's axis and
+    mode, the cross-entropies' weight, soft_label, axis and
+    use_softmax) now takes a value and reaches its feature, computing
+    as the JAX package does."""
     fn = PORTED[case]
     if case.startswith("EngineConfig"):
         fn(gpt_pair)
     else:
         fn()
+
+
+# ------------------------------------------- slice 6b: every public name
+SLICE_6B = ("nn.functional.activation", "nn.layer.activation",
+            "nn.functional.common", "nn.layer.common", "nn.functional.loss",
+            "nn.layer.loss", "nn.layer.container", "nn.initializer",
+            "nn.clip", "nn.utils", "nn.layer.transformer", "nn.layer.rnn",
+            "nn.decode", "optimizer.optimizers", "framework_io")
+# the vision-side names, ported with slice 6c (ROADMAP Queue 1 item 4c)
+SLICE_6C = {"interpolate", "upsample", "unfold", "pixel_shuffle", "Upsample",
+            "UpsamplingNearest2D", "UpsamplingBilinear2D", "Pad1D", "Pad2D",
+            "Pad3D", "ZeroPad2D", "PixelShuffle"}
+
+
+@pytest.mark.parametrize("module", SLICE_6B)
+def test_slice_6b_module_has_every_reference_name(module):
+    """Every public function and class the JAX module defines (aliases
+    included) has a counterpart of the same name in the port's module,
+    but the vision-side names of slice 6c; the walk above holds their
+    positional order."""
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    names = {n for n, o in vars(ref).items()
+             if not n.startswith("_") and callable(o)
+             and getattr(o, "__module__", "") == f"paddle_tpu.{module}"}
+    assert names, module
+    missing = sorted(n for n in names - SLICE_6C if not hasattr(port, n))
+    assert not missing, (module, missing)
+    assert not {n for n in SLICE_6C if hasattr(port, n)}
