@@ -198,7 +198,36 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    bitwise equal to the original's; then SGD, Adamax, Adadelta,
    Adagrad, RMSProp (plain and centered), Lamb, Lars and LarsMomentum,
    5 steps each on an MLP on the card and on the CPU from the same
-   weights: parameters within OPT_REL, losses falling.
+   weights: parameters within OPT_REL, losses falling;
+19. MobileNetV2 (scale 1.0, 1000 classes, 224^2) at the recipe of
+   Sandler et al. 2018 section 6.1 through tools/train_bench.py: the
+   first step on the card against the CPU at batch 4 (FIRST_STEP_TOL:
+   the f32 loss within 1e-5, the f32 gradients within twice the f32
+   rounding the same run reads against f64, the f64 gradients within
+   1e-6), then batch 96 of synthetic images, RMSProp(rho 0.9, momentum
+   0.9) at 0.045 under ExponentialDecay(0.98), L2Decay(4e-5), O2 bf16
+   through jit.TrainStep, ExponentialMovingAverage(0.9999) after every
+   step (2 warm-up + 20 timed steps): losses finite and the last below
+   the first timed one, the EMA's shadows equal to the update by hand
+   (EMA_TOL), apply() / restore() around an eval forward; imgs/s, MFU
+   (3 x 2 x 300 M multiply-adds an image), peak memory, idle share and
+   the profile's groups printed;
+20. resnet50(data_format="NHWC") on the NCHW model's weights and the
+   permuted batch (8 images, check_first_step's limits), the
+   space-to-depth stem against the 7x7 one (S2D_TOL), then bench_resnet's
+   geometry channel-last (O2, Momentum(0.1), 2 + 10 steps): losses
+   finite and their timed mean below the first; imgs/s beside phase
+   12's NCHW reading; the profile's convolution and layout-transform
+   time for both layouts; no NCHW <-> NHWC transform launched in a
+   channel-last step;
+21. vgg16(batch_norm=True) at configuration D of Simonyan & Zisserman
+   2015, batch 64 (256 over 4 GPUs there), Momentum(0.01, 0.9),
+   L2Decay(5e-4), O2 (2 + 40 steps): losses finite and falling; imgs/s,
+   MFU, peak memory;
+22. every vision functional and layer of slice 6c on the card against
+   the CPU on the same inputs, f32 and (convolution, pooling, norms)
+   bf16, within VISION_TOL; Momentum, Lookahead and ModelAverage over 5
+   steps, card against CPU.
 Phases 7-8 also hold and time K1 at head dim 64 non-causal on [B, T, H,
 D] views at Transformer-base's shape (k1_d64: B 32, 8 heads, T 512) and
 at a cross shape (k1_d64_x: 512 queries, 768 keys).
@@ -2369,6 +2398,642 @@ def check_save_load(built: dict, device, seed: int) -> None:
     del new
 
 
+# ------------------------------------------------------------ phase 19
+# the first step of a vision model on the card against the same model
+# on the CPU. At init, with batch statistics, these networks' gradients
+# carry f32 rounding of about 1e-2 relative L2 (MobileNetV2 at batch 4 and
+# ResNet-50 at batch 8, 224^2: the CPU's own f32 gradients lie 1.4e-2 and
+# 2.8e-2 from a float64 evaluation, measured), so the f32 gradients are
+# held to twice the f32 rounding the same run reads on the CPU (f32
+# against f64) plus FIRST_STEP_TOL["grad32"], and the equality itself is
+# held in float64; the f32 loss within FIRST_STEP_TOL["loss"] relative. A
+# gradient that is zero in exact arithmetic (a BN bias under a later
+# conv + BN) is compared against 5 % of the largest gradient's norm.
+FIRST_STEP_TOL = dict(loss=1e-5, grad32=1e-4, grad64=1e-6)
+MOBILENET_CHECK_B = 4
+# MobileNetV2's warm-up and timed steps: RMSProp at the paper's 0.045 from
+# a zero mean square moves every weight by ~3 x lr at first, and the loss
+# on the fixed batch swings for a dozen steps (the H100 read 7.04 -> 16.76
+# -> ... -> 23.62 at step 15 -> 5.03 at step 22), so 20 timed steps; the
+# EMA check's limit (absolute, f32 shadows against the update by hand)
+MOBILENET_STEPS = (2, 20)
+EMA_TOL = 1e-6
+
+
+def _eval_dropout(model) -> None:
+    """Dropout layers to eval mode: the card and the CPU draw different
+    masks, so the device checks run without them."""
+    from paddle_tpu_torch.nn import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.eval()
+
+
+def _first_step(build, x, y, dev, dtype):
+    """The training-mode loss and every parameter's gradient (as f64 CPU
+    tensors) of build(dev) cast to dtype, on x, y."""
+    import torch
+    from paddle_tpu_torch.tools import train_bench
+    model = build(dev).to(dtype=dtype)
+    model.train()
+    _eval_dropout(model)
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = train_bench.ce_loss_fn(model, x.to(dev, dtype), y.to(dev))
+    grads = [g.detach().cpu().double()
+             for g in torch.autograd.grad(loss, params)]
+    del model, params
+    torch.cuda.empty_cache()
+    return loss.item(), grads
+
+
+def _grad_err(got, want) -> float:
+    """The worst per-parameter relative L2 error, each against
+    max(its own norm, 5 % of the largest gradient norm)."""
+    top = max(w.norm().item() for w in want)
+    return max((a - w).norm().item() / max(w.norm().item(), 0.05 * top)
+               for a, w in zip(got, want))
+
+
+def check_first_step(name, build_a, build_b, x, y, dev_a, dev_b,
+                     transform=None) -> dict:
+    """The first step of build_a on dev_a against build_b on dev_b (the
+    same weights; transform maps the batch for b), in f32 and f64: the
+    f32 loss within FIRST_STEP_TOL["loss"], the f32 gradients within
+    twice b's f32 rounding (b in f32 against b in f64) plus
+    FIRST_STEP_TOL["grad32"], the f64 gradients within
+    FIRST_STEP_TOL["grad64"]."""
+    import torch
+    xb = transform(x) if transform else x
+    tol = FIRST_STEP_TOL
+    la32, ga32 = _first_step(build_a, x, y, dev_a, torch.float32)
+    lb32, gb32 = _first_step(build_b, xb, y, dev_b, torch.float32)
+    _, ga64 = _first_step(build_a, x, y, dev_a, torch.float64)
+    lb64, gb64 = _first_step(build_b, xb, y, dev_b, torch.float64)
+    lerr = abs(la32 - lb32) / abs(lb32)
+    g32, floor32 = _grad_err(ga32, gb32), _grad_err(gb32, gb64)
+    g64 = _grad_err(ga64, gb64)
+    lim32 = 2 * floor32 + tol["grad32"]
+    print(f"[{name}] first step, {x.shape[0]} images: f32 loss {la32:.7f} "
+          f"vs {lb32:.7f} ({lerr:.2e} relative, limit {tol['loss']:g}; "
+          f"f64 {lb64:.9f}); worst of {len(ga32)} gradients, f32 "
+          f"{g32:.3e} relative L2 (limit {lim32:.3e}: f32 rounding "
+          f"{floor32:.3e} against f64), f64 {g64:.3e} (limit "
+          f"{tol['grad64']:g})")
+    _require(lerr <= tol["loss"], f"{name} first f32 loss: {lerr}")
+    _require(g32 <= lim32, f"{name} f32 gradients: {g32} > {lim32}")
+    _require(g64 <= tol["grad64"], f"{name} f64 gradients: {g64}")
+    return {"loss_rel": lerr, "grad32_rel_l2": g32, "f32_rounding": floor32,
+            "grad64_rel_l2": g64}
+
+
+def drive_mobilenet(device, seed: int) -> dict:
+    """Phase 19: MobileNetV2 (scale 1.0, 1000 classes, 224^2) at its
+    paper's recipe through tools/train_bench.py: the first step on the
+    card against the CPU (check_first_step), then batch 96 under RMSProp
+    + L2Decay + ExponentialDecay, O2 bf16 through jit.TrainStep and the
+    EMA after every step: losses finite and falling, the EMA shadows
+    equal to the same update by hand, apply()/restore() around one eval
+    forward; imgs/s, MFU, peak memory and the profile's idle share."""
+    import math
+    import torch
+    from paddle_tpu_torch.tools import train_bench
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    x, y = train_bench.vision_batch("mobilenet_v2", seed, "cpu")
+    b = MOBILENET_CHECK_B
+
+    def build(dev):
+        return mobilenet_v2(device=dev, seed=seed)
+    check = check_first_step("mobilenet_v2 card vs CPU", build, build,
+                             x[:b].float(), y[:b], device,
+                             torch.device("cpu"))
+    torch.cuda.empty_cache()
+    built = train_bench.build_vision("mobilenet_v2", seed, device)
+    model, ema = built["model"], built["ema"]
+    names = list(ema._params)
+    manual = {k: ema._params[k].detach().float().clone() for k in names}
+    warm, steps = MOBILENET_STEPS
+
+    def by_hand():
+        for k in names:
+            manual[k] = 0.9999 * manual[k] + 0.0001 * ema._params[
+                k].detach().float()
+
+    # the warm-up steps, the EMA's update (inside the step) replayed by hand
+    losses = []
+    for _ in range(warm):
+        losses.append(built["step"](built["x"], built["y"]).item())
+        by_hand()
+    ema_err = max((ema._shadow[k] - manual[k]).abs().max().item()
+                  for k in names)
+    del manual
+    res = train_bench.run_vision("mobilenet_v2", 0, steps, built=built)
+    losses += res["losses"]
+    model.eval()
+    live = {k: p.detach().clone() for k, p in model.named_parameters()}
+    with ema.apply():
+        swapped = all(torch.equal(p.detach(), ema._shadow[p.name].to(
+            p.dtype)) for p in model.parameters())
+        logits = model(built["x"][:8])
+    restored = all(torch.equal(p.detach(), live[k])
+                   for k, p in model.named_parameters())
+    model.train()
+    prof = train_bench.profile_steps(built["step"], (built["x"], built["y"]),
+                                     3, train_bench._VISION_GROUPS,
+                                     train_bench._VISION_RANGES)
+    timed = losses[warm:warm + steps]
+    print(f"[mobilenet_v2] losses {[round(v, 4) for v in losses]}; lr "
+          f"{res['lr']}")
+    print(f"[mobilenet_v2] batch {res['batch']}: imgs/s "
+          f"{res['imgs_per_sec']:.1f}, MFU {res['mfu']:.4f} (3 x 2 x 300 M "
+          f"multiply-adds an image over 989 TFLOP/s), peak memory "
+          f"{res['peak_mem_gb']:.2f} GB, device idle share "
+          f"{prof['idle_share']:.3f}; step s "
+          f"{[round(t, 4) for t in res['step_s']]}")
+    print(f"[mobilenet_v2] profile of 3 steps (s): "
+          f"{ {k: round(v, 5) for k, v in prof['groups_s'].items()} }")
+    print(f"[mobilenet_v2] EMA(0.9999) shadows vs the update by hand: max "
+          f"|diff| {ema_err:.3e} (limit {EMA_TOL:g}); apply() swapped "
+          f"{swapped}, eval logits {tuple(logits.shape)} finite "
+          f"{bool(torch.isfinite(logits).all())}, restore() bitwise "
+          f"{restored}")
+    _require(all(math.isfinite(v) for v in losses), "MobileNetV2: "
+             "non-finite loss")
+    _require(timed[-1] < timed[0], f"MobileNetV2: loss did not fall over "
+                                   f"the timed steps: {timed}")
+    _require(ema_err <= EMA_TOL, f"EMA shadows off by {ema_err}")
+    _require(swapped and restored, "EMA apply/restore")
+    _require(bool(torch.isfinite(logits).all()), "EMA eval logits")
+    res.update(check=check, ema_err=ema_err, idle_share=prof["idle_share"],
+               profile=prof)
+    del built, model, ema
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------------ phase 20
+# NHWC against NCHW on the card (check_first_step's rule): batch; the
+# space-to-depth stem's limit (of the plain stem's largest entry, f32)
+NHWC_CHECK_B = 8
+S2D_TOL = 1e-5
+
+def drive_resnet_nhwc(device, seed: int, nchw: dict) -> dict:
+    """Phase 20: resnet50(data_format="NHWC") on the NCHW model's weights
+    and the permuted batch: the first loss and gradients equal
+    (check_first_step); the space-to-depth stem equals the plain one in
+    f32; then bench_resnet's geometry channel-last (O2, Momentum(0.1),
+    128 x 224^2) beside phase 12's NCHW reading (`nchw`), with the
+    profile's convolution, layout transform and copy time for both
+    layouts. The channel-last steps must launch no layout transform
+    (train_bench.LAYOUT_KEYS) and no more copies (COPY_KEYS) than the
+    NCHW steps, and every 4-D weight must be channels_last after
+    amp.decorate."""
+    import math
+    import torch
+    from paddle_tpu_torch.tools import train_bench
+    from paddle_tpu_torch.vision.models import resnet50
+    x, y = train_bench.resnet_batch(seed, "cpu")
+    x, y = x[:NHWC_CHECK_B].float(), y[:NHWC_CHECK_B]
+    state = {k: v.numpy() for k, v in
+             resnet50(device="cpu", seed=seed).state_dict().items()}
+
+    def build(fmt):
+        return lambda dev: resnet50(device=dev, seed=seed + 1,
+                                    data_format=fmt).load_jax_params(state)
+    check = check_first_step(
+        "resnet50 NHWC vs NCHW", build("NHWC"), build("NCHW"),
+        x.permute(0, 2, 3, 1).contiguous(), y, device, device,
+        transform=lambda a: a.permute(0, 3, 1, 2).contiguous())
+    a = build("NCHW")(device)
+    xd = x.to(device)
+    with torch.no_grad():
+        plain = a.conv1(xd)
+        folded = a._stem_s2d(xd)
+        s2d_err = ((folded - plain).abs().max()
+                   / plain.abs().max()).item()
+    print(f"[resnet nhwc] space-to-depth stem vs the 7x7/s2 stem, f32, "
+          f"{NHWC_CHECK_B} images: {s2d_err:.3e} (limit {S2D_TOL:g})")
+    _require(s2d_err <= S2D_TOL, f"space-to-depth stem: {s2d_err}")
+    del a, plain, folded, xd
+    torch.cuda.empty_cache()
+    out = {"check": check, "s2d_rel": s2d_err}
+    for fmt in ("NHWC", "NCHW"):
+        built = train_bench.build_resnet(seed, device, fmt)
+        if fmt == "NHWC":
+            weights = [p for p in built[0].parameters() if p.dim() == 4]
+            strided = [p.name for p in weights if not p.is_contiguous(
+                memory_format=torch.channels_last)]
+            print(f"[resnet NHWC] {len(weights) - len(strided)} of "
+                  f"{len(weights)} conv weights channels_last after "
+                  f"amp.decorate (O2 bf16)")
+            _require(not strided, f"NHWC conv weights not channels_last: "
+                                  f"{strided}")
+        res = (train_bench.run_resnet(2, 10, built=built)
+               if fmt == "NHWC" else {})
+        if fmt == "NCHW":
+            train_bench.run_resnet(2, 0, built=built)
+        prof = train_bench.profile_steps(built[1], built[2:], 3,
+                                         train_bench._VISION_GROUPS,
+                                         train_bench._VISION_RANGES)
+        g, n = prof["groups_s"], prof["groups_n"]
+        print(f"[resnet {fmt}] profile of 3 steps: conv (cuDNN) "
+              f"{g['conv (cuDNN)']:.4f} s, layout transforms "
+              f"{g['layout transform']:.4f} s ({n['layout transform']} "
+              f"launches), copies / casts {g['copy / cast']:.4f} s "
+              f"({n['copy / cast']} launches), batch norm "
+              f"{g['batch_norm']:.4f} s, idle share "
+              f"{prof['idle_share']:.3f}; top kernels "
+              f"{[(k[:70], c) for k, c, _ in prof['top'][:5]]}")
+        out[fmt] = {"profile": prof, **res}
+        del built
+        torch.cuda.empty_cache()
+    r = out["NHWC"]
+    print(f"[resnet nhwc] losses {[round(v, 5) for v in r['losses']]}; "
+          f"imgs/s {r['imgs_per_sec']:.1f} (NCHW, phase 12: "
+          f"{nchw['imgs_per_sec']:.1f}), MFU {r['mfu']:.4f}, peak memory "
+          f"{r['peak_mem_gb']:.2f} GB")
+    # the O2 curve on one fixed batch swings from step to step (Momentum
+    # 0.1, no warm-up; NCHW and NHWC round differently and part after a
+    # few steps): the timed steps' mean must lie below the first loss
+    timed = r["losses"][2:]
+    _require(all(math.isfinite(v) for v in r["losses"]), "NHWC non-finite "
+             "loss")
+    _require(sum(timed) / len(timed) < r["losses"][0],
+             f"NHWC loss did not fall: {r['losses']}")
+    nhwc, nchw_n = (out[f]["profile"]["groups_n"] for f in ("NHWC", "NCHW"))
+    _require(nhwc["layout transform"] == 0, "the channel-last steps "
+             f"launched {nhwc['layout transform']} layout transforms")
+    _require(nhwc["copy / cast"] <= nchw_n["copy / cast"],
+             f"the channel-last steps launched {nhwc['copy / cast']} "
+             f"copies, the NCHW steps {nchw_n['copy / cast']}")
+    return out
+
+
+# ------------------------------------------------------------ phase 21
+# VGG-16's warm-up and timed steps: at Momentum(0.01, 0.9) without warm-up
+# the loss on the fixed batch rises for ~8 steps before it falls (the H100
+# read 9.11 -> 15.66 at step 9 -> 0.17 at step 42; the CPU in f32 at batch
+# 16 does the same), so 40 timed steps
+VGG_STEPS = (2, 40)
+
+
+def drive_vgg(device, seed: int) -> dict:
+    """Phase 21: vgg16(batch_norm=True), configuration D, batch 64 on one
+    card (256 over 4 GPUs in the paper), Momentum(0.01, 0.9),
+    L2Decay(5e-4), O2: losses finite and falling over the timed steps;
+    imgs/s, MFU, peak memory."""
+    import math
+    import torch
+    from paddle_tpu_torch.tools import train_bench
+    warm, steps = VGG_STEPS
+    built = train_bench.build_vision("vgg16", seed, device)
+    res = train_bench.run_vision("vgg16", warm, steps, built=built)
+    timed = res["losses"][warm:]
+    print(f"[vgg16] losses {[round(v, 4) for v in res['losses']]}")
+    print(f"[vgg16] batch {res['batch']}: imgs/s {res['imgs_per_sec']:.1f}, "
+          f"MFU {res['mfu']:.4f} (3 x 2 x "
+          f"{built['flops_per_img'] / 6e9:.2f} G multiply-adds an image), "
+          f"peak memory {res['peak_mem_gb']:.2f} GB")
+    _require(all(math.isfinite(v) for v in res["losses"]), "VGG-16: "
+             "non-finite loss")
+    _require(timed[-1] < timed[0], f"VGG-16: loss did not fall: {timed}")
+    del built
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------------ phase 22
+# each vision functional and layer on the card against the CPU on the
+# same inputs: the largest |card - CPU| over the CPU's largest entry, in
+# f32 (TF32 off) and, for convolution, pooling and norms, with bf16
+# inputs against the CPU's f32 on the same bf16 values. The limits
+# (VISION_TOL) stand beside the largest readings of this phase on an
+# NVIDIA H100 80GB HBM3 at 700 W (VISION_READINGS): about 4x and 2.5x
+# them (f32: cuDNN and the CPU sum in other orders; bf16: ~2 ulps of
+# 2**-8 on the output).
+VISION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+VISION_READINGS = {"float32": ("grid_sample bilinear / nearest", 5.49e-6),
+                   "bfloat16": ("instance_norm", 7.83e-3)}
+
+
+def _vision_cases():
+    """(name, input shapes, fn(*tensors) -> tensor or tuple, bf16 too)."""
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+
+    def bn(fmt):
+        def fn(x, w, b):
+            c = w.shape[0]
+            return F.batch_norm(x, torch.zeros(c, device=x.device),
+                                torch.ones(c, device=x.device), w, b, True,
+                                data_format=fmt)
+        return fn
+
+    def focal(x, t):
+        return F.sigmoid_focal_loss(x, (t > 0.5).to(x.dtype), 4.0)
+
+    def affine(t):
+        eye = torch.tensor([[1.0, 0.1, 0.05], [-0.1, 0.9, 0.0]],
+                           device=t.device)
+        return F.affine_grid(eye + 0.1 * t, [4, 64, 48, 40], False)
+
+    def sample(x, g, mode):
+        return F.grid_sample(x, 1.2 * g, mode, "zeros", False)
+
+    big = (2, 256, 64, 64)
+    return [
+        ("conv1d NLC", [(8, 128, 64), (96, 64, 5), (96,)],
+         lambda x, w, b: F.conv1d(x, w, b, 2, 2, data_format="NLC"), True),
+        ("conv2d NHWC depthwise", [(8, 56, 56, 144), (144, 1, 3, 3)],
+         lambda x, w: F.conv2d(x, w, None, 2, 1, groups=144,
+                               data_format="NHWC"), True),
+        ("conv3d SAME", [(2, 16, 16, 32, 32), (32, 16, 3, 3, 3)],
+         lambda x, w: F.conv3d(x, w, None, 1, "SAME"), True),
+        ("conv1d_transpose", [(4, 64, 128), (64, 32, 4)],
+         lambda x, w: F.conv1d_transpose(x, w, None, 2, 1), True),
+        ("conv2d_transpose NHWC 256->128, 64^2", [(2, 64, 64, 256),
+                                                 (256, 128, 4, 4), (128,)],
+         lambda x, w, b: F.conv2d_transpose(x, w, b, 2, 1,
+                                            data_format="NHWC"), True),
+        ("conv2d_transpose groups, asymmetric", [(2, 256, 32, 32),
+                                                 (256, 64, 3, 3)],
+         lambda x, w: F.conv2d_transpose(x, w, None, 2, [1, 0, 2, 1],
+                                         groups=2), True),
+        ("conv3d_transpose output_size", [(2, 32, 8, 16, 16),
+                                          (32, 16, 3, 3, 3)],
+         lambda x, w: F.conv3d_transpose(x, w, None, 2, 1,
+                                         output_size=[16, 32, 32]), True),
+        ("max_pool2d ceil + mask", [(8, 64, 57, 57)],
+         lambda x: F.max_pool2d(x, 3, 2, 1, return_mask=True,
+                                ceil_mode=True), True),
+        ("max_pool1d NLC", [(8, 130, 64)],
+         lambda x: F.max_pool1d(x, 3, 2, 1, data_format="NLC"), True),
+        ("max_pool3d", [(2, 32, 9, 17, 17)],
+         lambda x: F.max_pool3d(x, 3, 2, [1, 0, 1], ceil_mode=True), True),
+        ("avg_pool1d exclusive ceil", [(8, 64, 131)],
+         lambda x: F.avg_pool1d(x, 4, 3, 1, ceil_mode=True), True),
+        ("avg_pool2d NHWC divisor_override", [(8, 57, 57, 64)],
+         lambda x: F.avg_pool2d(x, 3, 2, 1, divisor_override=7,
+                                data_format="NHWC"), True),
+        ("avg_pool3d", [(2, 32, 9, 17, 17)],
+         lambda x: F.avg_pool3d(x, 2, 2, 0, exclusive=False), True),
+        ("adaptive_avg_pool2d NHWC 7x7", [(8, 13, 13, 512)],
+         lambda x: F.adaptive_avg_pool2d(x, 7, "NHWC"), True),
+        ("adaptive_max_pool2d + mask", [(8, 64, 27, 31)],
+         lambda x: F.adaptive_max_pool2d(x, [5, 7], True), True),
+        ("adaptive pools 1d / 3d", [(8, 64, 61), (2, 32, 9, 10, 11)],
+         lambda x, z: torch.cat([F.adaptive_avg_pool1d(x, 7).flatten(),
+                                 F.adaptive_max_pool1d(x, 9).flatten(),
+                                 F.adaptive_avg_pool3d(z, 3).flatten(),
+                                 F.adaptive_max_pool3d(z, [2, 3, 4])
+                                 .flatten()]), True),
+        ("group_norm 256ch 64^2, 32 groups", [big, (256,), (256,)],
+         lambda x, w, b: F.group_norm(x, 32, 1e-5, w, b), True),
+        ("group_norm NHWC", [(2, 32, 32, 128), (128,), (128,)],
+         lambda x, w, b: F.group_norm(x, 8, 1e-5, w, b, "NHWC"), True),
+        ("instance_norm", [(4, 64, 32, 32), (64,), (64,)],
+         lambda x, w, b: F.instance_norm(x, weight=w, bias=b), True),
+        ("instance_norm NHWC", [(4, 32, 32, 64)],
+         lambda x: F.instance_norm(x, data_format="NHWC"), True),
+        ("local_response_norm", [(4, 96, 27, 27)],
+         lambda x: F.local_response_norm(x, 5, 1e-3, 0.75, 2.0), True),
+        ("batch_norm 3-D", [(16, 64, 100), (64,), (64,)], bn("NCL"), True),
+        ("batch_norm 5-D NDHWC", [(2, 8, 16, 16, 32), (32,), (32,)],
+         bn("NDHWC"), True),
+        ("interpolate nearest 256ch 64^2 -> 128^2", [big],
+         lambda x: F.interpolate(x, [128, 128]), False),
+        ("interpolate bilinear up", [big],
+         lambda x: F.interpolate(x, scale_factor=2, mode="bilinear"),
+         False),
+        ("interpolate bilinear down (antialias)", [big],
+         lambda x: F.interpolate(x, [27, 45], mode="bilinear"), False),
+        ("interpolate bicubic up", [big],
+         lambda x: F.interpolate(x, [96, 80], mode="bicubic"), False),
+        ("interpolate align_corners bilinear / bicubic", [big],
+         lambda x: torch.cat([
+             F.interpolate(x, [100, 90], mode="bilinear",
+                           align_corners=True).flatten(),
+             F.interpolate(x, [100, 90], mode="bicubic",
+                           align_corners=True).flatten()]), False),
+        ("interpolate trilinear / linear / area", [(2, 16, 8, 16, 16),
+                                                   (4, 32, 50)],
+         lambda x, z: torch.cat([
+             F.interpolate(x, [12, 20, 24], mode="trilinear",
+                           data_format="NCDHW").flatten(),
+             F.interpolate(z, [77], mode="linear",
+                           data_format="NCW").flatten(),
+             F.interpolate(x[:, :, 0], [7, 5], mode="area").flatten()]),
+         False),
+        ("unfold / fold", [(4, 32, 30, 28), (4, 32 * 6, 15 * 15)],
+         lambda x, c: torch.cat([
+             F.unfold(x, [3, 2], 2, [1, 0, 2, 1], 1).flatten(),
+             F.fold(c, [30, 28], [3, 2], 2, 1, 1).flatten()]), False),
+        ("pixel_shuffle / unshuffle", [(4, 64, 32, 32), (4, 16, 32, 16)],
+         lambda x, z: torch.cat([
+             F.pixel_shuffle(x, 2).flatten(),
+             F.pixel_shuffle(x.permute(0, 2, 3, 1), 2, "NHWC").flatten(),
+             F.pixel_unshuffle(z, 2).flatten(),
+             F.pixel_unshuffle(z.permute(0, 2, 3, 1), 4, "NHWC")
+             .flatten()]), False),
+        ("grid_sample bilinear / nearest", [(4, 32, 40, 48),
+                                            (4, 30, 20, 2)],
+         lambda x, g: torch.cat([sample(x, g.tanh(), "bilinear").flatten(),
+                                 sample(x, g.tanh(), "nearest").flatten()]),
+         False),
+        ("affine_grid", [(4, 2, 3)], affine, False),
+        ("temporal_shift", [(12, 64, 14, 14)],
+         lambda x: torch.cat([
+             F.temporal_shift(x, 4).flatten(),
+             F.temporal_shift(x.permute(0, 2, 3, 1), 3, 0.125, "NHWC")
+             .flatten()]), False),
+        ("pad reflect / replicate / circular / constant",
+         [(4, 32, 20, 24)],
+         lambda x: torch.cat([F.pad(x, [2, 1, 0, 3], m, 0.5).flatten()
+                              for m in ("reflect", "replicate", "circular",
+                                        "constant")]), False),
+        ("diag_embed / sigmoid_focal_loss", [(64, 33), (256, 80),
+                                             (256, 80)],
+         lambda d, x, t: torch.cat([F.diag_embed(d, 1, 0, 2).flatten(),
+                                    focal(x, t.sigmoid()).flatten()]),
+         False),
+    ]
+
+
+def _vision_layers():
+    """(name, layer built on the CPU, input shape)."""
+    from paddle_tpu_torch import nn
+    return [
+        ("Conv1D", nn.Conv1D(32, 48, 3, padding=1, padding_mode="circular"),
+         (4, 32, 50)),
+        ("Conv2D NHWC reflect", nn.Conv2D(32, 64, 3, 2, 1,
+                                          padding_mode="reflect",
+                                          data_format="NHWC"),
+         (4, 33, 33, 32)),
+        ("Conv3D", nn.Conv3D(16, 32, 3, padding="SAME"), (2, 16, 8, 12, 12)),
+        ("Conv1DTranspose", nn.Conv1DTranspose(32, 16, 4, 2, 1),
+         (4, 32, 40)),
+        ("Conv2DTranspose", nn.Conv2DTranspose(64, 32, 4, 2, 1, groups=2),
+         (4, 64, 16, 16)),
+        ("Conv3DTranspose", nn.Conv3DTranspose(16, 8, 2, 2), (2, 16, 6, 8, 8)),
+        ("MaxPool1D", nn.MaxPool1D(3, 2, 1), (4, 32, 51)),
+        ("MaxPool2D NHWC", nn.MaxPool2D(3, 2, 1, data_format="NHWC"),
+         (4, 31, 31, 32)),
+        ("MaxPool3D", nn.MaxPool3D(2, ceil_mode=True), (2, 16, 7, 9, 9)),
+        ("AvgPool1D", nn.AvgPool1D(3, 2, 1), (4, 32, 51)),
+        ("AvgPool2D", nn.AvgPool2D(3, 2, 1, ceil_mode=True), (4, 32, 31, 31)),
+        ("AvgPool3D", nn.AvgPool3D(2, 2), (2, 16, 8, 8, 8)),
+        ("AdaptiveAvgPool1D", nn.AdaptiveAvgPool1D(5), (4, 32, 51)),
+        ("AdaptiveAvgPool2D", nn.AdaptiveAvgPool2D((7, 7)), (4, 32, 13, 13)),
+        ("AdaptiveAvgPool3D", nn.AdaptiveAvgPool3D(2), (2, 16, 7, 8, 9)),
+        ("AdaptiveMaxPool1D", nn.AdaptiveMaxPool1D(5), (4, 32, 51)),
+        ("AdaptiveMaxPool2D", nn.AdaptiveMaxPool2D(3), (4, 32, 13, 13)),
+        ("AdaptiveMaxPool3D", nn.AdaptiveMaxPool3D(2), (2, 16, 7, 8, 9)),
+        ("BatchNorm", nn.BatchNorm(32, act="relu"), (8, 32, 14, 14)),
+        ("BatchNorm1D", nn.BatchNorm1D(32), (8, 32, 50)),
+        ("BatchNorm3D", nn.BatchNorm3D(16), (2, 16, 6, 8, 8)),
+        ("GroupNorm", nn.GroupNorm(8, 64), (4, 64, 16, 16)),
+        ("InstanceNorm1D", nn.InstanceNorm1D(32), (4, 32, 50)),
+        ("InstanceNorm2D", nn.InstanceNorm2D(32), (4, 32, 16, 16)),
+        ("InstanceNorm3D", nn.InstanceNorm3D(16), (2, 16, 6, 8, 8)),
+        ("LocalResponseNorm", nn.LocalResponseNorm(5), (4, 32, 16, 16)),
+        ("Upsample", nn.Upsample(scale_factor=2, mode="bilinear"),
+         (4, 32, 16, 16)),
+        ("UpsamplingNearest2D", nn.UpsamplingNearest2D(size=[40, 24]),
+         (4, 32, 16, 16)),
+        ("UpsamplingBilinear2D", nn.UpsamplingBilinear2D(size=[40, 24]),
+         (4, 32, 16, 16)),
+        ("Pad1D", nn.Pad1D([2, 3], mode="reflect"), (4, 32, 20)),
+        ("Pad2D", nn.Pad2D(2, mode="replicate"), (4, 32, 16, 16)),
+        ("Pad3D", nn.Pad3D([1, 0, 2, 1, 0, 1], value=0.5), (2, 8, 6, 8, 8)),
+        ("ZeroPad2D", nn.ZeroPad2D([1, 2, 0, 1]), (4, 32, 16, 16)),
+        ("PixelShuffle", nn.PixelShuffle(2), (4, 64, 16, 16)),
+    ]
+
+
+def _vs_cpu(got, want) -> float:
+    """The largest |got - want| over want's largest entry, over each
+    tensor of a tuple; non-finite entries must match exactly."""
+    import torch
+    got = [got] if torch.is_tensor(got) else list(got)
+    want = [want] if torch.is_tensor(want) else list(want)
+    worst = 0.0
+    for a, w in zip(got, want):
+        a, w = a.detach().cpu().double(), w.detach().double()
+        fin = w.isfinite()
+        if not bool((a[~fin] == w[~fin]).all()):
+            return float("inf")
+        if fin.any():
+            worst = max(worst, ((a - w)[fin].abs().max()
+                                / w[fin].abs().max().clamp_min(1e-30))
+                        .item())
+    return worst
+
+
+def check_vision_ops(device, seed: int) -> dict:
+    """Phase 22: every vision functional (VISION cases) and layer on the
+    card against the CPU, f32 and (convolution, pooling, norms) bf16;
+    then ModelAverage and Lookahead over a few Momentum steps on an MLP,
+    card against CPU."""
+    import copy
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    g = torch.Generator().manual_seed(seed)
+    readings = {"float32": {}, "bfloat16": {}}
+    for name, shapes, fn, lowp in _vision_cases():
+        xs = [torch.randn(s, generator=g) for s in shapes]
+        want = fn(*xs)
+        readings["float32"][name] = _vs_cpu(
+            fn(*[x.to(device) for x in xs]), want)
+        if lowp:
+            xb = [x.bfloat16() for x in xs]
+            ref = fn(*[x.float() for x in xb])
+            got = fn(*[x.to(device) for x in xb])
+            got = (got if torch.is_tensor(got) else got[0]).float()
+            readings["bfloat16"][name] = _vs_cpu(
+                got, ref if torch.is_tensor(ref) else ref[0])
+    with default_device("cpu"):
+        paddle.seed(seed)
+        layers = _vision_layers()
+    for name, layer, shape in layers:
+        x = torch.randn(shape, generator=g)
+        layer.train()
+        dev_layer = copy.deepcopy(layer).to(device)
+        want = layer(x)
+        readings["float32"][f"layer {name}"] = _vs_cpu(
+            dev_layer(x.to(device)), want)
+    for kind, v in _wrappers_vs_cpu(device, seed).items():
+        readings["float32"][f"optimizer {kind}"] = v
+    bad = []
+    for dtype, tol in VISION_TOL.items():
+        worst = sorted(readings[dtype].items(), key=lambda kv: -kv[1])
+        print(f"[vision ops] {dtype}: {len(worst)} cases, card vs CPU "
+              f"(of the CPU's largest entry), limit {tol:g}; the largest: "
+              f"{[(k, f'{v:.2e}') for k, v in worst[:8]]}")
+        bad += [(dtype, k) for k, v in worst if not v <= tol]
+    _require(not bad, f"vision ops over their limit: {bad}")
+    return readings
+
+
+WRAPPER_KINDS = ("Momentum", "Lookahead", "ModelAverage",
+                 "Lookahead + ModelAverage")
+
+
+def _wrapper_runs(device, seed: int, dtype=None) -> dict:
+    """Momentum alone, Lookahead(Momentum, k=2), ModelAverage over
+    Momentum and ModelAverage over Lookahead(Momentum), each 5 steps over
+    an MLP from the same starting weights and batch (in `dtype`, float32
+    by default) on `device`: each one's final weights (with
+    ModelAverage: applied), copied to the CPU. The starting weights are copies of an untrained reference
+    net's, so no run starts from another's trained weights."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    dtype = dtype or torch.float32
+    rng = torch.Generator().manual_seed(seed + 1)
+    xb = torch.randn(64, 32, generator=rng).to(device, dtype)
+    yb = torch.randn(64, 8, generator=rng).to(device, dtype)
+    with default_device("cpu"):
+        paddle.seed(seed)
+        ref = paddle.nn.Sequential(paddle.nn.Linear(32, 64),
+                                   paddle.nn.ReLU(), paddle.nn.Linear(64, 8))
+    state = {k: v.detach().numpy().copy() for k, v in ref.state_dict().items()}
+    out = {}
+    for kind in WRAPPER_KINDS:
+        with default_device(device):
+            net = paddle.nn.Sequential(paddle.nn.Linear(32, 64),
+                                       paddle.nn.ReLU(),
+                                       paddle.nn.Linear(64, 8))
+        net.to(dtype=dtype)
+        net.set_state_dict(state)
+        params = list(net.parameters())
+        opt = paddle.optimizer.Momentum(0.05, 0.9, parameters=params)
+        if "Lookahead" in kind:
+            opt = paddle.optimizer.Lookahead(opt, alpha=0.5, k=2)
+        ma = paddle.optimizer.ModelAverage(0.15, parameters=params,
+                                           min_average_window=2,
+                                           max_average_window=10)
+        for _ in range(5):
+            ((net(xb) - yb) ** 2).mean().backward()
+            opt.step()
+            opt.clear_grad()
+            ma.update()
+        if "ModelAverage" in kind:
+            with ma.apply():
+                out[kind] = [p.detach().cpu().clone() for p in params]
+        else:
+            out[kind] = [p.detach().cpu().clone() for p in params]
+    return out
+
+
+def _wrappers_vs_cpu(device, seed: int) -> dict:
+    """_wrapper_runs on `device` against the CPU: the largest difference
+    of each kind's final weights (_vs_cpu)."""
+    got = _wrapper_runs(device, seed)
+    want = _wrapper_runs("cpu", seed)
+    return {kind: max(_vs_cpu(a, w) for a, w in zip(got[kind], want[kind]))
+            for kind in WRAPPER_KINDS}
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e; returns K3's kernel entry (its launches from phase
     6, each later pass's in pass_launches)."""
@@ -2483,7 +3148,7 @@ def main(argv=None) -> int:
     eager = drive_eager(device, args.seed)
     k4 = check_k4(device, args.seed)
     k4_model = check_k4_on_model(device, args.seed)
-    drive_resnet(device, args.seed)
+    resnet = drive_resnet(device, args.seed)
     # bench_ernie's 15 timed steps: AdamW(1e-4) without warm-up makes the
     # first steps' loss rise and swing in both packages (tests/
     # test_torch_bert.py holds the port's O2 curve to the JAX package's),
@@ -2496,6 +3161,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     drive_lstm(device, args.seed)
     check_optimizers(device, args.seed)
+    drive_mobilenet(device, args.seed)
+    drive_resnet_nhwc(device, args.seed, resnet)
+    drive_vgg(device, args.seed)
+    check_vision_ops(device, args.seed)
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
               "k1_d64": transformer["counts"][:2]}

@@ -25,7 +25,10 @@ ParamAttr, the optimizers' step()/clear_grad() with the LR schedulers,
 amp.auto_cast and GradScaler; the sequence-model half of nn
 (Transformer, RNNs, seq2seq decoding, losses, activations,
 initializers, clipping), the optimizers SGD to Lars, and save/load in
-the JAX package's checkpoint format. A name of paddle_tpu's top level
+the JAX package's checkpoint format; the vision half of nn (every
+convolution, pool, norm and resize layer, channel-first and
+channel-last), MobileNetV1/V2, VGG, channel-last ResNet and the EMA,
+ModelAverage and Lookahead wrappers. A name of paddle_tpu's top level
 that is not ported is absent here.
 """
 from .core import errors
@@ -56,8 +59,8 @@ from .ops.math import (abs, add, all, cast, clip, divide, exp, log, max,
                        sqrt, square, subtract, sum, tanh)
 from .ops.search import argmax, topk
 
-from . import (amp, distributed, inference, jit, models, nn, obs, optimizer,
-               regularizer, vision)
+from . import (amp, distributed, incubate, inference, jit, models, nn, obs,
+               optimizer, regularizer, vision)
 from .nn.layer.base import ParamAttr
 
 bool8 = bool_

@@ -1,5 +1,5 @@
-"""layer_norm, batch_norm and batch_norm_act (port of paddle_tpu/nn/
-functional/norm.py).
+"""layer_norm, batch_norm, batch_norm_act, instance_norm, group_norm and
+local_response_norm (port of paddle_tpu/nn/functional/norm.py).
 
 layer_norm: statistics and the scale/shift math run in f32 and the
 result comes back in x's dtype, the JAX package's numerics for
@@ -26,6 +26,21 @@ batch_norm nor its running-stat update computes:
   promotes). The rebinding goes through `.data`, so the module's buffer
   entry stays the same tensor object.
 
+Batch norm takes 2-D to 5-D inputs (the channel axis from data_format).
+
+instance_norm, group_norm and local_response_norm (norm.py:334-403)
+normalise with the biased variance, (x - mean) * rsqrt(var + eps), the
+JAX package's formulas; group_norm goes to torch's group_norm (a
+channel-last input through a permuted view). Where the JAX package
+drops an argument that changes Paddle's result, the port applies it:
+instance_norm and local_response_norm take the channel axis from
+data_format (the JAX package always uses axis 1), and instance_norm
+with use_input_stats=False normalises with running_mean / running_var.
+local_response_norm keeps the JAX package's x / (k + alpha * sum of
+squares over `size` channels) ** beta (no division of alpha by size).
+sync_batch_norm waits for the distributed slice (ROADMAP Queue 1 item
+9) and raises.
+
 Both Functions run inside a `batch_norm` profiler range (forward and
 backward), which tools/train_bench.py --profile reads. Neither is a TPU
 kernel in the JAX package (XLA fused them), so they stay plain torch.
@@ -36,8 +51,11 @@ import torch
 from torch.nn import functional as F
 
 from ...core.dispatch import op
+from ...core.unported import not_ported
+from .pooling import CHANNEL_LAST, from_channel_first, to_channel_first
 
-__all__ = ["layer_norm", "batch_norm", "batch_norm_act"]
+__all__ = ["layer_norm", "batch_norm", "batch_norm_act", "instance_norm",
+           "group_norm", "local_response_norm", "sync_batch_norm"]
 
 
 @op("layer_norm")
@@ -104,7 +122,7 @@ def _bn_stats(x, axes):
 
 
 def _axes(x, c_axis):
-    return tuple(i for i in range(x.ndim) if i != c_axis)
+    return tuple(i for i in range(x.ndim) if i != c_axis % x.ndim)
 
 
 def _bn_core_bwd(x, weight, bias, mean, var, eps, c_axis, gy, g_mean,
@@ -280,3 +298,78 @@ def batch_norm_act(x, running_mean, running_var, weight=None, bias=None,
         return _bn_infer(x, stats, weight, bias, epsilon, c_axis, add, True)
     return _bn_act_train(x, stats, weight, bias, momentum, epsilon, c_axis,
                          add)
+
+
+def _channels_first(x, data_format):
+    """x with the channel axis at 1 (a view) and the inverse view."""
+    n, last = x.ndim - 2, x.ndim > 2 and data_format in CHANNEL_LAST
+    return (to_channel_first(x, n, last),
+            lambda y: from_channel_first(y, n, last))
+
+
+@op("instance_norm")
+def _instance_norm(x, mean, var, weight, bias, eps, data_format):
+    x, back = _channels_first(x, data_format)
+    shape = [1, -1] + [1] * (x.ndim - 2)
+    if mean is None:
+        axes = tuple(range(2, x.ndim))
+        mean = torch.mean(x, dim=axes, keepdim=True)
+        var = torch.var(x, dim=axes, correction=0, keepdim=True)
+    else:
+        mean, var = mean.reshape(shape), var.reshape(shape)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return back(out)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Per-sample, per-channel normalisation over the spatial dims; with
+    use_input_stats=False, by running_mean and running_var."""
+    if use_input_stats:
+        running_mean = running_var = None
+    elif running_mean is None or running_var is None:
+        raise ValueError("use_input_stats=False needs running_mean and "
+                         "running_var")
+    return _instance_norm(x, running_mean, running_var, weight, bias, eps,
+                          data_format)
+
+
+@op("group_norm")
+def _group_norm(x, weight, bias, groups, eps, data_format):
+    x, back = _channels_first(x, data_format)
+    return back(F.group_norm(x, groups, weight, bias, eps))
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalisation over each of num_groups channel groups and the
+    spatial dims."""
+    return _group_norm(x, weight, bias, num_groups, epsilon, data_format)
+
+
+@op("local_response_norm")
+def _lrn(x, size, alpha, beta, k, data_format):
+    x, back = _channels_first(x, data_format)
+    half = size // 2
+    sq = F.pad((x * x).movedim(1, -1), (half, size - 1 - half))
+    c = x.shape[1]
+    summed = sum(sq[..., i:i + c] for i in range(size)).movedim(-1, 1)
+    return back(x / torch.pow(k + alpha * summed, beta))
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    return _lrn(x, size, alpha, beta, k, data_format)
+
+
+def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
+                    training=True, momentum=0.9, epsilon=1e-5,
+                    data_format="NCHW", sync_axes=("dp",), name=None):
+    """Cross-replica batch norm: waits for the distributed slice."""
+    not_ported("sync_batch_norm", "ROADMAP Queue 1 item 9, the "
+               "distributed slice")

@@ -4,18 +4,20 @@ from .base import ParamAttr
 from .common import *  # noqa: F401,F403
 from .common import __all__ as _common
 from .container import LayerDict, LayerList, ParameterList, Sequential
-from .conv import Conv2D
+from .conv import *  # noqa: F401,F403
+from .conv import __all__ as _conv
 from .layers import HookRemoveHelper, Layer
 from .loss import *  # noqa: F401,F403
 from .loss import __all__ as _loss
-from .norm import BatchNorm2D, LayerNorm, SpectralNorm
-from .pooling import AdaptiveAvgPool2D, MaxPool2D
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
+from .pooling import *  # noqa: F401,F403
+from .pooling import __all__ as _pooling
 from .rnn import *  # noqa: F401,F403
 from .rnn import __all__ as _rnn
 from .transformer import *  # noqa: F401,F403
 from .transformer import __all__ as _transformer
 
 __all__ = ["Layer", "HookRemoveHelper", "ParamAttr", *_activation, *_common,
-           *_loss, *_rnn, *_transformer, "Sequential", "LayerList",
-           "ParameterList", "LayerDict", "Conv2D", "LayerNorm",
-           "BatchNorm2D", "SpectralNorm", "MaxPool2D", "AdaptiveAvgPool2D"]
+           *_loss, *_rnn, *_transformer, *_conv, *_norm, *_pooling,
+           "Sequential", "LayerList", "ParameterList", "LayerDict"]

@@ -1,8 +1,9 @@
-"""Common layers (port of paddle_tpu/nn/layer/common.py, its
-sequence-model half): Linear, Identity, the dropouts, Embedding,
-Flatten, CosineSimilarity, PairwiseDistance and Bilinear. Upsample*,
-Pad*D, ZeroPad2D and PixelShuffle belong to the vision-side slice
-(ROADMAP Queue 1 item 4c).
+"""Common layers (port of paddle_tpu/nn/layer/common.py): Linear,
+Identity, the dropouts, Embedding, Flatten, CosineSimilarity,
+PairwiseDistance, Bilinear, and the vision half: Upsample,
+UpsamplingNearest2D, UpsamplingBilinear2D (align_corners), Pad1D/2D/3D,
+ZeroPad2D and PixelShuffle over nn.functional's interpolate, pad and
+pixel_shuffle.
 
 Parameter layouts are Paddle's: Linear.weight is [in, out], Bilinear's
 [out, in1, in2]. The weights are drawn at construction with the
@@ -22,7 +23,9 @@ from .layers import Layer
 
 __all__ = ["Linear", "Identity", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Embedding", "Flatten", "CosineSimilarity",
-           "PairwiseDistance", "Bilinear"]
+           "PairwiseDistance", "Bilinear", "Upsample", "UpsamplingNearest2D",
+           "UpsamplingBilinear2D", "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D",
+           "PixelShuffle"]
 
 
 class Linear(Layer):
@@ -167,3 +170,82 @@ class Bilinear(Layer):
 
     def forward(self, x1, x2):
         return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode, value, data_format):
+        super().__init__()
+        self._pad = padding
+        self._mode = mode
+        self._value = value
+        self._data_format = data_format
+
+    def forward(self, x):
+        pad = self._pad
+        if isinstance(pad, int):
+            pad = [pad] * (2 * (x.ndim - 2))
+        return F.pad(x, pad, mode=self._mode, value=self._value,
+                     data_format=self._data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.factor, self.data_format)

@@ -1,34 +1,156 @@
-"""MaxPool2D and AdaptiveAvgPool2D (port of paddle_tpu/nn/layer/
-pooling.py)."""
+"""Pooling layers (port of paddle_tpu/nn/layer/pooling.py), over the
+functionals of nn/functional/pooling.py. The layers keep the JAX
+package's constructors, MaxPool1D's and AvgPool1D's too (the shared
+_Pool one). AvgPool2D/3D apply divisor_override and the max pools
+return_mask, which the JAX package drops."""
 from __future__ import annotations
 
-from ...core.unported import require_defaults
-from ..functional.conv import _require_nchw
-from ..functional.pooling import adaptive_avg_pool2d, max_pool2d
+from .. import functional as F
 from .layers import Layer
 
-__all__ = ["MaxPool2D", "AdaptiveAvgPool2D"]
+__all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
+           "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
+           "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+           "AdaptiveMaxPool3D"]
 
 
-class MaxPool2D(Layer):
+class _Pool(Layer):
+    def __init__(self, kernel_size=None, stride=None, padding=0,
+                 ceil_mode=False, data_format=None, exclusive=True,
+                 return_mask=False, output_size=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.ceil_mode = ceil_mode
+        self.data_format = data_format
+        self.exclusive = exclusive
+        self.return_mask = return_mask
+        self.output_size = output_size
+
+
+class MaxPool1D(_Pool):
+    def forward(self, x):
+        return F.max_pool1d(x, self.kernel_size, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode,
+                            self.data_format or "NCL")
+
+
+class MaxPool2D(_Pool):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCHW",
                  name=None):
-        super().__init__()
-        require_defaults("MaxPool2D", return_mask=(return_mask, False))
-        _require_nchw(data_format)
-        self._args = (kernel_size, stride, padding)
-        self._ceil_mode = ceil_mode
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         data_format, return_mask=return_mask)
 
     def forward(self, x):
-        return max_pool2d(x, *self._args, ceil_mode=self._ceil_mode)
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode,
+                            self.data_format)
+
+
+class MaxPool3D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         data_format, return_mask=return_mask)
+
+    def forward(self, x):
+        return F.max_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode,
+                            self.data_format)
+
+
+class AvgPool1D(_Pool):
+    def forward(self, x):
+        return F.avg_pool1d(x, self.kernel_size, self.stride, self.padding,
+                            self.exclusive, self.ceil_mode,
+                            self.data_format or "NCL")
+
+
+class AvgPool2D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         data_format, exclusive)
+        self.divisor_override = divisor_override
+
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.ceil_mode, self.exclusive,
+                            self.divisor_override, self.data_format)
+
+
+class AvgPool3D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         data_format, exclusive)
+        self.divisor_override = divisor_override
+
+    def forward(self, x):
+        return F.avg_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            self.ceil_mode, self.exclusive,
+                            self.divisor_override, self.data_format)
+
+
+class AdaptiveAvgPool1D(Layer):
+    def __init__(self, output_size, name=None):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool1d(x, self.output_size)
 
 
 class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
-        _require_nchw(data_format)
-        self._output_size = output_size
+        self.output_size = output_size
+        self.data_format = data_format
 
     def forward(self, x):
-        return adaptive_avg_pool2d(x, self._output_size)
+        return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+
+
+class AdaptiveAvgPool3D(Layer):
+    def __init__(self, output_size, data_format="NCDHW", name=None):
+        super().__init__()
+        self.output_size = output_size
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.adaptive_avg_pool3d(x, self.output_size, self.data_format)
+
+
+class AdaptiveMaxPool1D(Layer):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self.output_size = output_size
+        self.return_mask = return_mask
+
+    def forward(self, x):
+        return F.adaptive_max_pool1d(x, self.output_size, self.return_mask)
+
+
+class AdaptiveMaxPool2D(Layer):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self.output_size = output_size
+        self.return_mask = return_mask
+
+    def forward(self, x):
+        return F.adaptive_max_pool2d(x, self.output_size, self.return_mask)
+
+
+class AdaptiveMaxPool3D(Layer):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self.output_size = output_size
+        self.return_mask = return_mask
+
+    def forward(self, x):
+        return F.adaptive_max_pool3d(x, self.output_size, self.return_mask)

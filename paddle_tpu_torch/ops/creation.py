@@ -1,6 +1,6 @@
 """Creation ops (port of the parts of paddle_tpu/ops/creation.py that the
 eager surface and the examples reach): zeros, ones, full, arange, the
-*_like ops, and rand / randn / randint.
+*_like ops, rand / randn / randint, and diag_embed (nn.functional's).
 
 Each returns a Tensor (stop_gradient True) on the default device
 (core/place.py). Random draws take that device's generator from
@@ -19,7 +19,7 @@ from ..core.place import resolve_device
 from ..core.tensor import Tensor, plain
 
 __all__ = ["zeros", "ones", "full", "arange", "zeros_like", "ones_like",
-           "full_like", "rand", "randn", "randint"]
+           "full_like", "rand", "randn", "randint", "diag_embed"]
 
 
 def _shape(shape):
@@ -124,3 +124,14 @@ def randint(low=0, high=None, shape=(1,), dtype=None, name=None):
                               generator=_random.generator(dev),
                               dtype=convert_dtype(dtype) or torch.int64,
                               device=dev))
+
+
+@op("diag_embed")
+def _diag_embed(x, offset, dim1, dim2):
+    return torch.diag_embed(x, offset, dim1, dim2)
+
+
+def diag_embed(input, offset=0, dim1=-2, dim2=-1, name=None):
+    """Batched diagonal matrices from the last axis: out[..., i, i +
+    offset] = input[..., i], the two new axes at dim1 and dim2."""
+    return _diag_embed(input, int(offset), int(dim1), int(dim2))

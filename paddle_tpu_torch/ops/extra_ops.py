@@ -1,6 +1,11 @@
-"""gather_tree and hierarchical_sigmoid (port of the parts of
-paddle_tpu/ops/extra_ops.py that nn/decode.py and nn.functional's
-hsigmoid_loss reach), under the JAX package's op types.
+"""gather_tree, hierarchical_sigmoid and sigmoid_focal_loss (port of the
+parts of paddle_tpu/ops/extra_ops.py that nn/decode.py and
+nn.functional's hsigmoid_loss and sigmoid_focal_loss reach), under the
+JAX package's op types.
+
+sigmoid_focal_loss is RetinaNet's element-wise alpha_t * (1 - p_t) **
+gamma * CE(sigmoid(x), label) / normalizer, unreduced, as in the JAX
+package.
 
 gather_tree back-tracks beam-search parent pointers from the last step
 to the first (a loop over time steps where the JAX package scans).
@@ -17,7 +22,7 @@ import torch
 
 from ..core.dispatch import op
 
-__all__ = ["gather_tree", "hierarchical_sigmoid"]
+__all__ = ["gather_tree", "hierarchical_sigmoid", "sigmoid_focal_loss"]
 
 
 @op("gather_tree", differentiable=False)
@@ -80,3 +85,19 @@ def hierarchical_sigmoid(input, weight, label, path_table=None,
     if path_table is None:
         path_table, path_code = _default_paths(label, num_classes)
     return _hsigmoid(input, weight, label, path_table, path_code, bias)
+
+
+@op("sigmoid_focal_loss")
+def _sigmoid_focal_loss(x, label, normalizer, gamma, alpha):
+    p = torch.sigmoid(x)
+    ce = torch.logaddexp(x, torch.zeros_like(x)) - x * label
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    return a_t * ((1 - p_t) ** gamma) * ce / normalizer
+
+
+def sigmoid_focal_loss(x, label, normalizer=1.0, alpha=0.25, gamma=2.0,
+                       name=None):
+    nrm = normalizer if torch.is_tensor(normalizer) else float(normalizer)
+    return _sigmoid_focal_loss(x, label.to(x.dtype), nrm, float(gamma),
+                               float(alpha))

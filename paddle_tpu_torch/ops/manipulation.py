@@ -1,8 +1,10 @@
 """Shape ops (port of the parts of paddle_tpu/ops/manipulation.py that the
 eager surface reaches): reshape, transpose, concat, stack, split,
 squeeze, unsqueeze and flatten, and the expand, index_select,
-take_along_axis and where that nn/decode.py reaches, under the JAX
-package's op types.
+take_along_axis and where that nn/decode.py reaches, and pad (the
+nn.functional.pad of the vision slice), under the JAX package's op
+types. pad's non-constant modes ("reflect", "replicate", "circular":
+numpy's reflect, edge and wrap) gather along each padded axis.
 Indexing and __setitem__ are the Tensor's own (torch's, on the autograd
 graph); in-place writes into a Tensor that other ops saved make
 torch's backward refuse, where the JAX package rebinds."""
@@ -14,7 +16,7 @@ from ..core.dispatch import op
 
 __all__ = ["reshape", "transpose", "concat", "stack", "split", "squeeze",
            "unsqueeze", "flatten", "expand", "index_select",
-           "take_along_axis", "where"]
+           "take_along_axis", "where", "pad"]
 
 
 def _ints(v):
@@ -167,3 +169,48 @@ def where(condition, x=None, y=None, name=None):
     if x is None and y is None:
         return torch.nonzero(condition, as_tuple=True)
     return _where(condition, x, y)
+
+
+def _pad_index(n, lo, hi, mode, device):
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "replicate":
+        return i.clamp(0, n - 1)
+    if mode == "circular":
+        return i % n
+    period = 2 * (n - 1)
+    i = i.abs() % period if period else torch.zeros_like(i)
+    return torch.where(i >= n, period - i, i)
+
+
+@op("pad_nd")
+def _pad_nd(x, width, mode, value):
+    if mode == "constant":
+        flat = [p for lo_hi in reversed(width) for p in lo_hi]
+        return torch.nn.functional.pad(x, flat, value=value)
+    if mode not in ("reflect", "replicate", "circular"):
+        raise ValueError(f"unknown pad mode {mode}")
+    for ax, (lo, hi) in enumerate(width):
+        if lo or hi:
+            x = x.index_select(ax, _pad_index(x.shape[ax], lo, hi, mode,
+                                              x.device))
+    return x
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format=None, name=None):
+    """Paddle's pad: a flat [lo, hi, ...] list of 2 * ndim entries pads
+    every axis from axis 0 (with data_format None); a shorter one pads
+    the last len(pad) // 2 axes, last axis first (torch's order), or,
+    with a channel-last data_format, the spatial axes before the
+    channels."""
+    pad = _ints(pad)
+    nd = x.ndim
+    if len(pad) == 2 * nd and data_format is None:
+        width = [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
+    else:
+        k = len(pad) // 2
+        tail = [(pad[2 * i], pad[2 * i + 1]) for i in range(k)][::-1]
+        if data_format in ("NHWC", "NDHWC", "NLC"):
+            width = [(0, 0)] + tail + [(0, 0)] * (nd - k - 1)
+        else:
+            width = [(0, 0)] * (nd - k) + tail
+    return _pad_nd(x, tuple(width), mode, value)

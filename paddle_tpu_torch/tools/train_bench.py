@@ -1,9 +1,11 @@
 """The GPT, ResNet-50, BERT-base, ERNIE-large and LeNet train steps at
 the geometries of bench.py's `bench_gpt`, `bench_resnet`, `bench_bert`,
-`bench_ernie`, `bench_lenet` and `bench_lenet_multistep`, on the GPU.
+`bench_ernie`, `bench_lenet` and `bench_lenet_multistep`, and
+MobileNetV1/V2 and VGG-16 at their papers' recipes, on the GPU.
 
     python -m paddle_tpu_torch.tools.train_bench
-        [--model gpt|resnet50|bert|ernie|lenet] [--heads 6|12]
+        [--model gpt|resnet50|bert|ernie|lenet|mobilenet_v2|mobilenet_v1|
+                 vgg16] [--data-format NCHW|NHWC] [--heads 6|12]
         [--eager] [--multistep K] [--steps N] [--warmup N] [--seed N]
         [--profile]
 
@@ -36,6 +38,23 @@ amp.decorate O2 bf16, Momentum(0.1), jit.TrainStep over the hard-label
 cross-entropy, on one random batch of 128 images of 3 x 224 x 224 (cast
 to bf16 once) with labels [128, 1] in [0, 1000) (bench_resnet, which
 times 40 steps). MFU counts bench.py's 3 x 4.1e9 FLOP per image.
+--data-format NHWC runs the model channel-last on the batch permuted to
+[128, 224, 224, 3].
+
+mobilenet_v2: mobilenet_v2(scale=1.0, num_classes=1000) with random
+weights from --seed at the recipe of Sandler et al. 2018 (MobileNetV2,
+section 6.1): batch 96 of 3 x 224 x 224 images (cast to bf16 once),
+RMSProp(rho=0.9, momentum=0.9) at learning rate 0.045 under
+ExponentialDecay(gamma=0.98) (a decay per epoch: a run shorter than an
+epoch reads 0.045 throughout), L2Decay(4e-5), AMP O2 bf16 through
+jit.TrainStep, and an ExponentialMovingAverage(0.9999) of the weights
+updated after every step (inside an `ema` profiler range). MFU counts 3
+x the paper's 300 M multiply-adds x 2 FLOP per image. mobilenet_v1: the
+same recipe on mobilenet_v1() (569 M multiply-adds, Howard et al. 2017
+Table 8). vgg16: vgg16(batch_norm=True) at configuration D of Simonyan
+& Zisserman 2015, batch 256 over 4 GPUs there, so 64 on one card,
+Momentum(0.01, 0.9), L2Decay(5e-4), O2; MFU counts 3 x its multiply-adds
+x 2 (`vgg_macs`, 15.5 G).
 
 bert, ernie: BertForPretraining at BertConfig() (BERT-base, batch 128 x
 seq 128) or ernie_large() (32 x 512) with random weights from --seed,
@@ -65,7 +84,10 @@ the device busy time, the idle share and the device time by group: for
 gpt, bert and ernie the flash kernels, GEMMs, cross-entropy, the
 optimizer range and the rest; for resnet50 the convolutions (cuDNN),
 batch norm (its range), the cross-entropy, the optimizer range and the
-rest (ReLU, residual adds, pooling, casts).
+rest (ReLU, residual adds, pooling, casts); for mobilenet_v2,
+mobilenet_v1, vgg16 and resnet50 the depthwise convolutions, the layout
+transforms (NCHW <-> NHWC), the other convolutions, pooling, batch norm,
+the cross-entropy, the optimizer range, the EMA range and the rest.
 """
 from __future__ import annotations
 
@@ -81,7 +103,8 @@ __all__ = ["bench_config", "flops_per_token", "build", "run",
            "build_o1_trainstep", "run_o1_trainstep",
            "build_resnet", "run_resnet", "resnet_batch", "ce_loss_fn",
            "mlm_config", "flops_per_sample", "build_mlm", "run_mlm",
-           "build_lenet", "run_lenet", "H100_BF16_FLOPS",
+           "build_lenet", "run_lenet", "build_vision", "run_vision",
+           "vgg_macs", "vision_batch", "H100_BF16_FLOPS",
            "RESNET_FLOPS_PER_IMG"]
 
 H100_BF16_FLOPS = 989e12
@@ -94,6 +117,12 @@ RESNET_FLOPS_PER_IMG = 3 * 4.1e9
 MLM_GEOMETRY = {"bert": (128, 128), "ernie": (32, 512)}
 # bench_lenet's batch, timed steps and bench_lenet_multistep's K
 LENET_BATCH, LENET_STEPS, LENET_K = 64, 100, 50
+# the vision recipes on one card: MobileNetV2's batch 96 per worker
+# (Sandler et al. 2018, 6.1), VGG's 256 over 4 GPUs (Simonyan &
+# Zisserman 2015, 3.1 and 4), and the papers' multiply-adds per image
+VISION_BATCH = {"mobilenet_v2": 96, "mobilenet_v1": 96, "vgg16": 64}
+VISION_SIDE = 224
+MOBILENET_MADDS = {"mobilenet_v2": 300e6, "mobilenet_v1": 569e6}
 
 
 def bench_config(num_heads: int = 6):
@@ -159,16 +188,101 @@ def resnet_batch(seed: int, device):
             torch.from_numpy(y).to(device))
 
 
-def build_resnet(seed: int = 0, device=None):
-    """(model, TrainStep, x, y) at the bench_resnet geometry."""
+def build_resnet(seed: int = 0, device=None, data_format: str = "NCHW"):
+    """(model, TrainStep, x, y) at the bench_resnet geometry; NHWC takes
+    the batch permuted channel-last (contiguous)."""
     from .. import amp, jit
     from ..optimizer import Momentum
     from ..vision.models import resnet50
-    model = resnet50(num_classes=1000, device=device, seed=seed)
+    model = resnet50(num_classes=1000, device=device, seed=seed,
+                     data_format=data_format)
     optim = Momentum(0.1, parameters=model.parameters())
     model, optim = amp.decorate(model, optim, level="O2", dtype="bfloat16")
     step = jit.TrainStep(model, ce_loss_fn, optim)
-    return (model, step, *resnet_batch(seed, model.device))
+    x, y = resnet_batch(seed, model.device)
+    if data_format == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    return model, step, x, y
+
+
+def vgg_macs(cfg) -> float:
+    """Multiply-adds per image of VGG over `cfg` (vgg.cfgs[...]) at
+    VISION_SIDE: the 3x3 convolutions, then the 7x7-pooled classifier
+    into 1000 classes."""
+    macs, c, s = 0, 3, VISION_SIDE
+    for v in cfg:
+        if v == "M":
+            s //= 2
+        else:
+            macs += s * s * 9 * c * v
+            c = v
+    return float(macs + 512 * 7 * 7 * 4096 + 4096 * 4096
+                 + 4096 * 1000)
+
+
+def vision_batch(name: str, seed: int, device):
+    """`name`'s batch from `seed`: images [VISION_BATCH[name], 3,
+    VISION_SIDE, VISION_SIDE] ~ N(0, 1) cast to bf16 once, labels
+    [VISION_BATCH[name], 1] int64 in [0, 1000)."""
+    import torch
+    batch = VISION_BATCH[name]
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, 3, VISION_SIDE, VISION_SIDE).astype(np.float32)
+    y = rng.randint(0, 1000, (batch, 1)).astype(np.int64)
+    return (torch.from_numpy(x).to(device, torch.bfloat16),
+            torch.from_numpy(y).to(device))
+
+
+class _EMAStep:
+    """step(x, y), then the EMA's update inside an `ema` profiler range."""
+
+    def __init__(self, step, ema):
+        self.step, self.ema = step, ema
+
+    def __call__(self, *args):
+        import torch
+        loss = self.step(*args)
+        with torch.profiler.record_function("ema"):
+            self.ema.update()
+        return loss
+
+
+def build_vision(name: str = "mobilenet_v2", seed: int = 0,
+                 device=None) -> dict:
+    """The model, its optimizer, TrainStep (wrapped with the EMA update
+    for the MobileNets), LR scheduler, EMA and batch at the recipe of
+    `name` (see the module docstring)."""
+    from .. import amp, jit
+    from ..optimizer import RMSProp, Momentum, ExponentialMovingAverage
+    from ..optimizer.lr import ExponentialDecay
+    from ..regularizer import L2Decay
+    from ..vision import models
+    from ..vision.models.vgg import cfgs
+    model = getattr(models, name)(num_classes=1000, device=device,
+                                  seed=seed, **(
+                                      {"batch_norm": True}
+                                      if name == "vgg16" else {}))
+    sched = ema = None
+    if name.startswith("mobilenet"):
+        sched = ExponentialDecay(0.045, gamma=0.98)
+        optim = RMSProp(sched, rho=0.9, momentum=0.9,
+                        parameters=model.parameters(),
+                        weight_decay=L2Decay(4e-5))
+        macs = MOBILENET_MADDS[name]
+    else:
+        optim = Momentum(0.01, 0.9, parameters=model.parameters(),
+                         weight_decay=L2Decay(5e-4))
+        macs = vgg_macs(cfgs["D"])
+    model, optim = amp.decorate(model, optim, level="O2", dtype="bfloat16")
+    step = jit.TrainStep(model, ce_loss_fn, optim)
+    if name.startswith("mobilenet"):
+        ema = ExponentialMovingAverage(0.9999,
+                                       parameters=model.parameters())
+        step = _EMAStep(step, ema)
+    x, y = vision_batch(name, seed, model.device)
+    return {"name": name, "model": model, "optim": optim, "step": step,
+            "sched": sched, "ema": ema, "x": x, "y": y,
+            "flops_per_img": 3 * 2 * macs}
 
 
 def _time_steps(step, args, warmup: int, steps: int, dev) -> dict:
@@ -377,23 +491,48 @@ def run_o1_trainstep(warmup: int = 2, steps: int = 10, seed: int = 0,
 
 
 def run_resnet(warmup: int = 2, steps: int = 10, seed: int = 0,
-               built=None, profile: bool = False) -> dict:
+               built=None, profile: bool = False,
+               data_format: str = "NCHW") -> dict:
     """The ResNet-50 step: losses, step times, imgs/s and MFU over the
     timed steps, peak device memory."""
-    model, step, x, y = built or build_resnet(seed)
+    model, step, x, y = built or build_resnet(seed, data_format=data_format)
     dev = model.device
     t = _time_steps(step, (x, y), warmup, steps, dev)
     ips = x.shape[0] * steps / t["timed_s"] if steps else None
-    out = {"model": "resnet50", "batch": int(x.shape[0]),
+    out = {"model": "resnet50", "data_format": model.data_format,
+           "batch": int(x.shape[0]),
            "image": list(x.shape[1:]), "losses": t["losses"],
            "step_s": t["step_s"], "imgs_per_sec": ips,
            "mfu": (ips * RESNET_FLOPS_PER_IMG / H100_BF16_FLOPS
                    if ips and dev.type == "cuda" else None),
            "peak_mem_gb": t["peak_mem_gb"]}
     if profile:
-        out["profile"] = profile_steps(
-            step, (x, y), 3, _RESNET_GROUPS,
-            ("batch_norm", "cross_entropy", "optimizer"))
+        out["profile"] = profile_steps(step, (x, y), 3, _VISION_GROUPS,
+                                       _VISION_RANGES)
+    return out
+
+
+def run_vision(name: str = "mobilenet_v2", warmup: int = 2,
+               steps: int = 10, seed: int = 0, built=None,
+               profile: bool = False) -> dict:
+    """A vision model's step at its recipe: losses, step times, imgs/s and
+    MFU over the timed steps, peak device memory, the learning rate the
+    steps read."""
+    b = built or build_vision(name, seed)
+    dev = b["model"].device
+    x, y = b["x"], b["y"]
+    t = _time_steps(b["step"], (x, y), warmup, steps, dev)
+    ips = x.shape[0] * steps / t["timed_s"] if steps else None
+    out = {"model": name, "batch": int(x.shape[0]),
+           "image": list(x.shape[1:]), "losses": t["losses"],
+           "step_s": t["step_s"], "imgs_per_sec": ips,
+           "lr": b["optim"].get_lr(),
+           "mfu": (ips * b["flops_per_img"] / H100_BF16_FLOPS
+                   if ips and dev.type == "cuda" else None),
+           "peak_mem_gb": t["peak_mem_gb"]}
+    if profile:
+        out["profile"] = profile_steps(b["step"], (x, y), 3, _VISION_GROUPS,
+                                       _VISION_RANGES)
     return out
 
 
@@ -513,13 +652,26 @@ def run_lenet(multistep: Optional[int] = None, warmup: int = 2,
             "samples_per_sec": calls * k * LENET_BATCH / wall}
 
 
-# device kernels by name: the flash kernels and cuBLAS's GEMMs (GPT, BERT);
-# cuDNN's convolutions and their layout transforms (ResNet)
+# device kernels by name: the flash kernels and cuBLAS's GEMMs (GPT, BERT)
 _GPT_GROUPS = (("flash (K1/K2)", ("fa_fwd", "fa_bwd", "fa_delta")),
                ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "xmma")))
-_RESNET_GROUPS = (("conv (cuDNN)", ("xmma", "implicit", "cudnn", "wgrad",
-                                    "dgrad", "fprop", "cutlass", "convolve",
-                                    "conv2d", "nchwToNhwc", "nhwcToNchw")),)
+_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "convolve", "conv2d",
+              "cudnn", "conv_")
+LAYOUT_KEYS = ("nchwToNhwc", "nhwcToNchw", "nchw_to_nhwc", "nhwc_to_nchw",
+               "transpose")
+# PyTorch's copy kernels (copy_, .contiguous(), dtype casts)
+COPY_KEYS = ("copy_kernel",)
+# the vision models' groups: depthwise convolutions first (their kernels'
+# names), cuDNN's layout transforms on their own, copies and casts, the
+# other convolutions, the classifiers' GEMMs and pooling; the ranges are
+# the port's batch norm, fused CE, optimizer and EMA ranges
+_VISION_GROUPS = (("depthwise conv", ("depthwise", "DepthWise", "dwconv")),
+                  ("layout transform", LAYOUT_KEYS),
+                  ("copy / cast", COPY_KEYS),
+                  ("conv (cuDNN)", _CONV_KEYS),
+                  ("gemm", ("nvjet", "gemm", "Gemm")),
+                  ("pooling", ("pool", "Pool")))
+_VISION_RANGES = ("batch_norm", "cross_entropy", "optimizer", "ema")
 
 
 def profile_steps(step, args, n: int, kernel_groups, ranges) -> dict:
@@ -527,9 +679,9 @@ def profile_steps(step, args, n: int, kernel_groups, ranges) -> dict:
     time, idle share, and device time by group: kernels by name
     (`kernel_groups`), the profiler ranges the port opens (`ranges`: the
     fused CE's, the batch norms', and jit.TrainStep's clip + update
-    loop), and the rest; each range's span on the device timeline (its
-    kernels plus the idle gaps between them); the 15 kernels with the
-    most device time."""
+    loop), and the rest; each kernel group's launches; each range's span
+    on the device timeline (its kernels plus the idle gaps between
+    them); the 15 kernels with the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -551,10 +703,12 @@ def profile_steps(step, args, n: int, kernel_groups, ranges) -> dict:
                     if e.device_type == DeviceType.CUDA and e.key == r) / 1e6
              for r in ranges}
     groups = {g: 0.0 for g, _ in kernel_groups}
+    launches = {g: 0 for g, _ in kernel_groups}
     for e in rows:
         for g, keys in kernel_groups:
             if any(k in e.key for k in keys):
                 groups[g] += e.self_device_time_total / 1e6
+                launches[g] += e.count
                 break
     for r in ranges:
         groups[r] = sum(e.device_time_total for e in prof.events()
@@ -564,7 +718,8 @@ def profile_steps(step, args, n: int, kernel_groups, ranges) -> dict:
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:15]
     return {"steps": n, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / wall if wall else None,
-            "groups_s": groups, "range_spans_s": spans,
+            "groups_s": groups, "groups_n": launches,
+            "range_spans_s": spans,
             "top": [(e.key[:90], e.count, e.self_device_time_total / 1e6)
                     for e in top]}
 
@@ -572,7 +727,11 @@ def profile_steps(step, args, n: int, kernel_groups, ranges) -> dict:
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("gpt", "resnet50", "bert", "ernie",
-                                        "lenet"), default="gpt")
+                                        "lenet", "mobilenet_v2",
+                                        "mobilenet_v1", "vgg16"),
+                    default="gpt")
+    ap.add_argument("--data-format", choices=("NCHW", "NHWC"),
+                    default="NCHW", help="resnet50's layout")
     ap.add_argument("--heads", type=int, default=6)
     ap.add_argument("--eager", action="store_true",
                     help="gpt: the eager loop and TrainStep O1 beside it")
@@ -601,6 +760,9 @@ def main(argv: Optional[list] = None) -> int:
                   profile=args.profile)
     elif args.model == "resnet50":
         res = run_resnet(args.warmup, steps, args.seed,
+                         profile=args.profile, data_format=args.data_format)
+    elif args.model in VISION_BATCH:
+        res = run_vision(args.model, args.warmup, steps, args.seed,
                          profile=args.profile)
     elif args.model == "lenet":
         res = run_lenet(args.multistep, args.warmup, steps, args.seed)

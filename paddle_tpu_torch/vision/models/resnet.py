@@ -10,11 +10,20 @@ packages unchanged (`ResNet.load_jax_params`, parameters and buffers).
 Every BN-ReLU site goes through `_bn_relu`: with FLAGS_fuse_bn_act on
 (the default) a plain BatchNorm layer runs the fused residual-light
 batch_norm_act, else BN, the residual add and ReLU are separate ops.
-Tensors are NCHW; data_format="NHWC" and stem_space_to_depth (TPU
-layout recipes) are not ported yet and raise.
+
+data_format="NHWC" runs every block channel-last (the input too): the
+convolutions through permuted views with channels_last weights, so
+cuDNN runs its NHWC kernels with no layout transform between layers,
+and batch norm, pooling and the residual adds on the contiguous NHWC
+tensors. stem_space_to_depth computes the 7x7/s2/p3 stem as the exact
+4x4/s1 VALID convolution of the 2x2 space-to-depth folded input (12
+channels) with the 8x8 zero-padded kernel folded the same way (the JAX
+package's `_stem_s2d`, resnet.py:165-197); the parameter stays the 7x7
+one and an input of odd height or width takes the plain stem.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -24,9 +33,9 @@ import torch
 from ...core import flags
 from ...core.place import DeviceLike, default_device
 from ...nn import functional as F
-from ...nn.functional.conv import _require_nchw
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU, Sequential)
+from ...nn.layer.conv import _ConvNd
 from ...nn.layer.layers import Layer, load_jax_state
 from ...nn.layer.norm import _BatchNormBase
 
@@ -59,13 +68,14 @@ class BasicBlock(Layer):
                  groups=1, base_width=64, dilation=1, norm_layer=None,
                  data_format="NCHW"):
         super().__init__()
-        _require_nchw(data_format)
-        norm_layer = norm_layer or BatchNorm2D
+        norm_layer = norm_layer or functools.partial(
+            BatchNorm2D, data_format=data_format)
         self.conv1 = Conv2D(inplanes, planes, 3, stride=stride, padding=1,
-                            bias_attr=False)
+                            bias_attr=False, data_format=data_format)
         self.bn1 = norm_layer(planes)
         self.relu = ReLU()
-        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False)
+        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                            data_format=data_format)
         self.bn2 = norm_layer(planes)
         self.downsample = downsample
         self.stride = stride
@@ -86,16 +96,18 @@ class BottleneckBlock(Layer):
                  groups=1, base_width=64, dilation=1, norm_layer=None,
                  data_format="NCHW"):
         super().__init__()
-        _require_nchw(data_format)
-        norm_layer = norm_layer or BatchNorm2D
+        norm_layer = norm_layer or functools.partial(
+            BatchNorm2D, data_format=data_format)
         width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False)
+        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False,
+                            data_format=data_format)
         self.bn1 = norm_layer(width)
         self.conv2 = Conv2D(width, width, 3, padding=dilation, stride=stride,
-                            groups=groups, dilation=dilation, bias_attr=False)
+                            groups=groups, dilation=dilation, bias_attr=False,
+                            data_format=data_format)
         self.bn2 = norm_layer(width)
         self.conv3 = Conv2D(width, planes * self.expansion, 1,
-                            bias_attr=False)
+                            bias_attr=False, data_format=data_format)
         self.bn3 = norm_layer(planes * self.expansion)
         self.relu = ReLU()
         self.downsample = downsample
@@ -122,10 +134,10 @@ class ResNet(Layer):
                  stem_space_to_depth=False, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
-        _require_nchw(data_format)
-        if stem_space_to_depth:
-            raise NotImplementedError(
-                "stem_space_to_depth (a TPU layout recipe) is not ported yet")
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"data_format {data_format!r}: expected "
+                             f"'NCHW' or 'NHWC'")
+        self.stem_space_to_depth = stem_space_to_depth
         layers = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                   101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}[depth]
         with default_device(device):
@@ -133,57 +145,77 @@ class ResNet(Layer):
             self.base_width = width
             self.num_classes = num_classes
             self.with_pool = with_pool
+            self.data_format = data_format
+            self._norm_layer = functools.partial(BatchNorm2D,
+                                                 data_format=data_format)
             self.inplanes = 64
             self.dilation = 1
             self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
-                                bias_attr=False)
-            self.bn1 = BatchNorm2D(self.inplanes)
+                                bias_attr=False, data_format=data_format)
+            self.bn1 = self._norm_layer(self.inplanes)
             self.relu = ReLU()
-            self.maxpool = MaxPool2D(3, 2, 1)
+            self.maxpool = MaxPool2D(3, 2, 1, data_format=data_format)
             self.layer1 = self._make_layer(block, 64, layers[0])
             self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
             self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
             self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
             if with_pool:
-                self.avgpool = AdaptiveAvgPool2D((1, 1))
+                self.avgpool = AdaptiveAvgPool2D((1, 1),
+                                                 data_format=data_format)
             if num_classes > 0:
                 self.fc = Linear(512 * block.expansion, num_classes)
-        self._init_weights(seed)
+        draw_weights(self, seed)
 
     def _make_layer(self, block, planes, blocks, stride=1):
+        norm_layer = self._norm_layer
         downsample = None
         if stride != 1 or self.inplanes != planes * block.expansion:
             downsample = Sequential(
                 Conv2D(self.inplanes, planes * block.expansion, 1,
-                       stride=stride, bias_attr=False),
-                BatchNorm2D(planes * block.expansion))
+                       stride=stride, bias_attr=False,
+                       data_format=self.data_format),
+                norm_layer(planes * block.expansion))
         layers = [block(self.inplanes, planes, stride, downsample,
-                        self.groups, self.base_width, self.dilation)]
+                        self.groups, self.base_width, self.dilation,
+                        norm_layer, data_format=self.data_format)]
         self.inplanes = planes * block.expansion
         for _ in range(1, blocks):
             layers.append(block(self.inplanes, planes, groups=self.groups,
-                                base_width=self.base_width))
+                                base_width=self.base_width,
+                                norm_layer=norm_layer,
+                                data_format=self.data_format))
         return Sequential(*layers)
-
-    @torch.no_grad()
-    def _init_weights(self, seed: int) -> None:
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, Conv2D):
-                lim = math.sqrt(6.0 / m.fan_in)
-                m.weight.copy_(torch.empty(m.weight.shape).uniform_(
-                    -lim, lim, generator=g))
-            elif isinstance(m, Linear):
-                fi, fo = m.weight.shape
-                m.weight.copy_(torch.empty(fi, fo).normal_(
-                    0.0, math.sqrt(2.0 / (fi + fo)), generator=g))
 
     @property
     def device(self) -> torch.device:
         return self.conv1.weight.device
 
+    def _stem_s2d(self, x):
+        """The 7x7/s2/p3 stem as a 4x4/s1 VALID conv of the 2x2-folded
+        input with the 8x8 zero-padded kernel folded the same way."""
+        nhwc = self.data_format == "NHWC"
+        if nhwc:
+            x = x.permute(0, 3, 1, 2)
+        n, c, h, w = x.shape
+        xp = torch.nn.functional.pad(x, (3, 3, 3, 3))
+        xf = xp.reshape(n, c, (h + 6) // 2, 2, (w + 6) // 2, 2).permute(
+            0, 3, 5, 1, 2, 4).reshape(n, 4 * c, (h + 6) // 2, (w + 6) // 2)
+        w8 = torch.nn.functional.pad(self.conv1.weight.to(x.dtype),
+                                     (0, 1, 0, 1))
+        co = w8.shape[0]
+        wf = w8.reshape(co, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(
+            co, 4 * c, 4, 4)
+        out = F.conv2d(xf, wf, stride=1, padding="VALID")
+        return out.permute(0, 2, 3, 1) if nhwc else out
+
     def forward(self, x):
-        x = _bn_relu(self.bn1, self.conv1(x))
+        h_ax, w_ax = (1, 2) if self.data_format == "NHWC" else (2, 3)
+        if self.stem_space_to_depth and \
+                x.shape[h_ax] % 2 == 0 and x.shape[w_ax] % 2 == 0:
+            x = self._stem_s2d(x)
+        else:
+            x = self.conv1(x)
+        x = _bn_relu(self.bn1, x)
         x = self.maxpool(x)
         x = self.layer1(x)
         x = self.layer2(x)
@@ -201,6 +233,25 @@ class ResNet(Layer):
         match exactly, and each tensor keeps its own dtype (as the JAX
         package's set_state_dict does). Returns self."""
         return load_jax_state(self, state)
+
+
+@torch.no_grad()
+def draw_weights(model: torch.nn.Module, seed: int) -> None:
+    """Draw the weights of a vision model on the CPU from `seed` in the
+    JAX package's initializer families (convolutions KaimingUniform over
+    fan_in = in_channels * prod(kernel), linears XavierNormal; BN and
+    biases keep their constants) and copy them into its layers, so one
+    seed gives the same model on every device."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, _ConvNd):
+            lim = math.sqrt(6.0 / m.fan_in)
+            m.weight.copy_(torch.empty(m.weight.shape).uniform_(
+                -lim, lim, generator=g))
+        elif isinstance(m, Linear):
+            fi, fo = m.weight.shape
+            m.weight.copy_(torch.empty(fi, fo).normal_(
+                0.0, math.sqrt(2.0 / (fi + fo)), generator=g))
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):

@@ -479,10 +479,21 @@ def test_momentum_apply_updates_matches_jax(nesterov, master, weight_decay):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tres.resnet18(device="cpu", data_format="NHWC")
-    with pytest.raises(NotImplementedError):
-        tres.resnet18(device="cpu", stem_space_to_depth=True)
+    """data_format="NHWC" and stem_space_to_depth=True, which raised until
+    slice 6c, now compute the NCHW model's logits (eval mode, same seed,
+    the batch permuted channel-last; within 1e-5 of the largest logit);
+    load_jax_params still refuses a state with a missing key."""
+    x, _ = _images(2, 32, seed=9)
+    plain = tres.resnet18(num_classes=10, device="cpu", seed=5).eval()
+    want = plain(torch.from_numpy(x)).detach().numpy()
+    nhwc = tres.resnet18(num_classes=10, device="cpu", seed=5,
+                         data_format="NHWC").eval()
+    got = nhwc(torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 3, 1)))).detach().numpy()
+    assert _rel(got, want) <= 1e-5
+    s2d = tres.resnet18(num_classes=10, device="cpu", seed=5,
+                        stem_space_to_depth=True).eval()
+    assert _rel(s2d(torch.from_numpy(x)).detach().numpy(), want) <= 1e-5
     tm = tres.resnet18(num_classes=10, device="cpu")
     state = {k: v.detach().numpy() for k, v in tm.state_dict().items()}
     state.pop("bn1._mean")

@@ -92,6 +92,9 @@ PORT_ONLY_TRAILING = {
     "models.bert.BertForPretraining": ["device", "seed"],
     "vision.models.resnet.ResNet": ["device", "seed"],
     "vision.models.lenet.LeNet": ["device", "seed"],
+    "vision.models.mobilenet.MobileNetV1": ["device", "seed"],
+    "vision.models.mobilenet.MobileNetV2": ["device", "seed"],
+    "vision.models.vgg.VGG": ["device", "seed"],
     # the attention route ("ragged" K3 or "bucketed"): the JAX function
     # picks it from a module-level switch
     "inference.serving.attention.paged_decode_step": ["kernel"],
@@ -418,11 +421,13 @@ def _cache(**kw):
 
 
 UNPORTED = {
-    "Conv2D.padding_mode": lambda: tnn.Conv2D(3, 4, 3,
-                                              padding_mode="reflect"),
-    "MaxPool2D.return_mask": lambda: tnn.MaxPool2D(3, return_mask=True),
-    "max_pool2d.return_mask": lambda: F.max_pool2d(
-        torch.zeros(1, 1, 4, 4), 2, return_mask=True),
+    "interpolate.align_mode": lambda: F.interpolate(
+        torch.zeros(1, 1, 4, 4), size=[8, 8], mode="bilinear",
+        align_mode=1),
+    "Upsample.align_mode": lambda: tnn.Upsample(
+        size=[8, 8], mode="bilinear", align_mode=1)(torch.zeros(1, 1, 4, 4)),
+    "BatchNorm.trainable_statistics": lambda: tnn.BatchNorm(
+        4, trainable_statistics=True),
     "Adam.lazy_mode": lambda: Adam(0.1, lazy_mode=True),
     "Embedding.sparse": lambda: tnn.Embedding(10, 4, sparse=True),
     "embedding.sparse": lambda: F.embedding(
@@ -730,7 +735,54 @@ def _ported_dropout_layer_axis():
     np.testing.assert_allclose(out[kept], x[kept] / 0.75, rtol=1e-6)
 
 
+def _ported_conv_padding_mode():
+    """Conv2D(padding_mode="reflect") reflects the input by `padding`
+    before a convolution with none, as Paddle does; the JAX package
+    stores the mode nowhere, so its conv2d on the reflected input is the
+    reference (float32, 1e-5: the same sums in another order)."""
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 3, 7, 6).astype(np.float32)
+    tl = tnn.Conv2D(3, 4, 3, padding=[1, 2], padding_mode="reflect")
+    w, b = tl.weight.detach().numpy(), tl.bias.detach().numpy()
+    xr = np.pad(x, [(0, 0), (0, 0), (1, 1), (2, 2)], mode="reflect")
+    want = JF.conv2d(paddle.to_tensor(xr), paddle.to_tensor(w),
+                     paddle.to_tensor(b)).numpy()
+    np.testing.assert_allclose(tl(torch.from_numpy(x)).detach().numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+
+
+def _check_mask(x, out, mask, want):
+    """out equals the JAX max pool; mask holds the flat index of each
+    maximum inside its (N, C) input plane."""
+    np.testing.assert_array_equal(out.numpy(), want)
+    flat = x.reshape(x.shape[0], x.shape[1], -1)
+    picked = np.take_along_axis(flat, mask.numpy().reshape(
+        mask.shape[0], mask.shape[1], -1), axis=2)
+    np.testing.assert_array_equal(picked.reshape(out.shape), out.numpy())
+
+
+def _ported_max_pool2d_return_mask():
+    rng = np.random.RandomState(10)
+    x = rng.randn(2, 3, 9, 7).astype(np.float32)
+    out, mask = F.max_pool2d(torch.from_numpy(x), 3, 2, 1,
+                             return_mask=True, ceil_mode=True)
+    want = JF.max_pool2d(paddle.to_tensor(x), 3, 2, 1,
+                         ceil_mode=True).numpy()
+    _check_mask(x, out, mask, want)
+
+
+def _ported_max_pool2d_layer_return_mask():
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 3, 8, 8).astype(np.float32)
+    out, mask = tnn.MaxPool2D(2, return_mask=True)(torch.from_numpy(x))
+    want = paddle.nn.MaxPool2D(2)(paddle.to_tensor(x)).numpy()
+    _check_mask(x, out, mask, want)
+
+
 PORTED = {
+    "Conv2D.padding_mode": _ported_conv_padding_mode,
+    "MaxPool2D.return_mask": _ported_max_pool2d_layer_return_mask,
+    "max_pool2d.return_mask": _ported_max_pool2d_return_mask,
     "dropout.axis": _ported_dropout_axis,
     "Dropout.mode": _ported_dropout_mode,
     "Dropout.axis": _ported_dropout_layer_axis,
@@ -756,10 +808,12 @@ PORTED = {
 def test_ported_parameter_reaches_its_feature(case, gpt_pair):
     """Each parameter that took only its default until slice 5b (the
     engine's and scheduler's), slice 6a (Linear's weight_attr, AdamW's
-    apply_decay_param_fun and lr_ratio) or slice 6b (dropout's axis and
+    apply_decay_param_fun and lr_ratio), slice 6b (dropout's axis and
     mode, the cross-entropies' weight, soft_label, axis and
-    use_softmax) now takes a value and reaches its feature, computing
-    as the JAX package does."""
+    use_softmax) or slice 6c (Conv2D's padding_mode, the max pools'
+    return_mask) now takes a value and reaches its feature, computing
+    as the JAX package does (or, where it drops the argument, as
+    Paddle does, against the JAX package on the equivalent input)."""
     fn = PORTED[case]
     if case.startswith("EngineConfig"):
         fn(gpt_pair)
@@ -773,24 +827,85 @@ SLICE_6B = ("nn.functional.activation", "nn.layer.activation",
             "nn.layer.loss", "nn.layer.container", "nn.initializer",
             "nn.clip", "nn.utils", "nn.layer.transformer", "nn.layer.rnn",
             "nn.decode", "optimizer.optimizers", "framework_io")
-# the vision-side names, ported with slice 6c (ROADMAP Queue 1 item 4c)
-SLICE_6C = {"interpolate", "upsample", "unfold", "pixel_shuffle", "Upsample",
-            "UpsamplingNearest2D", "UpsamplingBilinear2D", "Pad1D", "Pad2D",
-            "Pad3D", "ZeroPad2D", "PixelShuffle"}
+
+
+def _reference_names(module):
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    return {n for n, o in vars(ref).items()
+            if not n.startswith("_") and callable(o)
+            and getattr(o, "__module__", "") == f"paddle_tpu.{module}"}
 
 
 @pytest.mark.parametrize("module", SLICE_6B)
 def test_slice_6b_module_has_every_reference_name(module):
     """Every public function and class the JAX module defines (aliases
-    included) has a counterpart of the same name in the port's module,
-    but the vision-side names of slice 6c; the walk above holds their
-    positional order."""
-    ref = importlib.import_module(f"paddle_tpu.{module}")
+    included) has a counterpart of the same name in the port's module
+    (the vision-side names of nn.functional.common and nn.layer.common
+    joined with slice 6c); the walk above holds their positional
+    order."""
     port = importlib.import_module(f"paddle_tpu_torch.{module}")
-    names = {n for n, o in vars(ref).items()
-             if not n.startswith("_") and callable(o)
-             and getattr(o, "__module__", "") == f"paddle_tpu.{module}"}
+    names = _reference_names(module)
     assert names, module
-    missing = sorted(n for n in names - SLICE_6C if not hasattr(port, n))
+    missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, (module, missing)
-    assert not {n for n in SLICE_6C if hasattr(port, n)}
+
+
+# ------------------------------------------- slice 6c: every public name
+SLICE_6C = ("nn.functional.pooling", "nn.functional.conv",
+            "nn.functional.norm", "nn.functional.common",
+            "nn.functional.extension", "nn.layer.conv", "nn.layer.pooling",
+            "nn.layer.norm", "nn.layer.common", "vision.models.resnet",
+            "vision.models.mobilenet", "vision.models.vgg",
+            "optimizer.wrappers", "incubate.optimizer", "ops.vision_ops")
+# what nn.functional takes from ops.vision_ops; its detection ops wait
+# for slice 10 (ROADMAP Queue 1 item 10)
+VISION_OPS_F = {"grid_sample", "affine_grid", "temporal_shift",
+                "pixel_unshuffle", "fold"}
+# the names nn.functional takes from other ops modules
+OPS_F = {"ops.manipulation": {"pad"}, "ops.extra_ops": {"sigmoid_focal_loss"},
+         "ops.creation": {"diag_embed"}}
+
+
+@pytest.mark.parametrize("module", SLICE_6C)
+def test_slice_6c_module_has_every_reference_name(module):
+    """Every public function and class of the 15 JAX modules of slice 6c
+    (and what its package re-exports) has a counterpart of the same name
+    in the port, but ops/vision_ops.py's detection ops (slice 10); the
+    walk above holds their positional order."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    # the re-exporting modules (extension, incubate.optimizer): by the
+    # names they bind to an object of the JAX package
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    names = _reference_names(module) or {
+        n for n, o in vars(ref).items() if not n.startswith("_")
+        and getattr(o, "__module__", "").startswith("paddle_tpu.")}
+    if module == "ops.vision_ops":
+        names &= VISION_OPS_F
+    assert names, module
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, (module, missing)
+    for mod, want in OPS_F.items():
+        assert all(hasattr(importlib.import_module(
+            f"paddle_tpu_torch.{mod}"), n) for n in want), mod
+
+
+@pytest.mark.parametrize("package", ["nn", "nn.functional", "optimizer",
+                                     "incubate", "vision.models", "vision"])
+def test_slice_6c_packages_export_every_reference_name(package):
+    """The packages' public names: every one the JAX package exports,
+    but those waiting for slices 8 (vision data), 9 (SyncBatchNorm is
+    present and raises) and 10 (detection), and modules and helpers
+    the JAX package's namespace leaks (numpy, jax, functools...)."""
+    ref = importlib.import_module(f"paddle_tpu.{package}")
+    port = importlib.import_module(f"paddle_tpu_torch.{package}")
+    leaked = {"np", "jnp", "jax", "functools", "annotations", "op",
+              "to_tensor", "Tensor", "convert_dtype", "weight_norm_hook",
+              "layer", "clip", "decode"}
+    waits = {"incubate": {"checkpoint", "LayerHelper", "load_op_library",
+                          "reader"},
+             "vision": {"datasets", "transforms", "image", "ops",
+                        "set_image_backend", "get_image_backend",
+                        "image_load"}}.get(package, set())
+    names = {n for n in dir(ref) if not n.startswith("_")}
+    missing = sorted(names - leaked - waits - set(dir(port)))
+    assert not missing, (package, missing)
