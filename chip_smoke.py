@@ -227,7 +227,64 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 22. every vision functional and layer of slice 6c on the card against
    the CPU on the same inputs, f32 and (convolution, pooling, norms)
    bf16, within VISION_TOL; Momentum, Lookahead and ModelAverage over 5
-   steps, card against CPU.
+   steps, card against CPU;
+23. the serving fleet (run right after 6e, on phase 6's model and
+   engine, chunked prefill over 128 tokens included; every fleet pass
+   but 25 decodes 2 tokens a chunk, FLEET_ENGINE): replica failover
+   (load_suite's replica_kill): 3 replicas, free-block balancing, 24
+   greedy requests (prompts 64-256, 32-64 new tokens, one arrival every
+   2 router steps), run with no fault, with kill_replica@6:1 and with
+   wedge_replica@8:2 under a heartbeat of twice the no-fault pass's
+   longest router step: every request 'length', one failover per
+   injected fault (none in the no-fault pass), no replica FAILED, the
+   failed replica back up after its warmup probe, every pool audited
+   clean, the causality checker clean and each failed-over trace one
+   timeline, the card's allocated memory after the restart within one
+   pool of its value before the fault and, once each pass's fleet is
+   dropped, back at its value at the start of the phase, re-admitted
+   requests by phase 6's rule, the requests that never lived on the
+   failed replica bitwise equal to the no-fault pass; router TTFT
+   p50/p99 and the recovery seconds printed;
+24. disaggregated serving (load_suite's disagg): 4 replicas, roles
+   prefill, prefill, decode, decode, on a decode floor of 12 requests
+   (64-token prompts, 128-192 new tokens, every other one sampled at
+   temperature 0.8, top_k 50) and 6 prompts of 512-768 tokens (16-32
+   new): every request 'length', handoffs committed, none aborted or
+   rolled back, the audits and the causality checker clean, greedy
+   tokens by phase 6's rule; then the controlled migration A/B
+   (serving_traffic.migration_ab: 8 live requests, greedy and sampled,
+   moved to an empty replica by drain(0, recompute=False), 16 router
+   steps there) bitwise equal to the same steps in place, in f32 and in
+   int8 pools, and a rebalance with the watermark at half the loaded
+   replica's use moving at least one request without changing a stream;
+   payload bytes, migration seconds p50/p99 and the decode tier's
+   inter-token gap p99 printed;
+25. phase 6a's traffic on 3 replicas routed by prefix affinity (hit rate
+   at least 0.8 x 6a's single engine's) and phase 6c's on 3 round-robin
+   replicas with peer prefix fetch (at least one committed fetch),
+   tokens by phase 6's rule;
+26. the Autoscaler over 4 provisioned replicas on trickle, burst,
+   trickle arrivals (load_suite's autoscale_diurnal): at least one
+   shrink by evacuating drain and one grow by probe rejoin, every
+   request 'length'; the active count per router step printed;
+27. rolling deploys (load_suite's rolling_deploy): ModelRegistry.publish
+   of the serving model and of models from --seed + 1 and + 2,
+   ReplicaSet.from_registry over 3 replicas sharing each revision's
+   weights; a DeployController rollout under live traffic
+   (canary_tolerance 3) commits with live KV migrated, every request
+   that finished pinned to the old revision bitwise equal to a no-deploy
+   fleet on the old weights; the second candidate under the strict
+   default tolerance rolls back; nothing lost and the causality checker
+   (revision pinning, invariant 8) clean on both dumps; the rollback is
+   the canary gate's verdict (at least one prompt diverged), not a
+   canary that raised.
+In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
+failed over exactly the faults the pass injected (none outside 23), no
+replica ended FAILED, no migration or peer fetch aborted or rolled back,
+and the card's allocated memory after the phase is back at its value
+before it. In each, K3 launched layers x 2 (or 8) x the decode chunks
+that every engine of the phase ran (replicas, restarted incarnations,
+probes, canaries, reference engines).
 Phases 7-8 also hold and time K1 at head dim 64 non-causal on [B, T, H,
 D] views at Transformer-base's shape (k1_d64: B 32, 8 heads, T 512) and
 at a cross shape (k1_d64_x: 512 queries, 768 keys).
@@ -237,7 +294,8 @@ The last three lines are: one JSON object with each kernel's numbers
 backward as entries of their own, with their launches from phase 13;
 K1 at head dim 64 likewise, with its launches from phase 16; K1's
 entries also carry `eager_launches`, phase 9b's counts, and
-`transformer_launches`, phase 16's),
+`transformer_launches`, phase 16's; K3's carries `pass_launches`,
+6a-6d's, and `fleet_launches`, 23-27's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 float32 matmuls and convolutions run in full float32 (TF32 off)
 throughout.
@@ -835,7 +893,10 @@ def run_prefix_passes(model, ecfg, device, seed: int) -> dict:
           f"cached_blocks {ps['cached_blocks']}")
     _require(eng_a.stats.prefix_counter("hits") > 0,
              "pass prefix: no prefix-cache hit")
-    refs = {}
+    # phase 25 holds the fleet to this hit rate and reuses the references
+    READINGS.clear()
+    READINGS["prefix_hit_rate"] = ps["hits"] / (ps["hits"] + ps["misses"])
+    refs = READINGS["prefix_refs"] = {}
     parted = check_engine_outputs(model, eng_a, a["rids"], specs, refs)
     print(f"[prefix] greedy tokens vs dense generate(): {parted} of "
           f"{len(specs)} requests parted (each at a top-2 margin < 1e-3)")
@@ -919,7 +980,8 @@ def run_prefix_passes(model, ecfg, device, seed: int) -> dict:
           f"blocks now {eng_c.cache.prefix_stats()['host_blocks']}")
     _require(demoted > 0, "pass tiered: nothing demoted")
     _require(promo["hit"] > 0, "pass tiered: no promotion hit")
-    parted = check_engine_outputs(model, eng_c, c["rids"], specs)
+    parted = check_engine_outputs(model, eng_c, c["rids"], specs,
+                                  READINGS.setdefault("tiered_refs", {}))
     print(f"[tiered] greedy tokens vs dense generate(): {parted} of "
           f"{len(specs)} requests parted (each at a top-2 margin < 1e-3)")
     launches["tiered"] = c["launches"]
@@ -1116,6 +1178,716 @@ def run_facade(model, ecfg, device, seed: int) -> None:
                  f"tokens")
     print(f"[facade] every row is its prompt and the engine's {mt} tokens "
           f"on {card_line() if cuda else 'the CPU'}")
+# ------------------------------------------------------------ phases 23-27
+# The fleet phases run on the serving bench's model (phase 6) right after
+# 6e. Their engine is the serving bench's (chunked prefill over 128
+# tokens included) with one change for every fleet pass but 25:
+# decode_chunk_size 2 (load_suite's rule, so that requests are in flight
+# across many router steps when a fault lands). A chunked prompt is fed
+# 2 tokens a trip, so the prefill tier of phase 24 spends up to 384
+# trips on a 768-token prompt. Traffic arguments beyond the defaults of
+# serving_traffic's generators, and the A/B's request count, lengths and
+# steps (a CPU rehearsal shrinks them).
+FLEET_ENGINE = dict(decode_chunk_size=2)
+FLEET_TRAFFIC: dict = {}
+DISAGG_TRAFFIC: dict = {}
+DIURNAL_TRAFFIC: dict = {}
+DEPLOY_TRAFFIC = dict(n=16)
+AB = dict(n=8, p_lo=64, p_hi=256, max_tokens=96, warm=6, k=16)
+# readings one phase leaves for a later one: phase 6a's single-engine
+# prefix hit rate and the dense references of 6a's and 6c's traffic
+READINGS: dict = {}
+
+
+def _decode_chunks() -> int:
+    """Decode chunks run so far by every engine of the process (each
+    engine's `serving_host_syncs_total{phase="decode"}`; dead and
+    private engines keep their series)."""
+    from paddle_tpu_torch import obs
+    fam = obs.REGISTRY.get("serving_host_syncs_total")
+    if fam is None:
+        return 0
+    return int(sum(c.value for lbl, c in fam.children()
+                   if lbl.get("phase") == "decode"))
+
+
+class _K3Window:
+    """K3's launches over one fleet phase, held to layers x k x the decode
+    chunks every engine ran in it (replicas, restarted incarnations,
+    probes, canaries, reference engines): the counts set to 0 just
+    before the phase and read just after."""
+
+    def __init__(self, name, layers, k, device):
+        import torch
+        from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+            ragged_decode_attention)
+        self.name, self.layers, self.k = name, layers, k
+        self.cuda = torch.device(device).type == "cuda"
+        self.kernel = ragged_decode_attention
+        self.chunks0 = _decode_chunks()
+        if self.cuda:
+            torch.cuda.synchronize()
+        ragged_decode_attention.launches = 0
+
+    def close(self) -> int:
+        import torch
+        if self.cuda:
+            torch.cuda.synchronize()
+        launches = self.kernel.launches
+        chunks = _decode_chunks() - self.chunks0
+        want = self.layers * self.k * chunks if self.cuda else 0
+        print(f"[{self.name}] K3 launches {launches} = {self.layers} layers"
+              f" x {self.k} trips x {chunks} chunks over every engine of "
+              f"the phase: {launches == want}")
+        _require(launches == want and (launches > 0 or not self.cuda),
+                 f"{self.name}: K3 launched {launches} times, expected "
+                 f"{want}")
+        return launches
+
+
+def _router_config(**kw):
+    from paddle_tpu_torch.inference.serving import RouterConfig
+    kw.setdefault("backoff_base", 0.01)
+    kw.setdefault("backoff_max", 0.05)
+    kw.setdefault("backoff_jitter", 0.25)
+    kw.setdefault("backoff_seed", 0)
+    return RouterConfig(**kw)
+
+
+def _failovers(rs) -> int:
+    from paddle_tpu_torch import obs
+    fam = obs.REGISTRY.get("serving_failovers_total")
+    return int(sum(c.value for lbl, c in fam.children()
+                   if lbl.get("router") == rs.label))
+
+
+def _check_fleet_trace(rs, name, extra_prefixes=()) -> int:
+    """The causality checker clean on the pass's complete dump (its
+    requests' traces, and `extra_prefixes`' traces), and every failed-over
+    request's trace one timeline: failover, then a readmit naming the
+    dead replica and another home, two engine admits (the second a
+    readmit resuming the streamed tokens) and one finish after the
+    readmit. Returns the number of such traces."""
+    from paddle_tpu_torch import obs
+    prefix = f"tr-{rs.label}-"
+    traces = obs.reqtrace.traces(prefix=prefix)
+    ids = sorted(traces)
+    for p in extra_prefixes:
+        ids += sorted(obs.reqtrace.traces(prefix=p))
+    dump = obs.reqtrace.dump_payload(name, trace_ids=ids, complete=True)
+    violations = obs.reqtrace.check_causality(dump)
+    _require(not violations, f"{name}: causality violations {violations}")
+    victims = 0
+    for tid, evts in traces.items():
+        ks = [e.kind for e in evts]
+        if "failover" not in ks:
+            continue
+        victims += 1
+        i_fo = ks.index("failover")
+        _require("readmit" in ks[i_fo:], f"{name}: {tid} never readmitted")
+        i_re = ks.index("readmit", i_fo)
+        fo, re_ = evts[i_fo], evts[i_re]
+        admits = [e for e in evts if e.kind == "engine_admit"]
+        _require(ks.count("finish") == 1 and ks.index("finish") > i_re
+                 and re_.attrs["from_replica"] == fo.attrs["replica"]
+                 and re_.attrs["to_replica"] != fo.attrs["replica"]
+                 and len(admits) >= 2 and admits[-1].attrs["readmit"]
+                 and admits[-1].attrs["resume"]
+                 == fo.attrs["tokens_streamed"],
+                 f"{name}: {tid} is not one timeline across the failover")
+    print(f"[{name}] causality clean on {len(ids)} traces "
+          f"({len(dump['events'])} events); {victims} failed-over traces "
+          f"are one timeline each")
+    return victims
+
+
+def _phase6_rule(model, prompt, got, max_tokens, refs, key, name) -> int:
+    """Greedy tokens equal the port's dense generate() except where its
+    top-2 margin is under 1e-3 (phase 6's rule). Returns 1 if parted."""
+    import numpy as np
+    import paddle_tpu_torch.models.generation as gen
+    if key not in refs:
+        refs[key] = gen.generate(model, prompt[None],
+                                 max_tokens)[0, len(prompt):]
+    ref = np.asarray(refs[key])
+    got = np.asarray(got)
+    _require(got.shape == ref.shape, f"{name}: {key} has {got.shape} "
+                                     f"tokens, want {ref.shape}")
+    t = _first_difference(got, ref)
+    if t is None:
+        return 0
+    margin = top2_margin(model, prompt, ref[:t])
+    print(f"[{name}] {key} parts from dense generate() at token {t} "
+          f"(reference top-2 margin {margin:.3e})")
+    _require(margin < 1e-3, f"{name}: {key} parted at a clear margin")
+    return 1
+
+
+def _audit_fleet(rs, name, failovers: int = 0) -> dict:
+    """The end of a fleet pass: every replica holds a live engine whose
+    pool audits clean (check_integrity raises otherwise), none ended
+    FAILED, the router failed over exactly the `failovers` faults the
+    pass injected (so an error raised inside an engine, which the router
+    would fail over, fails the run), and no migration or peer fetch was
+    aborted or rolled back. Returns the migrator's stats."""
+    audits = rs.check_integrity()
+    _require(all(a is not None for a in audits.values()),
+             f"{name}: a replica ended without a live engine: {audits}")
+    _require("failed" not in {str(s) for s in rs.states().values()},
+             f"{name}: a replica ended FAILED: {rs.states()}")
+    got = _failovers(rs)
+    _require(got == failovers, f"{name}: {got} failovers for {failovers} "
+                               f"injected faults: "
+                               f"{[r.history for r in rs.replicas]}")
+    mig = rs.migrator.stats()
+    _require(mig["aborted"] == mig["rolled_back"] == mig["prefix_aborted"]
+             == 0, f"{name}: aborted migrations {mig}")
+    return mig
+
+
+def _settled_memory(cuda: bool) -> int:
+    """Device bytes allocated once every dropped object is collected."""
+    import gc
+    import torch
+    gc.collect()
+    if not cuda:
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _pool_bytes(model, ecfg) -> int:
+    """One replica's f32 paged pool: K and V of every layer."""
+    return (2 * model.cfg.num_layers * ecfg.num_blocks * ecfg.block_size
+            * model.cfg.hidden_size * 4)
+
+
+def _fleet_pass(name, model, ecfg, arrivals, device, spec="", **rkw):
+    """One pass of phase 23: the traffic through a fresh 3-replica
+    ReplicaSet under fault spec `spec`, the device memory read before
+    every router step, and the readings around the failed replica's
+    quarantine and its rejoin. Returns the router, the request ids and
+    the readings."""
+    import time as _time
+    import torch
+    from paddle_tpu_torch.inference.serving import ReplicaSet
+    from paddle_tpu_torch.testing.faults import ServingFaultInjector
+    from paddle_tpu_torch.tools.serving_traffic import drive_fleet
+    cuda = torch.device(device).type == "cuda"
+    faults = ServingFaultInjector(spec)
+    rs = ReplicaSet.from_model(
+        model, _router_config(num_replicas=3, balance="free_blocks",
+                              obs_label=f"chip-{name}", **rkw),
+        engine_config=ecfg, faults=faults)
+    seen = {"prev": [str(s) for s in rs.states().values()], "mem": None,
+            "down_step": None, "up_step": None, "before": None,
+            "after": None, "max_step_s": 0.0, "t": 0.0, "homes": {}}
+
+    def before(step):
+        seen["mem"] = torch.cuda.memory_allocated() if cuda else 0
+        seen["t"] = _time.perf_counter()
+
+    def after(step):
+        seen["max_step_s"] = max(seen["max_step_s"],
+                                 _time.perf_counter() - seen["t"])
+        now = [str(s) for s in rs.states().values()]
+        for i, (a, b) in enumerate(zip(seen["prev"], now)):
+            if a in ("up", "draining") and b in ("down", "failed"):
+                seen["down_step"], seen["before"] = step, seen["mem"]
+            if a != "up" and b == "up" and seen["down_step"] is not None:
+                seen["up_step"] = step
+                seen["after"] = torch.cuda.memory_allocated() if cuda \
+                    else 0
+        seen["prev"] = now
+        for rid, rec in rs._requests.items():
+            seen["homes"].setdefault(rid, set()).add(rec.replica)
+
+    t0 = _time.perf_counter()
+    rids = drive_fleet(rs, arrivals, before_step=before, after_step=after)
+    seen["wall_s"] = _time.perf_counter() - t0
+    seen["fired"] = list(faults.fired_log)
+    return rs, rids, seen
+
+
+def run_replica_failover(model, ecfg, device, seed: int) -> int:
+    """Phase 23 (load_suite replica_kill): 3 replicas, free-block
+    balancing, 24 greedy requests (prompts 64-256, 32-64 new tokens, one
+    arrival every 2 router steps), run with no fault, with
+    kill_replica@6:1, and with wedge_replica@8:2 under a heartbeat of
+    twice the no-fault pass's longest router step. After each pass the
+    device memory returns to its value at the start of the phase: no
+    pool outlives its fleet. Returns K3's launches over the phase."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.tools.serving_traffic import fleet_traffic
+    fcfg = dataclasses.replace(ecfg, **FLEET_ENGINE)
+    arrivals = fleet_traffic(model.cfg.vocab_size, seed + 7,
+                             **FLEET_TRAFFIC)
+    cuda = torch.device(device).type == "cuda"
+    pool_bytes = _pool_bytes(model, fcfg)
+    start = _settled_memory(cuda)
+
+    def returned(name):
+        left = _settled_memory(cuda) - start
+        print(f"[{name}] device memory once the fleet is dropped: "
+              f"{left / 2**20:+.1f} MiB against the start of the phase")
+        _require(left < pool_bytes // 8, f"{name}: {left} bytes outlive "
+                                         f"the fleet (a pool is "
+                                         f"{pool_bytes})")
+
+    win = _K3Window("failover", model.cfg.num_layers,
+                    fcfg.decode_chunk_size, device)
+    base, base_rids, base_seen = _fleet_pass("replica-nofault", model, fcfg,
+                                             arrivals, device)
+    _audit_fleet(base, "replica-nofault")
+    _require(all(base.get_request(r).finish_reason == "length"
+                 for r in base_rids), "no-fault pass: a request did not "
+                                      "end 'length'")
+    base_tokens = [list(base.get_request(r).tokens) for r in base_rids]
+    hb = max(2 * base_seen["max_step_s"], 0.05)
+    print(f"[failover] no-fault pass: {len(base_rids)} requests in "
+          f"{base_seen['wall_s']:.2f} s; router TTFT p50 "
+          f"{base.ttft_quantile(0.5) * 1e3:.1f} ms, p99 "
+          f"{base.ttft_quantile(0.99) * 1e3:.1f} ms; longest router step "
+          f"{base_seen['max_step_s'] * 1e3:.1f} ms -> heartbeat "
+          f"{hb * 1e3:.1f} ms")
+    del base
+    returned("replica-nofault")
+    refs: dict = {}
+    for name, spec, rkw in (
+            ("replica-kill", "kill_replica@6:1", {}),
+            ("replica-wedge", "wedge_replica@8:2",
+             dict(heartbeat_timeout_s=hb))):
+        dead = int(spec.rsplit(":", 1)[1])
+        rs, rids, seen = _fleet_pass(name, model, fcfg, arrivals, device,
+                                     spec, **rkw)
+        _audit_fleet(rs, name, failovers=1)
+        reasons = [rs.get_request(r).finish_reason for r in rids]
+        _require(all(x == "length" for x in reasons),
+                 f"{name}: finish reasons {reasons}")
+        rep = rs.replicas[dead]
+        _require(str(rep.state) == "up" and rep.restarts == 1
+                 and rep.probe_tokens >= 1 and len(rs.recovery_times) == 1,
+                 f"{name}: replica {dead} did not rejoin after its probe "
+                 f"({rep.state}, {rep.restarts} restarts, "
+                 f"{rep.probe_tokens} probe tokens)")
+        victims = _check_fleet_trace(rs, name)
+        requeued = [i for i, r in enumerate(rids)
+                    if rs.get_request(r).requeues]
+        _require(victims == len(requeued) >= 1,
+                 f"{name}: {victims} failover traces, {len(requeued)} "
+                 f"requeued requests")
+        parted = sum(_phase6_rule(model, arrivals[i][1],
+                                  rs.get_request(rids[i]).tokens,
+                                  arrivals[i][2]["max_tokens"], refs, i,
+                                  name) for i in requeued)
+        untouched = [i for i, r in enumerate(rids)
+                     if not rs.get_request(r).requeues
+                     and dead not in seen["homes"][r]]
+        same = sum(list(rs.get_request(rids[i]).tokens) == base_tokens[i]
+                   for i in untouched)
+        print(f"[{name}] fired {seen['fired']}; {len(requeued)} requests "
+              f"re-admitted ({parted} parted from dense generate(), each "
+              f"at a top-2 margin < 1e-3); {same} of {len(untouched)} "
+              f"requests that never lived on replica {dead} equal the "
+              f"no-fault pass bitwise")
+        _require(same == len(untouched) > 0,
+                 f"{name}: requests untouched by the fault differ from "
+                 f"the no-fault pass")
+        if cuda:
+            delta = seen["after"] - seen["before"]
+            print(f"[{name}] device memory before the fault "
+                  f"{seen['before'] / 2**20:.1f} MiB, after the restart "
+                  f"{seen['after'] / 2**20:.1f} MiB (difference "
+                  f"{delta / 2**20:.1f} MiB; one pool "
+                  f"{pool_bytes / 2**20:.1f} MiB)")
+            _require(abs(delta) < pool_bytes,
+                     f"{name}: memory after the restart is {delta} bytes "
+                     f"from before the fault (a pool is {pool_bytes})")
+        print(f"[{name}] router TTFT p50 {rs.ttft_quantile(0.5) * 1e3:.1f} "
+              f"ms, p99 {rs.ttft_quantile(0.99) * 1e3:.1f} ms; recovery "
+              f"{rs.recovery_times[0]:.4f} s (quarantine at router step "
+              f"{seen['down_step']}, back up at {seen['up_step']}); "
+              f"{seen['wall_s']:.2f} s")
+        del rs, rep
+        returned(name)
+    torch.cuda.empty_cache()
+    return win.close()
+
+
+def run_disagg(model, ecfg, device, seed: int) -> int:
+    """Phase 24 (load_suite disagg): 4 replicas, roles prefill, prefill,
+    decode, decode, on serving_traffic.disagg_traffic; then the
+    controlled migration A/B in f32 and int8 and a rebalance under the
+    decode tier's measured use. Returns K3's launches over the phase."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import (BlockMigration,
+                                                    ReplicaSet)
+    from paddle_tpu_torch.tools.serving_traffic import (disagg_traffic,
+                                                        drive_fleet,
+                                                        migration_ab)
+    fcfg = dataclasses.replace(ecfg, **FLEET_ENGINE)
+    vocab = model.cfg.vocab_size
+    win = _K3Window("disagg", model.cfg.num_layers, fcfg.decode_chunk_size,
+                    device)
+    arrivals = disagg_traffic(vocab, seed + 8, **DISAGG_TRAFFIC)
+    rs = ReplicaSet.from_model(
+        model, _router_config(num_replicas=4,
+                              roles=("prefill", "prefill", "decode",
+                                     "decode"), obs_label="chip-disagg"),
+        engine_config=fcfg)
+    t0 = time.perf_counter()
+    rids = drive_fleet(rs, arrivals)
+    wall = time.perf_counter() - t0
+    mig = _audit_fleet(rs, "disagg")
+    reasons = [rs.get_request(r).finish_reason for r in rids]
+    _require(all(x == "length" for x in reasons),
+             f"disagg: finish reasons {reasons}")
+    _require(mig["migrations"] >= 1 and mig["revision_refused"] == 0,
+             f"disagg: migrations {mig}")
+    _check_fleet_trace(rs, "disagg")
+    from paddle_tpu_torch import obs
+    handed = {e.trace_id for e in obs.reqtrace.events(
+        prefix=f"tr-{rs.label}-") if e.kind == "migrate_in"}
+    refs: dict = {}
+    parted = sum(_phase6_rule(model, p, rs.get_request(r).tokens,
+                              kw["max_tokens"], refs, i, "disagg")
+                 for i, (r, (_s, p, kw)) in enumerate(zip(rids, arrivals))
+                 if kw.get("temperature", 0.0) <= 0.0)
+    gaps = [rs.replicas[i].engine.stats.token_gap_quantile(0.99)
+            for i in (2, 3)]
+    print(f"[disagg] {len(rids)} requests in {wall:.2f} s, "
+          f"{len(handed)} handed off to the decode tier; migrations "
+          f"{mig['migrations']}, aborted (decode tier full) "
+          f"{mig['aborted']}, payload {mig['bytes_moved']} bytes "
+          f"({mig['bytes_moved'] / max(mig['migrations'], 1) / 2**20:.2f} "
+          f"MiB each); migration seconds p50 "
+          f"{rs.migrator.seconds_quantile(0.5) * 1e3:.2f} ms, p99 "
+          f"{rs.migrator.seconds_quantile(0.99) * 1e3:.2f} ms; decode "
+          f"tier inter-token gap p99 {max(gaps) * 1e3:.1f} ms; router TTFT "
+          f"p50 {rs.ttft_quantile(0.5) * 1e3:.1f} ms, p99 "
+          f"{rs.ttft_quantile(0.99) * 1e3:.1f} ms; greedy tokens: {parted} "
+          f"parted from dense generate() (each at a top-2 margin < 1e-3)")
+    del rs
+    torch.cuda.empty_cache()
+
+    # the controlled A/B: greedy and sampled rows, f32 and int8 pools
+    rng = np.random.RandomState(seed + 9)
+    specs = []
+    for i in range(AB["n"]):
+        kw = dict(max_tokens=AB["max_tokens"])
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50,
+                      seed=int(rng.randint(1, 2 ** 31 - 1)))
+        specs.append((rng.randint(1, vocab, (int(rng.randint(
+            AB["p_lo"], AB["p_hi"] + 1)),), dtype=np.int32), kw))
+    for kvdt in ("float32", "int8"):
+        ab = migration_ab(model, dataclasses.replace(
+            fcfg, kv_cache_dtype=kvdt), specs, AB["warm"], AB["k"])
+        same = sum(a == b for a, b in zip(ab["a"], ab["b"]))
+        print(f"[disagg] migration A/B, {kvdt} pools: {ab['live']} live "
+              f"requests moved by drain(0, recompute=False) "
+              f"({ab['migrated']} migrations, {ab['bytes']} bytes), then "
+              f"{AB['k']} router steps: {same} of {len(specs)} token "
+              f"streams equal to the same steps in place (greedy and "
+              f"sampled alike)")
+        _require(ab["live"] == ab["migrated"] == len(specs)
+                 and ab["homes"] == [1] * len(specs),
+                 f"A/B {kvdt}: not every request moved ({ab['migrated']} "
+                 f"of {ab['live']} live)")
+        _require(ab["failovers"] == ab["aborted"] == 0,
+                 f"A/B {kvdt}: {ab['failovers']} failovers, "
+                 f"{ab['aborted']} aborted migrations")
+        _require(same == len(specs), f"A/B {kvdt}: a migrated stream "
+                                     f"differs from the one in place")
+
+    # rebalance with the watermark under the mixed replica's measured use
+    ab = migration_ab(model, fcfg, specs, AB["warm"], action="rebalance")
+    same = sum(a == b for a, b in zip(ab["a"], ab["b"]))
+    print(f"[disagg] rebalance(watermark {ab['watermark']:.4f}, half the "
+          f"replica's measured use {ab['use']:.4f}) moved "
+          f"{ab['migrated']} requests; {same} of {len(specs)} streams to "
+          f"the end equal to the fleet that kept them in place")
+    _require(ab["migrated"] >= 1 and same == len(specs),
+             "rebalance moved nothing or changed a stream")
+    _require(ab["failovers"] == ab["aborted"] == 0,
+             f"rebalance: {ab['failovers']} failovers, {ab['aborted']} "
+             f"aborted migrations")
+    torch.cuda.empty_cache()
+    return win.close()
+
+
+def run_prefix_fleet(model, ecfg, device, seed: int) -> int:
+    """Phase 25: phase 6a's shared-prefix traffic on 3 replicas routed by
+    prefix affinity (the fleet's hit rate at least 0.8 x 6a's single
+    engine's, load_suite's min_affinity_retention), then phase 6c's
+    tiered traffic on 3 round-robin replicas with peer prefix fetch (at
+    least one committed fetch). Tokens by phase 6's rule in both.
+    Returns K3's launches over the phase."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference.serving import ReplicaSet
+    from paddle_tpu_torch.tools.serving_traffic import (drive_fleet,
+                                                        prefix_traffic,
+                                                        tiered_traffic)
+    vocab = model.cfg.vocab_size
+    win = _K3Window("prefix-fleet", model.cfg.num_layers,
+                    ecfg.decode_chunk_size, device)
+    arrivals = prefix_traffic(vocab, seed + 2, **PREFIX_TRAFFIC)
+    pcfg = dataclasses.replace(ecfg, enable_prefix_cache=True)
+    rs = ReplicaSet.from_model(
+        model, _router_config(num_replicas=3, balance="prefix_affinity",
+                              obs_label="chip-affinity"),
+        engine_config=pcfg)
+    t0 = time.perf_counter()
+    rids = drive_fleet(rs, [(s, p, dict(max_tokens=mt))
+                            for s, p, mt in arrivals])
+    wall = time.perf_counter() - t0
+    _audit_fleet(rs, "affinity")
+    fps = rs.prefix_stats()
+    rate = fps["hits"] / max(fps["hits"] + fps["misses"], 1)
+    single = READINGS["prefix_hit_rate"]
+    refs = READINGS.setdefault("prefix_refs", {})
+    parted = sum(_phase6_rule(model, p, rs.get_request(r).tokens, mt, refs,
+                              i, "affinity")
+                 for i, (r, (_s, p, mt)) in enumerate(zip(rids, arrivals)))
+    homes = [rs.get_request(r).replica for r in rids]
+    print(f"[affinity] {len(rids)} requests in {wall:.2f} s over 3 "
+          f"replicas (homes per replica {[homes.count(i) for i in range(3)]}"
+          f"); hit rate {rate:.4f} (hits {fps['hits']}, misses "
+          f"{fps['misses']}, cached_tokens_ratio "
+          f"{fps['cached_tokens_ratio']:.4f}) against phase 6a's single "
+          f"engine {single:.4f}: retention {rate / single:.4f} (limit "
+          f"0.8); TTFT p50 {rs.ttft_quantile(0.5) * 1e3:.1f} ms, p99 "
+          f"{rs.ttft_quantile(0.99) * 1e3:.1f} ms; {parted} parted from "
+          f"dense generate()")
+    _require(rate >= 0.8 * single, "affinity: the fleet kept under 0.8 of "
+                                   "the single engine's hit rate")
+    del rs
+    torch.cuda.empty_cache()
+
+    arrivals = tiered_traffic(vocab, seed + 3, **TIERED_TRAFFIC)
+    rs = ReplicaSet.from_model(
+        model, _router_config(num_replicas=3, balance="round_robin",
+                              peer_prefix_fetch=True,
+                              obs_label="chip-peer-fetch"),
+        engine_config=dataclasses.replace(pcfg, **TIERED_ENGINE))
+    t0 = time.perf_counter()
+    rids = drive_fleet(rs, [(s, p, dict(max_tokens=mt))
+                            for s, p, mt in arrivals])
+    wall = time.perf_counter() - t0
+    mig = _audit_fleet(rs, "peer-fetch")
+    refs = READINGS.setdefault("tiered_refs", {})
+    parted = sum(_phase6_rule(model, p, rs.get_request(r).tokens, mt, refs,
+                              i, "peer-fetch")
+                 for i, (r, (_s, p, mt)) in enumerate(zip(rids, arrivals)))
+    print(f"[peer-fetch] {len(rids)} requests in {wall:.2f} s; peer "
+          f"fetches {mig['prefix_fetches']} committed, "
+          f"{mig['prefix_aborted']} aborted, {mig['prefix_bytes']} bytes; "
+          f"TTFT p50 {rs.ttft_quantile(0.5) * 1e3:.1f} ms, p99 "
+          f"{rs.ttft_quantile(0.99) * 1e3:.1f} ms; {parted} parted from "
+          f"dense generate()")
+    _require(mig["prefix_fetches"] >= 1, "peer-fetch: no committed fetch")
+    del rs
+    torch.cuda.empty_cache()
+    return win.close()
+
+
+def run_autoscaler(model, ecfg, device, seed: int) -> int:
+    """Phase 26 (load_suite autoscale_diurnal): 4 provisioned replicas and
+    the Autoscaler stepping with the router on trickle, burst, trickle
+    arrivals: at least one shrink by evacuating drain and one grow by
+    probe rejoin, every request 'length'. Returns K3's launches."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference.serving import (Autoscaler,
+                                                    AutoscalerConfig,
+                                                    ReplicaSet)
+    from paddle_tpu_torch.tools.serving_traffic import (diurnal_traffic,
+                                                        drive_fleet)
+    fcfg = dataclasses.replace(ecfg, **FLEET_ENGINE)
+    win = _K3Window("autoscale", model.cfg.num_layers,
+                    fcfg.decode_chunk_size, device)
+    arrivals = diurnal_traffic(model.cfg.vocab_size, seed + 10,
+                               **DIURNAL_TRAFFIC)
+    rs = ReplicaSet.from_model(
+        model, _router_config(num_replicas=4, obs_label="chip-autoscale"),
+        engine_config=fcfg)
+    asc = Autoscaler(rs, AutoscalerConfig(
+        min_replicas=1, max_replicas=4, target_waiting_per_replica=2.0,
+        low_waiting_per_replica=1.0, cooldown_steps=4))
+    active, acts = [], []
+
+    def after(step):
+        d = asc.step()
+        active.append(rs.num_up())
+        if d["enacted"]:
+            acts.append((step, d["action"], d["reason"], d["replica"]))
+
+    t0 = time.perf_counter()
+    rids = drive_fleet(rs, arrivals, after_step=after)
+    wall = time.perf_counter() - t0
+    _audit_fleet(rs, "autoscale")
+    reasons = [rs.get_request(r).finish_reason for r in rids]
+    print(f"[autoscale] {len(rids)} requests in {wall:.2f} s over "
+          f"{len(active)} router steps; shrinks {asc.shrink_events}, grows "
+          f"{asc.grow_events}; actions {acts}; migrations "
+          f"{rs.migrator.stats()['migrations']}")
+    print(f"[autoscale] active replicas per step: {active}")
+    _require(all(x == "length" for x in reasons),
+             f"autoscale: finish reasons {reasons}")
+    _require(asc.shrink_events >= 1 and asc.grow_events >= 1,
+             "autoscale: no shrink or no grow")
+    del rs, asc
+    torch.cuda.empty_cache()
+    return win.close()
+
+
+def run_rolling_deploy(model, ecfg, device, seed: int) -> int:
+    """Phase 27 (load_suite rolling_deploy): ModelRegistry.publish of the
+    serving model and of one from seed + 1, ReplicaSet.from_registry over
+    3 replicas, a DeployController rollout under live traffic
+    (canary_tolerance 3) that commits, the requests pinned to the old
+    revision bitwise against a no-deploy fleet on the old weights; then
+    a candidate from seed + 2 under the strict default tolerance, which
+    rolls back. Nothing lost, causality (invariant 8) clean on both
+    dumps. Returns K3's launches over the phase."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference.serving import (DeployConfig,
+                                                    DeployController,
+                                                    ModelRegistry,
+                                                    ReplicaSet)
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools.serving_traffic import (drive_fleet,
+                                                        fleet_traffic)
+    fcfg = dataclasses.replace(ecfg, enable_prefix_cache=True,
+                               **FLEET_ENGINE)
+    win = _K3Window("deploy", model.cfg.num_layers, fcfg.decode_chunk_size,
+                    device)
+    arrivals = fleet_traffic(model.cfg.vocab_size, seed + 11,
+                             **DEPLOY_TRAFFIC)
+    models = {}
+    for off in (1, 2):
+        m = GPT(model.cfg, device=device, seed=seed + off)
+        m.eval()
+        models[off] = m
+
+    def one_pass(name, candidate, dcfg):
+        reg = ModelRegistry()
+        t0 = time.perf_counter()
+        r_old = reg.publish("m", model, engine_config=fcfg)
+        r_new = reg.publish("m", candidate, engine_config=fcfg)
+        pub = time.perf_counter() - t0
+        _require(r_new != r_old, f"{name}: the revisions collided")
+        rs = ReplicaSet.from_registry(
+            reg, ("m",) * 3, config=_router_config(
+                num_replicas=3, obs_label=f"chip-{name}"))
+        _require(all(r.engine.params["wte.weight"].data_ptr()
+                     == model.wte.weight.data_ptr() for r in rs.replicas),
+                 f"{name}: replicas do not share the revision's weights")
+        ctl, status = [None], [None]
+
+        def after(step):
+            if ctl[0] is None and step >= 3:
+                ctl[0] = DeployController(rs, "m", r_new, config=dcfg)
+                ctl[0].start()
+            elif ctl[0] is not None and status[0] is None:
+                ctl[0].tick()
+                if ctl[0].done():
+                    status[0] = ctl[0].status()
+
+        t0 = time.perf_counter()
+        rids = drive_fleet(rs, arrivals, after_step=after, model="m")
+        while status[0] is None:
+            rs.step()
+            after(10 ** 9)
+        while rs.has_unfinished():
+            rs.step()
+        wall = time.perf_counter() - t0
+        _audit_fleet(rs, name)
+        reasons = [rs.get_request(r).finish_reason for r in rids]
+        _require(all(x == "length" for x in reasons),
+                 f"{name}: finish reasons {reasons}")
+        _check_fleet_trace(rs, name, extra_prefixes=(ctl[0].deploy_id,))
+        st = status[0]
+        print(f"[{name}] revisions {r_old} -> {r_new} (published in "
+              f"{pub:.2f} s); outcome {st['outcome']} after {st['ticks']} "
+              f"ticks ({st['error']}); swapped {st['swapped']}; registry "
+              f"active {reg.active('m')}; migrations "
+              f"{rs.migrator.stats()['migrations']}; {len(rids)} requests "
+              f"in {wall:.2f} s, router TTFT p99 "
+              f"{rs.ttft_quantile(0.99) * 1e3:.1f} ms")
+        return reg, rs, rids, st, r_old, r_new
+
+    reg, rs, rids, st, r_old, r_new = one_pass(
+        "deploy-commit", models[1], DeployConfig(canary_tolerance=3))
+    _require(st["outcome"] == "committed" and reg.active("m") == r_new
+             and rs.migrator.stats()["migrations"] >= 1
+             and all(r.revision == r_new for r in rs.replicas),
+             f"deploy-commit: {st}")
+    ref = ReplicaSet.from_model(model, _router_config(
+        num_replicas=3, obs_label="chip-deploy-ref"), engine_config=fcfg)
+    ref_rids = drive_fleet(ref, arrivals)
+    _audit_fleet(ref, "deploy-ref")
+    old = [i for i, r in enumerate(rids)
+           if rs.get_request(r).revision == r_old]
+    same = sum(list(rs.get_request(rids[i]).tokens)
+               == list(ref.get_request(ref_rids[i]).tokens) for i in old)
+    print(f"[deploy-commit] {same} of {len(old)} requests that finished "
+          f"pinned to the old revision equal the no-deploy fleet bitwise; "
+          f"{len(rids) - len(old)} finished on the new revision")
+    _require(len(old) >= 1 and same == len(old),
+             "deploy-commit: an old-revision request differs from the "
+             "no-deploy fleet")
+    del rs, ref, reg
+    torch.cuda.empty_cache()
+    reg, rs, rids, st, r_old, r_new = one_pass(
+        "deploy-rollback", models[2], DeployConfig())
+    # the canary gate's own verdict, not a canary that raised (which
+    # also rolls back, as "canary failed: <error>")
+    verdict = re.fullmatch(r"replica \d+: (\d+) canary prompts diverged "
+                           r"\(tolerance 0\)", st["error"] or "")
+    _require(st["outcome"] == "rolled_back" and verdict is not None
+             and int(verdict.group(1)) >= 1
+             and reg.active("m") == r_old
+             and all(r.revision == r_old for r in rs.replicas),
+             f"deploy-rollback: {st}")
+    del rs, reg, models
+    torch.cuda.empty_cache()
+    return win.close()
+
+
+def run_fleet(model, ecfg, device, seed: int) -> dict:
+    """Phases 23-27; returns K3's launches in each, counted from 0 just
+    before it. Request tracing is on: the phases check the traces. Each
+    phase ends with the device memory it started with: no pool, model or
+    engine of its fleets outlives it."""
+    import torch
+    from paddle_tpu_torch import obs
+    obs.reqtrace.enable()
+    cuda = torch.device(device).type == "cuda"
+    pool_bytes = _pool_bytes(model, ecfg)
+    out = {}
+    for name, fn in (("failover", run_replica_failover),
+                     ("disagg", run_disagg),
+                     ("prefix_fleet", run_prefix_fleet),
+                     ("autoscale", run_autoscaler),
+                     ("deploy", run_rolling_deploy)):
+        mem0 = _settled_memory(cuda)
+        t0 = time.perf_counter()
+        out[name] = fn(model, ecfg, device, seed)
+        left = _settled_memory(cuda) - mem0
+        print(f"[fleet] phase {name} in {time.perf_counter() - t0:.1f} s; "
+              f"device memory after it {left / 2**20:+.1f} MiB against "
+              f"its start")
+        _require(left < pool_bytes // 8, f"{name}: {left} bytes outlive "
+                                         f"the phase")
+    return out
+
+
 # ------------------------------------------------------------ phase 7
 # the flash kernels' main-path shapes: the GPT step's attention (B 32,
 # T 1024, causal; K1 6 heads of 128, K2 12 heads of 64 packed in 6 pairs
@@ -3035,8 +3807,9 @@ def _wrappers_vs_cpu(device, seed: int) -> dict:
 
 
 def run_serving(device, seed: int) -> dict:
-    """Phases 3-6e; returns K3's kernel entry (its launches from phase
-    6, each later pass's in pass_launches)."""
+    """Phases 3-6e and the fleet phases 23-27; returns K3's kernel entry
+    (its launches from phase 6, 6a-6d's in pass_launches, 23-27's in
+    fleet_launches)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
@@ -3092,6 +3865,8 @@ def run_serving(device, seed: int) -> dict:
     passes = run_prefix_passes(model, ecfg, device, seed)
     passes["tenant"] = run_tenant_pass(model, ecfg, device, seed)
     run_facade(model, ecfg, device, seed)
+    fleet = run_fleet(model, ecfg, device, seed)
+    READINGS.clear()
     del model
     torch.cuda.empty_cache()
     return {
@@ -3100,7 +3875,8 @@ def run_serving(device, seed: int) -> dict:
                   "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:127",
         "launches": launches, "max_abs_err": max_err, **timing,
-        "full_context": full, "pass_launches": passes}
+        "full_context": full, "pass_launches": passes,
+        "fleet_launches": fleet}
 
 
 FLASH_SOURCE = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"

@@ -4,7 +4,10 @@ prefix cache and copy-on-write blocks, the host-RAM KV tier, int8 KV
 blocks, deadlines, the step watchdog and fault injection; multi-tenant
 WFQ admission priced by the prefill cost model, quotas and
 share-weighted prefix eviction; the registry-backed EngineStats, request
-tracing and the ServingPredictor facade)."""
+tracing and the ServingPredictor facade; and the fleet: supervised
+engine replicas behind the ReplicaSet router with failover, live
+KV-block migration for disaggregated prefill/decode, the autoscaler,
+and the model registry with rolling weight deploys)."""
 from .attention import (PACK_COLS, fused_decode_chunk, gather_block_kv,
                         pack_f32, paged_decode_step)
 from .engine import (EngineConfig, EngineStats, LLMEngine, RequestOutput,
@@ -15,7 +18,12 @@ from .prefix_cache import PrefixCacheIndex, PrefixNode
 from .scheduler import (EngineOverloaded, Request, RequestState,
                         SamplingParams, ScheduledBatch, Scheduler,
                         SchedulerConfig)
+from .replica import EngineReplica, ReplicaCrashed, ReplicaState
+from .migration import BlockMigration, MIGRATION_REASONS
+from .router import ReplicaSet, RouterConfig, RouterRequest
 from .tenancy import TenantConfig, TenantQuotaExceeded, TenantRegistry
+from .autoscaler import Autoscaler, AutoscalerConfig, AutoscalerPolicy
+from .deploy import DeployConfig, DeployController, ModelRegistry, Revision
 
 __all__ = ["PACK_COLS", "fused_decode_chunk", "gather_block_kv", "pack_f32",
            "paged_decode_step", "EngineConfig", "EngineStats", "LLMEngine",
@@ -23,5 +31,9 @@ __all__ = ["PACK_COLS", "fused_decode_chunk", "gather_block_kv", "pack_f32",
            "CacheExhausted", "PagedKVCache", "PrefixCacheIndex",
            "PrefixNode", "EngineOverloaded", "Request", "RequestState",
            "SamplingParams", "ScheduledBatch", "Scheduler",
-           "SchedulerConfig", "TenantConfig", "TenantQuotaExceeded",
-           "TenantRegistry"]
+           "SchedulerConfig", "EngineReplica", "ReplicaCrashed",
+           "ReplicaState", "BlockMigration", "MIGRATION_REASONS",
+           "ReplicaSet", "RouterConfig", "RouterRequest", "TenantConfig",
+           "TenantQuotaExceeded", "TenantRegistry", "Autoscaler",
+           "AutoscalerConfig", "AutoscalerPolicy", "DeployConfig",
+           "DeployController", "ModelRegistry", "Revision"]

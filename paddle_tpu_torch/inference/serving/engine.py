@@ -62,13 +62,21 @@ holds: the telemetry adds no device->host synchronisation (a decode
 chunk is still one fetch). A quarantine queues a flight-recorder dump,
 written after the engine lock is released.
 
-Left out (later slices): the failover and migration surface
-(add_request's arrival / resume / readmit / trace_id keywords,
-export_request, admit_migrated, release_migrated, abort_migrated,
-release_waiting, migratable_requests, peer prefix fetch), the (model,
-revision) key of exported KV (EngineConfig.model and revision take only
-their defaults), the elastic heartbeat (distributed/elastic.py) and the
-lock witness.
+Fleet surface (router.py, replica.py, migration.py): add_request's
+arrival_time / arrival / resume_tokens / readmit / trace_id carry a
+failed-over request's original arrival, FCFS ticket, streamed tokens and
+trace onto a survivor; `load_info` is the router's balance snapshot;
+`export_request` / `admit_migrated` / `release_migrated` /
+`abort_migrated` move a running request's KV and token log between
+engines, `release_waiting` hands queued work back to the router, and
+`prefix_probe` / `export_prefix` / `admit_prefix` serve peer prefix
+fetch. EngineConfig.model and revision key the engine's weights: every
+exported payload carries the key, the admit paths refuse another key,
+and an engine with a non-default key stamps it on its first_token,
+decode_chunk and terminal events (obs/reqtrace.py invariant 8).
+
+Left out (later slices): the elastic heartbeat in step() (the rest of
+distributed/elastic.py) and the lock witness.
 """
 from __future__ import annotations
 
@@ -84,12 +92,11 @@ import torch
 from ... import obs
 from ...core.anomaly import any_not_finite_host
 from ...core.place import DeviceLike, resolve_device
-from ...core.unported import require_defaults
 from ...models import generation as gen
 from ...obs.trace import Span
 from ...testing.faults import ServingFaultInjector
 from .attention import KERNELS, PACK_COLS, fused_decode_chunk, pack_f32
-from .paged_cache import PagedKVCache
+from .paged_cache import CacheExhausted, PagedKVCache
 from .scheduler import (EngineOverloaded, Request, RequestState,
                         SamplingParams, Scheduler, SchedulerConfig,
                         record_promotion_events)
@@ -100,9 +107,7 @@ __all__ = ["EngineConfig", "EngineStats", "LLMEngine", "RequestOutput",
 
 @dataclass
 class EngineConfig:
-    """The reference's fields in its order. Not ported yet, so LLMEngine
-    accepts only their defaults: the (model, revision) key of exported
-    KV."""
+    """The reference's fields in its order."""
     block_size: int = 16
     num_blocks: int = 256
     max_num_seqs: int = 8
@@ -137,6 +142,9 @@ class EngineConfig:
     # a tenancy.TenantRegistry, shared by reference: WFQ admission,
     # quotas, the deadline early reject, share-weighted eviction
     tenants: Optional[object] = None
+    # (model, revision) key of the weights the engine serves (the fleet's
+    # ModelRegistry stamps it): exported KV carries it and the admit
+    # paths refuse a payload keyed otherwise
     model: str = "default"
     revision: str = "r0"
 
@@ -513,10 +521,6 @@ class LLMEngine:
         if config.kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{config.kernel!r}")
-        require_defaults(
-            "EngineConfig",
-            model=(config.model, "default"),
-            revision=(config.revision, "r0"))
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.geom = geom
@@ -548,6 +552,11 @@ class LLMEngine:
             self.cache)
         self._lock = threading.RLock()
         self.stats = EngineStats(config.obs_label)
+        # (model, revision) event tag: default-keyed engines stay untagged
+        self._rev_tag: Dict[str, str] = {}
+        if (config.model, config.revision) != ("default", "r0"):
+            self._rev_tag = {"model": config.model,
+                             "revision": config.revision}
         self._requests: Dict[str, Request] = {}
         self._rngs: Dict[str, np.random.RandomState] = {}
         self._next_id = 0
@@ -578,16 +587,18 @@ class LLMEngine:
         bounded waiting queue is full under admission_policy='reject' or
         the request cannot meet its deadline; under 'shed_oldest' the
         oldest waiting request is evicted instead (its terminal output
-        streams from the next step()). The request gets the trace id
-        `tr-<engine label>-N`. With a host tier its host-resident prefix
-        is promoted now, while it waits. arrival_time, arrival,
-        resume_tokens, readmit and trace_id, the fleet's failover
-        surface (ROADMAP Queue 1 item 5), take only their defaults."""
-        require_defaults("LLMEngine.add_request",
-                         arrival_time=(arrival_time, None),
-                         arrival=(arrival, None),
-                         resume_tokens=(resume_tokens, None),
-                         readmit=(readmit, False), trace_id=(trace_id, None))
+        streams from the next step()). With a host tier its
+        host-resident prefix is promoted now, while it waits.
+
+        The failover surface (router.py): `arrival_time` / `arrival`
+        carry the request's original wall-clock arrival and FCFS ticket
+        (deadlines keep counting from the original arrival, and a requeue
+        keeps its place in line); `resume_tokens` seeds the output log
+        with the tokens already streamed, so the re-prefill continues the
+        same stream; `readmit=True` inserts arrival-ordered, bypasses
+        max_waiting and charges no quota; `trace_id` keeps the router's
+        trace id across the hop (a standalone engine mints
+        `tr-<engine label>-N`)."""
         sampling = sampling or SamplingParams()
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
@@ -606,19 +617,36 @@ class LLMEngine:
             if request_id is None:
                 request_id = f"req-{self._next_id}"
                 self._next_id += 1
-            if request_id in self._requests:
+            old = self._requests.get(request_id)
+            if old is not None and old.state != RequestState.MIGRATED:
+                # a migrated-out record does not block re-admission: a
+                # request may come back to an engine it once left
                 raise ValueError(f"duplicate request_id {request_id!r}")
+            now = time.perf_counter()
             req = Request(request_id=request_id, prompt_ids=ids,
-                          params=sampling, arrival_time=time.perf_counter())
-            req.trace_id = f"tr-{self.stats.label}-{self._next_trace}"
-            self._next_trace += 1
+                          params=sampling,
+                          arrival_time=now if arrival_time is None
+                          else arrival_time)
+            if arrival is not None:
+                req.arrival = arrival
+            if trace_id is None:
+                trace_id = f"tr-{self.stats.label}-{self._next_trace}"
+                self._next_trace += 1
+            req.trace_id = trace_id
             if tenants is not None:
                 # every later event of this trace carries the tenant
                 obs.reqtrace.bind_tenant(req.tid, sampling.tenant)
+            if resume_tokens is not None and len(resume_tokens):
+                req.output_ids = [int(t) for t in resume_tokens]
+                # TTFT was observed where the first token was emitted;
+                # this engine records only token gaps, from now
+                req.first_token_time = req.arrival_time
+                req.last_token_time = now
             charged = 0
-            if tenants is not None:
+            if tenants is not None and not readmit:
                 # the sliding-window quota, charged for the worst case
-                # (prompt + max_tokens) before the scheduler sees it
+                # (prompt + max_tokens) before the scheduler sees it; a
+                # readmission never charges twice
                 try:
                     tenants.charge(sampling.tenant,
                                    ids.size + sampling.max_tokens,
@@ -633,7 +661,11 @@ class LLMEngine:
                     raise
                 charged = ids.size + sampling.max_tokens
             try:
-                shed = self.scheduler.add(req)
+                if readmit:
+                    self.scheduler.readmit(req)
+                    shed = []
+                else:
+                    shed = self.scheduler.add(req)
             except EngineOverloaded:
                 if charged:
                     tenants.refund(sampling.tenant, charged,
@@ -652,15 +684,16 @@ class LLMEngine:
                     victim.request_id, None, list(victim.output_ids),
                     True, "shed"))
                 obs.reqtrace.record("finish", victim.tid,
-                                    victim.request_id, reason="shed")
+                                    victim.request_id, reason="shed",
+                                    **self._rev_tag)
             self._requests[request_id] = req
             self._rngs[request_id] = np.random.RandomState(
                 sampling.seed & 0x7FFFFFFF)
             obs.reqtrace.record(
                 "engine_admit", req.tid, request_id,
                 engine=self.stats.label, arrival=req.arrival,
-                readmit=False, resume=len(req.output_ids),
-                waiting=self.scheduler.num_waiting())
+                readmit=bool(readmit), resume=len(req.output_ids),
+                waiting=self.scheduler.num_waiting(), **self._rev_tag)
             if self.cache.host_tier is not None:
                 self._prefetch_promote(req)
             return request_id
@@ -736,6 +769,210 @@ class LLMEngine:
         with self._lock:
             return self.scheduler.waiting_by_tenant()
 
+    def load_info(self) -> dict:
+        """Host-side load snapshot the ReplicaSet balances on: waiting,
+        block_demand and prefill_cost (Scheduler.backlog), free_blocks
+        and running. free_blocks minus block_demand is the effective
+        headroom."""
+        with self._lock:
+            info = self.scheduler.backlog()
+            info["free_blocks"] = self.cache.num_free()
+            info["running"] = self.scheduler.num_running()
+            return info
+
+    # ------------------------------------------- block migration surface
+    # (migration.py) All of it runs at step boundaries, through the owning
+    # replica's lock, where every reserved cache slot holds written KV.
+
+    def migratable_requests(self, decode_only: bool = True) -> List[str]:
+        """Request ids safe to export at this step boundary: RUNNING and
+        unfinished. `decode_only=True` (handoff, rebalance) keeps only
+        requests past prefill; `decode_only=False` (drain) also takes
+        mid-prefill rows, whose committed prefix migrates and finishes
+        prefilling at the destination."""
+        with self._lock:
+            out = []
+            for req in self.scheduler.running_requests():
+                if req.finished:
+                    continue
+                if decode_only and req.pf_target \
+                        and req.prefill_pos < req.pf_target:
+                    continue
+                out.append(req.request_id)
+            return out
+
+    def export_request(self, request_id: str) -> dict:
+        """Snapshot one RUNNING request for migration: its record
+        (prompt, params, token log, FCFS ticket, deadline clock, prefill
+        progress, trace id), its (model, revision) key and its KV payload
+        (PagedKVCache.export_blocks, a copy: a failed migration just
+        keeps running here). Sampling needs no extra state: the chunk's
+        draws are a function of (seed, tokens generated), which the
+        snapshot carries."""
+        with self._lock:
+            req = self._requests[request_id]
+            if req.state != RequestState.RUNNING:
+                raise ValueError(
+                    f"export_request: {request_id!r} is {req.state}, "
+                    f"not running")
+            payload, num_tokens = self.cache.export_blocks(request_id)
+            if req.pf_target and req.prefill_pos < req.pf_target:
+                valid = req.prefill_pos
+            else:
+                valid = len(req.prompt_ids) \
+                    + max(0, len(req.output_ids) - 1)
+            if num_tokens != valid:
+                raise ValueError(
+                    f"export_request: {request_id!r} cache length "
+                    f"{num_tokens} != written KV {valid}: not at a clean "
+                    f"step boundary")
+            return {
+                "request_id": request_id,
+                "model": self.config.model,
+                "revision": self.config.revision,
+                "prompt_ids": np.array(req.prompt_ids, np.int32),
+                "params": req.params,
+                "arrival": req.arrival,
+                "arrival_time": req.arrival_time,
+                "first_token_time": req.first_token_time,
+                "last_token_time": req.last_token_time,
+                "output_ids": list(req.output_ids),
+                "pf_target": req.pf_target,
+                "prefill_pos": req.prefill_pos,
+                "trace_id": req.trace_id,
+                "payload": payload,
+                "num_tokens": num_tokens,
+                "blocks": len(self.cache.block_table(request_id)),
+                "bytes": self.cache.payload_bytes(payload),
+            }
+
+    def admit_migrated(self, snap: dict) -> str:
+        """Destination half of a migration: import the payload into fresh
+        private blocks, register its written prefix in this engine's trie
+        and adopt the request straight into the running set (no
+        re-prefill; FCFS ticket and deadline clock kept). Raises
+        ValueError for a payload keyed to other weights and
+        CacheExhausted, with no side effects, when the pool or the
+        sequence slots cannot hold it. Returns this engine's obs
+        label."""
+        rid = snap["request_id"]
+        key = (snap.get("model", self.config.model),
+               snap.get("revision", self.config.revision))
+        if key != (self.config.model, self.config.revision):
+            raise ValueError(
+                f"admit_migrated: {rid!r} payload is keyed {key} but this "
+                f"engine serves {(self.config.model, self.config.revision)}"
+                f": cross-revision KV refused")
+        with self._lock:
+            old = self._requests.get(rid)
+            if old is not None and not old.finished:
+                raise ValueError(f"admit_migrated: {rid!r} already live "
+                                 f"here")
+            req = Request(request_id=rid, prompt_ids=snap["prompt_ids"],
+                          params=snap["params"],
+                          arrival_time=snap["arrival_time"])
+            req.arrival = snap["arrival"]
+            req.trace_id = snap["trace_id"]
+            req.output_ids = list(snap["output_ids"])
+            req.pf_target = snap["pf_target"]
+            req.prefill_pos = snap["prefill_pos"]
+            req.first_token_time = snap["first_token_time"]
+            req.last_token_time = snap["last_token_time"]
+            worst = len(req.prompt_ids) + req.params.max_tokens
+            if self.cache.blocks_needed(worst) > self.cache.num_blocks:
+                raise ValueError(
+                    f"admit_migrated: {rid!r} can never fit this pool "
+                    f"({self.cache.blocks_needed(worst)} blocks at its "
+                    f"longest vs {self.cache.num_blocks} total)")
+            # the decode packing is max_num_seqs rows: sequence slots
+            # exhaust with the same clean-abort signal as blocks
+            live = sum(1 for r in self.scheduler.running if not r.finished)
+            if live >= self.config.max_num_seqs:
+                raise CacheExhausted(rid, 1, 0, self.config.max_num_seqs,
+                                     what="sequence slot")
+            self.cache.import_blocks(rid, snap["payload"],
+                                     snap["num_tokens"])
+            self.scheduler.adopt_running(req)
+            if self.cache.prefix_index is not None and snap["num_tokens"]:
+                self.cache.register_prefix(
+                    rid, req.all_token_ids()[:snap["num_tokens"]])
+            self._requests[rid] = req
+            self._rngs[rid] = np.random.RandomState(
+                req.params.seed & 0x7FFFFFFF)
+            return self.stats.label
+
+    def release_migrated(self, request_id: str) -> None:
+        """Source half, after the destination committed: detach the
+        request (MIGRATED, terminal here, no finish output) and free its
+        blocks through the completion path."""
+        with self._lock:
+            req = self._requests[request_id]
+            if req.state != RequestState.RUNNING:
+                raise ValueError(
+                    f"release_migrated: {request_id!r} is {req.state}, "
+                    f"not running")
+            self.scheduler.release_running(req)
+            self._rngs.pop(request_id, None)
+
+    def abort_migrated(self, request_id: str) -> None:
+        """Destination rollback of a migration that failed after
+        admit_migrated: drop the adopted request and free its imported
+        blocks."""
+        with self._lock:
+            req = self._requests.pop(request_id, None)
+            self._rngs.pop(request_id, None)
+            if req is not None and req.state == RequestState.RUNNING:
+                self.scheduler.abort_adopted(req)
+
+    def release_waiting(self, request_id: str) -> Optional[Request]:
+        """Drain evacuation of queued work: pull a waiting request out
+        without a terminal output (the router re-dispatches it from its
+        token log). Returns it, or None when it is not waiting."""
+        with self._lock:
+            req = self.scheduler.remove_waiting(request_id)
+            if req is not None:
+                self._rngs.pop(request_id, None)
+            return req
+
+    # --------------------------------------------------- peer prefix fetch
+    def prefix_probe(self, prompt_ids) -> int:
+        """Leading tokens of `prompt_ids` this engine could serve from its
+        prefix cache, both tiers (device match + promotable host run)."""
+        with self._lock:
+            toks = np.asarray(prompt_ids, np.int32).reshape(-1)
+            return self.cache.match_len(toks) \
+                + self.cache.host_match_len(toks)
+
+    def export_prefix(self, prompt_ids) -> Optional[dict]:
+        """Donor half of a peer prefix fetch: the longest cached
+        full-block prefix of `prompt_ids` (both tiers, digests included),
+        keyed by this engine's (model, revision). None when nothing
+        matches."""
+        with self._lock:
+            snap = self.cache.export_prefix(
+                np.asarray(prompt_ids, np.int32).reshape(-1))
+            if snap is not None:
+                snap["model"] = self.config.model
+                snap["revision"] = self.config.revision
+            return snap
+
+    def admit_prefix(self, prompt_ids, blocks, model: str = None,
+                     revision: str = None) -> int:
+        """Receiver half: verify and install a peer's prefix snapshot as
+        cached (evictable) blocks. ValueError on a digest mismatch or a
+        payload keyed to other weights, CacheExhausted when the pool
+        cannot hold it; nothing is mutated in either case."""
+        key = (self.config.model if model is None else model,
+               self.config.revision if revision is None else revision)
+        if key != (self.config.model, self.config.revision):
+            raise ValueError(
+                f"admit_prefix: payload keyed {key} but this engine "
+                f"serves {(self.config.model, self.config.revision)}: "
+                f"cross-revision prefix refused")
+        with self._lock:
+            return self.cache.admit_prefix(
+                np.asarray(prompt_ids, np.int32).reshape(-1), blocks)
+
     # ---------------------------------------------------------- sampling
     def _sample(self, req: Request, logits: np.ndarray) -> int:
         """Host-side first-token sampling (the JAX engine's, unchanged)."""
@@ -765,7 +1002,8 @@ class LLMEngine:
             req.first_token_time = now
             self.stats.observe_ttft(now - req.arrival_time)
             obs.reqtrace.record("first_token", req.tid, req.request_id,
-                                ttft_s=now - req.arrival_time)
+                                ttft_s=now - req.arrival_time,
+                                **self._rev_tag)
         else:
             self.stats.observe_token_gap(now - req.last_token_time)
         req.last_token_time = now
@@ -787,7 +1025,8 @@ class LLMEngine:
             self.stats.latency_sum += now - req.arrival_time
             self.stats.observe_latency(now - req.arrival_time)
             obs.reqtrace.record("finish", req.tid, req.request_id,
-                                reason=reason, tokens=len(req.output_ids))
+                                reason=reason, tokens=len(req.output_ids),
+                                **self._rev_tag)
         outs.append(RequestOutput(req.request_id, tok,
                                   list(req.output_ids), finished, reason))
 
@@ -804,7 +1043,8 @@ class LLMEngine:
         outs.append(RequestOutput(req.request_id, None,
                                   list(req.output_ids), True, reason))
         obs.reqtrace.record("finish", req.tid, req.request_id,
-                            reason=reason, tokens=len(req.output_ids))
+                            reason=reason, tokens=len(req.output_ids),
+                            **self._rev_tag)
 
     def _expire_and_abort(self, outs: List[RequestOutput]) -> None:
         """Step-boundary deadline enforcement: expire queued requests
@@ -818,7 +1058,7 @@ class LLMEngine:
                                       list(req.output_ids), True,
                                       "timeout"))
             obs.reqtrace.record("finish", req.tid, req.request_id,
-                                reason="timeout")
+                                reason="timeout", **self._rev_tag)
         for req in self.scheduler.overdue_running(now):
             self.stats.timeouts += 1
             self._finish_abnormal(req, RequestState.FINISHED_TIMEOUT,
@@ -979,7 +1219,8 @@ class LLMEngine:
                                     "decode_chunk", req.tid,
                                     req.request_id, n=n_emit,
                                     total=len(req.output_ids),
-                                    finished=req.finished)
+                                    finished=req.finished,
+                                    **self._rev_tag)
             step_ev.args = {"step": step_no, "outputs": len(outs),
                             "errors": self.stats.errors,
                             "expired": self.stats.expired,
@@ -1092,7 +1333,8 @@ class LLMEngine:
     def run(self, max_steps: int = None) -> Dict[str, np.ndarray]:
         """Drive every queued request to completion; returns
         {request_id: np.ndarray of generated token ids} (cancelled
-        requests excluded)."""
+        requests excluded, and migrated-out ones, whose stream finishes
+        on another engine)."""
         steps = 0
         while self.has_unfinished():
             self.step()
@@ -1103,7 +1345,8 @@ class LLMEngine:
         with self._lock:
             return {rid: np.asarray(r.output_ids, np.int64)
                     for rid, r in self._requests.items()
-                    if r.state != RequestState.CANCELLED}
+                    if r.state not in (RequestState.CANCELLED,
+                                       RequestState.MIGRATED)}
 
 
 class ServingPredictor:

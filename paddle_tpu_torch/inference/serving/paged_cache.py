@@ -54,9 +54,15 @@ reconciles each tenant's lifetime insertions and removals with its live
 census, and a failed audit triggers the flight recorder
 (obs/reqtrace.py) before it raises.
 
-Left out (slice 7, with migration): KV export and peer prefix fetch
-(`export_blocks`, `import_blocks`, `export_prefix`, `admit_prefix`,
-`payload_bytes` raise NotImplementedError).
+Migration and peer prefix fetch (inference/serving/migration.py):
+`export_blocks` gathers one sequence's blocks into a payload (a copy,
+the source untouched) and `import_blocks` scatters it into freshly
+claimed blocks of another pool; `export_prefix` / `admit_prefix` move a
+cached prefix, digest-checked, from a peer's trie into this one. In
+int8 mode the payloads are the logical f32 content of only the blocks
+they name (decoded as the `pools` getter would), and an import
+re-encodes only the destination's new blocks, so neither direction
+materialises a whole dequantized pool.
 """
 from __future__ import annotations
 
@@ -90,12 +96,6 @@ class CacheExhausted(RuntimeError):
         super().__init__(
             f"KV {what} pool exhausted: seq {seq_id!r} needs {needed} "
             f"{what}(s), {free}/{total} free")
-
-
-def _later_slice(what: str):
-    raise NotImplementedError(
-        f"PagedKVCache.{what} (KV migration / peer prefix fetch) is not "
-        f"ported yet")
 
 
 class PagedKVCache:
@@ -772,21 +772,150 @@ class PagedKVCache:
              kv_quant.dequantize_blocks(qv[at], sv[at]))
             for (qk, qv), (sk, sv) in zip(self._qpools, self._scales)])
 
-    # ------------------------------------------- migration (later slice)
-    def export_blocks(self, seq_id):
-        _later_slice("export_blocks")
+    def _gather_f32(self, ids) -> tuple:
+        """L-tuple of (k, v) [len(ids), bs, H, D]: the logical content of
+        blocks `ids` (int8 mode: decoded as the `pools` getter would, for
+        those blocks only). A copy."""
+        at = self._index(ids)
+        if self._qpools is None:
+            return tuple((kp[at], vp[at]) for kp, vp in self._pools)
+        return tuple(
+            (kv_quant.dequantize_blocks(qk[at], sk[at]),
+             kv_quant.dequantize_blocks(qv[at], sv[at]))
+            for (qk, qv), (sk, sv) in zip(self._qpools, self._scales))
 
-    def import_blocks(self, seq_id, payload, num_tokens: int):
-        _later_slice("import_blocks")
+    # ---------------------------------------------------- block migration
+    @torch.no_grad()
+    def export_blocks(self, seq_id) -> Tuple[tuple, int]:
+        """Snapshot one sequence's KV payload for migration to another
+        pool: an L-tuple of (k, v) tensors on this pool's device, each
+        [len(table), block_size, H, D], gathered per layer. The snapshot
+        is a COPY: the source's table, refcounts and trie entries are
+        untouched, so shared and trie-cached blocks are copied out,
+        never stolen. Returns (payload, num_tokens); at a clean step
+        boundary every one of the sequence's num_tokens positions holds
+        written KV."""
+        table = self._tables[seq_id]
+        if not table:
+            return tuple((None, None) for _ in range(self.num_layers)), \
+                self._lens[seq_id]
+        return self._gather_f32(table), self._lens[seq_id]
 
-    def payload_bytes(self, payload):
-        _later_slice("payload_bytes")
+    @torch.no_grad()
+    def import_blocks(self, seq_id, payload, num_tokens: int) -> List[int]:
+        """Admit a migrated sequence's KV payload (export_blocks of a pool
+        of the same geometry): claim fresh private blocks, scatter the
+        payload into them (int8 mode: encoded from the fresh blocks' zero
+        scales, as the reference's setter would), and install the table
+        at `num_tokens`. Raises CacheExhausted with no side effects when
+        the pool cannot hold the table. The caller registers the clean
+        prefix afterwards (register_prefix)."""
+        if seq_id in self._tables:
+            raise ValueError(f"seq {seq_id!r} already allocated")
+        n = 0 if payload[0][0] is None else int(payload[0][0].shape[0])
+        if n < self.blocks_needed(num_tokens):
+            raise ValueError(
+                f"migration payload holds {n} block(s) but {num_tokens} "
+                f"tokens need {self.blocks_needed(num_tokens)}")
+        ids = self._take_blocks(seq_id, n) if n else []
+        if n:
+            self._put_f32(ids, [(k.to(self.device), v.to(self.device))
+                                for k, v in payload])
+        self._tables[seq_id] = ids
+        self._lens[seq_id] = num_tokens
+        return ids
 
-    def export_prefix(self, tokens):
-        _later_slice("export_prefix")
+    def payload_bytes(self, payload) -> int:
+        """Wire size of an export_blocks payload."""
+        return sum(a.numel() * a.element_size()
+                   for pair in payload for a in pair if a is not None)
 
-    def admit_prefix(self, tokens, blocks):
-        _later_slice("admit_prefix")
+    # ------------------------------------------------------- peer fetch
+    @torch.no_grad()
+    def export_prefix(self, tokens) -> Optional[dict]:
+        """Snapshot the longest cached full-block prefix of `tokens` for a
+        peer replica (migration.py fetch_prefix), walking both tiers:
+        device blocks are gathered out in one copy per pool tensor and
+        digested now; host entries ship their stored payload after the
+        spill digest re-verifies (a torn entry truncates the export and
+        drops its subtree). Every block ships as f32 numpy pairs, the
+        int8 mode's decoded from its codes and scales. Read-only on the
+        device tier. Returns None when nothing matches, else {"blocks":
+        [(payload, digest), ...] root-ward, "tokens": the tokens they
+        cover, "bytes": wire size}."""
+        idx = self.prefix_index
+        if idx is None or len(tokens) < 2:
+            return None
+        toks = [int(t) for t in tokens[:len(tokens) - 1]]
+        dev_path, host_path = idx.match_tiered(toks)
+        blocks: List[tuple] = []
+        if dev_path:
+            per_layer = [(k.cpu().numpy(), v.cpu().numpy()) for k, v in
+                         self._gather_f32([n.block for n in dev_path])]
+            for i in range(len(dev_path)):
+                payload = tuple((np.array(pk[i]), np.array(pv[i]))
+                                for pk, pv in per_layer)
+                blocks.append((payload, self._payload_digest(payload)))
+        for node in host_path:
+            entry = self.host_tier.get(node.host_id) \
+                if self.host_tier is not None else None
+            if entry is None:
+                self._drop_host_subtree(node)
+                break
+            if self._payload_digest(entry["payload"]) != entry["digest"]:
+                self._drop_host_subtree(node)
+                break
+            payload, digest = entry["payload"], entry["digest"]
+            if self._qpools is not None:
+                # peers admit uniform f32 payloads: decode the verified
+                # quantized spill and digest its wire form fresh
+                payload = self._dequant_payload(payload)
+                digest = self._payload_digest(payload)
+            blocks.append((payload, digest))
+        if not blocks:
+            return None
+        total = sum(k.nbytes + v.nbytes for payload, _ in blocks
+                    for k, v in payload)
+        return {"blocks": blocks,
+                "tokens": toks[:len(blocks) * self.block_size],
+                "bytes": total}
+
+    @torch.no_grad()
+    def admit_prefix(self, tokens, blocks) -> int:
+        """Install a peer's export_prefix snapshot into this pool's trie
+        as device-resident cached blocks (refcount 0, evictable), so the
+        next admission of `tokens` hits locally. Every digest is verified
+        before any block is claimed (ValueError, nothing mutated), and
+        CacheExhausted propagates with no side effects. First-wins insert
+        dedupes against blocks cached meanwhile; a block the trie did not
+        take returns to the free list at once. Returns the number of
+        newly indexed blocks."""
+        idx = self.prefix_index
+        if idx is None:
+            raise ValueError("admit_prefix needs the prefix cache enabled")
+        blocks = list(blocks)
+        if not blocks:
+            return 0
+        for i, (payload, digest) in enumerate(blocks):
+            if self._payload_digest(payload) != digest:
+                raise ValueError(
+                    f"peer prefix block {i} failed integrity check")
+        ids = self._take_blocks("_peer_fetch", len(blocks))
+        self._put_f32(ids, [
+            (torch.from_numpy(np.stack([p[li][0] for p, _ in blocks])
+                              ).to(self.device),
+             torch.from_numpy(np.stack([p[li][1] for p, _ in blocks])
+                              ).to(self.device))
+            for li in range(self.num_layers)])
+        toks = [int(t) for t in tokens[:len(blocks) * self.block_size]]
+        added = idx.insert(toks, ids, skip=lambda b: b in self._tainted)
+        for b in ids:
+            if idx.node_of(b) is None:
+                # first-wins dedupe kept an existing block instead
+                self._give_back(b)
+            else:
+                self._refcount[b] = 0    # trie-cached, unreferenced
+        return added
 
     # ---------------------------------------------------------- freeing
     def _distrust(self, b: int, to_scrub: List[int]) -> None:

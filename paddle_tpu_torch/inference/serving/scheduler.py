@@ -46,17 +46,23 @@ Every admission, prefix match, promotion, demotion, preemption and
 requeue is recorded in the request-trace ring (obs/reqtrace.py) under
 the request's trace id, from host values the scheduler already holds.
 
-Left out (a later slice, with the router): migration (`readmit`,
-`adopt_running`, `release_running`, `remove_waiting`,
-`abort_adopted`, `running_requests`).
+The fleet (router.py, migration.py) moves requests between schedulers:
+`readmit` inserts a failed-over request at its original arrival
+position, `adopt_running` installs a migrated one (its blocks already
+imported) straight into the running set, `release_running` and
+`remove_waiting` detach a request that now lives elsewhere (state
+MIGRATED, terminal for this scheduler), and `abort_adopted` rolls back
+an adoption whose migration failed.
 
 The scheduler only does host-side accounting; the engine owns the
-device work and serialises every call into the scheduler under its own
-lock.
+device work and calls the scheduler under its own lock. The scheduler's
+own lock (taken by `schedule` and the fleet's entry points, lock order
+engine -> scheduler) keeps the reference's lock order.
 """
 from __future__ import annotations
 
 import itertools
+import threading
 from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -123,9 +129,9 @@ class SamplingParams:
     request (queue + decode) from arrival, queue_ttl_s only its wait in
     the queue; either ends it with finish_reason 'timeout'. tenant names
     the tenant whose share the request spends, resolved against the
-    engine's TenantRegistry (ignored without one). model is ignored, as
-    the reference ignores it on a stack without a model registry (not
-    ported)."""
+    engine's TenantRegistry (ignored without one). model picks the
+    model pool of a ReplicaSet built over a ModelRegistry (deploy.py);
+    a single engine ignores it."""
     max_tokens: int = 16
     temperature: float = 0.0
     top_k: int = 0
@@ -147,9 +153,12 @@ class RequestState:
     FINISHED_SHED = "finished_shed"          # evicted by admission control
     FINISHED_ERROR = "finished_error"        # quarantined by the watchdog
     CANCELLED = "cancelled"
+    MIGRATED = "migrated"                    # handed off to another engine
 
+    # terminal for THIS engine: a MIGRATED request lives on at its
+    # destination (the router's record follows it there)
     FINISHED = (FINISHED_STOPPED, FINISHED_LENGTH, FINISHED_TIMEOUT,
-                FINISHED_SHED, FINISHED_ERROR, CANCELLED)
+                FINISHED_SHED, FINISHED_ERROR, CANCELLED, MIGRATED)
 
 
 _arrival_counter = itertools.count()
@@ -266,6 +275,7 @@ class Scheduler:
         # rate of the deadline early reject; 0.0 until the first step
         self._step_ewma = 0.0
         self.deadline_rejects = 0
+        self._lock = threading.RLock()
 
     # ------------------------------------------------------------- intake
     def add(self, req: Request) -> List[Request]:
@@ -299,6 +309,88 @@ class Scheduler:
         self.waiting.append(req)
         self._note_tenant(req)
         return shed
+
+    def _check_fits(self, req: Request) -> None:
+        worst = len(req.prompt_ids) + req.params.max_tokens
+        if self.cache.blocks_needed(worst) > self.cache.num_blocks:
+            raise ValueError(
+                f"request {req.request_id!r} needs "
+                f"{self.cache.blocks_needed(worst)} blocks at its longest"
+                f" ({worst} tokens) but the pool only has "
+                f"{self.cache.num_blocks}")
+
+    def readmit(self, req: Request) -> None:
+        """Failover re-admission: insert a request recovered from a
+        failed replica at its ORIGINAL arrival position (the arrival-
+        ordered requeue of preemption, across engines). Bypasses
+        max_waiting: the bound is backpressure against new arrivals, and
+        bouncing recovered in-flight work would lose it."""
+        self._check_fits(req)
+        with self._lock:
+            self._requeue(req)
+            self._note_tenant(req)
+
+    # ----------------------------------------------------- block migration
+    def adopt_running(self, req: Request) -> None:
+        """Migration admission: install an in-flight request straight
+        into the running set. Its KV blocks were imported already
+        (PagedKVCache.import_blocks), so nothing re-prefills: the next
+        schedule() reserves its decode chunk. Bypasses max_waiting, as
+        readmit does."""
+        self._check_fits(req)
+        if not self.cache.has_seq(req.request_id):
+            raise ValueError(
+                f"adopt_running: seq {req.request_id!r} has no imported "
+                f"cache state; import_blocks must run first")
+        with self._lock:
+            req.slot = None
+            req.state = RequestState.RUNNING
+            self.running.append(req)
+            self._note_tenant(req)
+
+    def release_running(self, req: Request) -> None:
+        """Migration release (source side): detach a RUNNING request whose
+        payload the destination committed. Its blocks are freed through
+        the completion path (the written prefix registers, so the source
+        trie keeps its entries and shared blocks drop one reference). No
+        terminal output: the request lives on elsewhere."""
+        with self._lock:
+            self.running.remove(req)
+            self.cache.free(req.request_id,
+                            cache_tokens=self._cache_tokens(req))
+            req.slot = None
+            req.state = RequestState.MIGRATED
+
+    def remove_waiting(self, request_id: str) -> Optional[Request]:
+        """Pull a WAITING request out of the queue without a terminal
+        state (drain evacuation: queued work has no KV, so the router
+        re-dispatches it from its token log). Returns it, or None when it
+        is not waiting."""
+        with self._lock:
+            for req in list(self.waiting):
+                if req.request_id == request_id:
+                    self.waiting.remove(req)
+                    req.state = RequestState.MIGRATED
+                    return req
+            return None
+
+    def abort_adopted(self, req: Request) -> None:
+        """Roll back an adopt_running whose migration failed before the
+        source released: drop the request and free its imported blocks
+        without registering a prefix (it never decoded here)."""
+        with self._lock:
+            if req in self.running:
+                self.running.remove(req)
+            if self.cache.has_seq(req.request_id):
+                self.cache.free(req.request_id)
+            req.slot = None
+            req.state = RequestState.MIGRATED
+
+    def running_requests(self) -> List[Request]:
+        """Snapshot of the running set (the migration coordinator scans
+        it at step boundaries)."""
+        with self._lock:
+            return list(self.running)
 
     def shed_oldest(self) -> Optional[Request]:
         """Evict the oldest waiting request; returns it with state
@@ -564,6 +656,10 @@ class Scheduler:
 
     # ---------------------------------------------------------- schedule
     def schedule(self) -> ScheduledBatch:
+        with self._lock:
+            return self._schedule_locked()
+
+    def _schedule_locked(self) -> ScheduledBatch:
         batch = ScheduledBatch()
         # 1. decode slots, earliest arrival first; preempt from the back.
         # Each sequence reserves its whole next chunk (capped by its

@@ -16,6 +16,16 @@
   `replay_admissions` runs the same traffic through a scheduler alone
   (no model) and returns the admission order the engine must take.
 
+- the fleet's traffic (ReplicaSet, router.py), shaped like
+  tools/load_suite.py's fleet scenarios at the serving bench's widths:
+  `fleet_traffic` (replica_kill, and the rolling deploy's live
+  traffic), `disagg_traffic` (disagg: a decode floor of mixed greedy
+  and sampled requests plus long prompts) and `diurnal_traffic`
+  (autoscale_diurnal: trickle, burst, trickle); `drive_fleet` submits
+  each request at its router step, and `migration_ab` is the controlled
+  A/B of a live drain: the same requests decoded in place and after
+  `drain(index, recompute=False)` moved them to an empty replica.
+
 chip_smoke.py and profile_serving.py drive the engine with these.
 """
 from __future__ import annotations
@@ -29,11 +39,14 @@ from ..inference.serving import EngineConfig, LLMEngine, SamplingParams
 __all__ = ["bench_traffic", "drive_engine", "prefix_traffic",
            "tiered_traffic", "drive_arrivals", "TENANTS", "TENANT_ENGINE",
            "tenant_traffic", "make_tenant_registry", "drive_tenants",
-           "replay_admissions"]
+           "replay_admissions", "fleet_traffic", "disagg_traffic",
+           "diurnal_traffic", "drive_fleet", "migration_ab"]
 
 Arrival = Tuple[int, np.ndarray, int]        # (step, prompt, max_tokens)
 # (step, prompt, max_tokens, tenant)
 TenantArrival = Tuple[int, np.ndarray, int, str]
+# (router step, prompt, SamplingParams keyword arguments)
+FleetArrival = Tuple[int, np.ndarray, dict]
 
 
 def bench_traffic(vocab: int, seed: int, n_req: int = 16, p_lo: int = 64,
@@ -338,4 +351,165 @@ def replay_admissions(arrivals: List[TenantArrival], ecfg: EngineConfig,
     out["steps"] = step
     out["scheduled"] = [e.request_id for e in reqtrace.events(prefix=prefix)
                         if e.kind == "scheduled"]
+    return out
+
+
+# ------------------------------------------------------------------ fleet
+def fleet_traffic(vocab: int, seed: int, n: int = 24, p_lo: int = 64,
+                  p_hi: int = 256, t_lo: int = 32, t_hi: int = 64
+                  ) -> List[FleetArrival]:
+    """load_suite's replica_kill mix at the serving bench's prompt
+    lengths: n greedy requests, prompts of p_lo..p_hi tokens, t_lo..t_hi
+    new tokens (bounds inclusive), request i at router step 2 * i."""
+    rng = np.random.RandomState(seed)
+    return [(2 * i, rng.randint(1, vocab, (int(rng.randint(
+        p_lo, p_hi + 1)),), dtype=np.int32),
+        dict(max_tokens=int(rng.randint(t_lo, t_hi + 1))))
+        for i in range(n)]
+
+
+def disagg_traffic(vocab: int, seed: int, n_floor: int = 12,
+                   floor_len: int = 64, f_lo: int = 128, f_hi: int = 192,
+                   n_long: int = 6, l_lo: int = 512, l_hi: int = 768,
+                   lt_lo: int = 16, lt_hi: int = 32) -> List[FleetArrival]:
+    """load_suite's disagg (its mixed_prefill_decode layout) at the
+    serving bench's widths: a decode floor of n_floor requests with
+    fixed floor_len-token prompts and f_lo..f_hi new tokens at router
+    steps 0, 2, 4, ..., every other one sampled (temperature 0.8, top_k
+    50, its own seed) and the rest greedy; then n_long long prompts of
+    l_lo..l_hi tokens asking lt_lo..lt_hi new tokens at steps 3, 5, ...
+    (bounds inclusive)."""
+    rng = np.random.RandomState(seed)
+    arr: List[FleetArrival] = []
+    for i in range(n_floor):
+        kw = dict(max_tokens=int(rng.randint(f_lo, f_hi + 1)))
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50,
+                      seed=int(rng.randint(1, 2 ** 31 - 1)))
+        arr.append((2 * i, rng.randint(1, vocab, (floor_len,),
+                                       dtype=np.int32), kw))
+    for j in range(n_long):
+        arr.append((3 + 2 * j, rng.randint(1, vocab, (int(rng.randint(
+            l_lo, l_hi + 1)),), dtype=np.int32),
+            dict(max_tokens=int(rng.randint(lt_lo, lt_hi + 1)))))
+    return arr
+
+
+def diurnal_traffic(vocab: int, seed: int, trickle: int = 4,
+                    burst: int = 24, p_lo: int = 64, p_hi: int = 256,
+                    t_lo: int = 16, t_hi: int = 32) -> List[FleetArrival]:
+    """load_suite's autoscale_diurnal shape: `trickle` requests one every
+    6 router steps (night), then `burst` requests at one step (noon),
+    then another trickle (evening). Greedy; prompts p_lo..p_hi,
+    t_lo..t_hi new tokens (bounds inclusive)."""
+    rng = np.random.RandomState(seed)
+
+    def req(step):
+        return (step, rng.randint(1, vocab, (int(rng.randint(
+            p_lo, p_hi + 1)),), dtype=np.int32),
+            dict(max_tokens=int(rng.randint(t_lo, t_hi + 1))))
+
+    arr = [req(6 * i) for i in range(trickle)]
+    arr += [req(6 * trickle) for _ in range(burst)]
+    arr += [req(6 * (trickle + i + 2)) for i in range(trickle)]
+    return arr
+
+
+def drive_fleet(rs, arrivals: List[FleetArrival], max_steps: int = 20000,
+                before_step: Optional[Callable[[int], None]] = None,
+                after_step: Optional[Callable[[int], None]] = None,
+                model: Optional[str] = None):
+    """Submit each arrival to the ReplicaSet `rs` at its router step
+    (arrivals due at or before a step are submitted before it) and step
+    until every request is terminal. `before_step(i)` / `after_step(i)`
+    run around router step
+    i; `model` names the model pool of a registry-built fleet. Idles
+    2 ms a step while the only pending work is a restart backoff.
+    Returns the request ids in the order of `arrivals`."""
+    import time
+    from ..inference.serving import SamplingParams
+    order = sorted(range(len(arrivals)), key=lambda i: arrivals[i][0])
+    rids: List[Optional[str]] = [None] * len(arrivals)
+    extra = {} if model is None else {"model": model}
+    nxt = step = 0
+    while nxt < len(order) or rs.has_unfinished():
+        while nxt < len(order) and arrivals[order[nxt]][0] <= step:
+            _, p, kw = arrivals[order[nxt]]
+            rids[order[nxt]] = rs.add_request(
+                p, SamplingParams(**kw, **extra))
+            nxt += 1
+        if before_step is not None:
+            before_step(step)
+        rs.step()
+        if after_step is not None:
+            after_step(step)
+        step += 1
+        if step > max_steps:
+            raise RuntimeError(
+                f"fleet did not drain within {max_steps} router steps")
+        if not any(r.has_unfinished() for r in rs.replicas) \
+                and rs.has_unfinished():
+            time.sleep(0.002)
+    return rids
+
+
+def migration_ab(model, ecfg: EngineConfig, specs, warm: int,
+                 k: Optional[int] = None, action: str = "drain") -> dict:
+    """The controlled A/B of a live migration. Two identical fleets of
+    two replicas of `ecfg` on the model's device, roles ("mixed",
+    "decode"), so every request is admitted on replica 0 and replica 1
+    stays empty. Both take
+    `specs` ([(prompt, SamplingParams keyword arguments)], at most
+    max_num_seqs of them) and run `warm` router steps; then fleet B
+    migrates (`action` "drain": drain(0, recompute=False) moves every
+    live request to replica 1; "rebalance": rebalance() with the
+    watermark at half of replica 0's measured block use moves its
+    coldest requests) while fleet A leaves them in place, and both
+    run k more router steps (None: until drained). Returns {"a": tokens
+    per request, "b": tokens per request, "migrated": B's committed
+    migrations, "bytes": their payload bytes, "live": requests
+    unfinished at the migration, "homes": their replicas after it,
+    "use": replica 0's block use then, "watermark", "failovers": the
+    replica quarantines in both fleets, "aborted": B's aborted and
+    rolled-back migrations}; a sound migration gives a == b, token for
+    token, with no failover and no abort."""
+    from ..inference.serving import ReplicaSet, RouterConfig, SamplingParams
+    if action not in ("drain", "rebalance"):
+        raise ValueError(f"action must be 'drain' or 'rebalance', got "
+                         f"{action!r}")
+    out = {}
+    for arm in ("a", "b"):
+        rs = ReplicaSet.from_model(
+            model, RouterConfig(num_replicas=2, roles=("mixed", "decode"),
+                                obs_label=f"migration-ab-{arm}"),
+            engine_config=ecfg)
+        rids = [rs.add_request(p, SamplingParams(**kw)) for p, kw in specs]
+        for _ in range(warm):
+            rs.step()
+        if arm == "b":
+            cache = rs.replicas[0].engine.cache
+            use = (cache.num_blocks - cache.num_free()) / cache.num_blocks
+            out.update(live=sum(1 for r in rids
+                                if not rs.get_request(r).finished),
+                       use=use, watermark=None)
+            if action == "drain":
+                rs.drain(0, recompute=False)
+            else:
+                out["watermark"] = use / 2
+                rs.rebalance(watermark=out["watermark"])
+            st = rs.migrator.stats()
+            out.update(migrated=st["migrations"], bytes=st["bytes_moved"],
+                       homes=[rs.get_request(r).replica for r in rids],
+                       aborted=st["aborted"] + st["rolled_back"])
+        steps = 0
+        while (rs.has_unfinished() if k is None else steps < k):
+            rs.step()
+            steps += 1
+        out[arm] = [list(rs.get_request(r).tokens) for r in rids]
+        out["failovers"] = out.get("failovers", 0) + sum(
+            len(r.history) for r in rs.replicas)
+        for audit in rs.check_integrity().values():
+            if audit is None:
+                raise RuntimeError("a replica of the A/B lost its engine")
+        del rs
     return out

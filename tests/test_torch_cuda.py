@@ -101,6 +101,15 @@ PyTorch is installed:
   ModelAverage and Lookahead over 4 Momentum steps within 1e-5 relative
   L2.
 
+- slice 7, the serving fleet: the controlled migration A/B
+  (serving_traffic.migration_ab: greedy and sampled rows moved by
+  drain(0, recompute=False) to an empty replica) on the card in f32 and
+  int8 pools, the moved streams equal to the ones left in place token
+  for token and to the CPU's; a kill -> restart on a tiny 3-replica
+  fleet (chaos_serve.run_chaos_replicas with kill_replica) equal to the
+  CPU's run, with the card's allocated memory after the restart within
+  one pool of its value before the kill.
+
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
 """
@@ -1272,3 +1281,83 @@ def test_optimizer_wrappers_cuda_match_cpu(cuda):
         out[str(dev)] = res
     for a, w in zip(out[str(cuda)], out["cpu"]):
         assert ((a - w).norm() / w.norm()).item() < 1e-5
+
+
+# --------------------------------------------------- slice 7: the fleet
+def _ab_specs(n=6):
+    rng = np.random.RandomState(11)
+    specs = []
+    for i in range(n):
+        kw = dict(max_tokens=40)
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50, seed=1000 + i)
+        specs.append((rng.randint(1, 97, (int(rng.randint(5, 24)),))
+                      .astype(np.int32), kw))
+    return specs
+
+
+@pytest.mark.parametrize("kvdt", ["float32", "int8"])
+def test_migration_ab_is_bitwise_on_card(cuda, kvdt):
+    """Greedy and sampled requests moved mid-decode by drain(0,
+    recompute=False) continue token for token as they do left in place,
+    on the card as on the CPU, and K3 runs every chunk of both arms."""
+    from paddle_tpu_torch.tools.serving_traffic import migration_ab
+    ecfg = EngineConfig(block_size=8, num_blocks=64, max_num_seqs=8,
+                        decode_chunk_size=2, kv_cache_dtype=kvdt)
+    specs = _ab_specs()
+    before = ragged_decode_attention.launches
+    got = migration_ab(_tiny_model(cuda), ecfg, specs, 3, 8)
+    assert ragged_decode_attention.launches > before
+    want = migration_ab(_tiny_model("cpu"), ecfg, specs, 3, 8)
+    assert got["live"] == got["migrated"] == len(specs)
+    assert got["failovers"] == got["aborted"] == 0
+    assert got["homes"] == [1] * len(specs)
+    assert got["a"] == got["b"]
+    assert got["a"] == want["a"] and got["b"] == want["b"]
+
+
+def test_fleet_kill_restart_on_card_matches_cpu(cuda):
+    """A replica killed mid-traffic on a tiny 3-replica fleet on the
+    card: nothing lost, the killed replica rejoins and serves, every
+    report entry equal to the CPU run's, and the dead incarnation's pool
+    freed: allocated memory after the restart within one pool of its
+    value before the kill."""
+    from paddle_tpu_torch.inference.serving import ReplicaSet, RouterConfig
+    from paddle_tpu_torch.testing.faults import ServingFaultInjector
+    from paddle_tpu_torch.tools.chaos_serve import run_chaos_replicas
+    reports = {}
+    for dev in ("cpu", cuda):
+        reports[str(dev)] = run_chaos_replicas(
+            seed=0, n_requests=12, faults="kill_replica@6:1",
+            model=_tiny_model(dev))
+    got, want = reports["cuda"], reports["cpu"]
+    for key in ("fired", "requeues", "finish_reasons", "replica_states",
+                "untouched_survivors", "canaries_served", "integrity"):
+        assert got[key] == want[key], key
+    assert got["requeues"] >= 1 and got["canaries_served"] == 1
+    # the pool of the dead incarnation is freed
+    ecfg = EngineConfig(block_size=8, num_blocks=256, max_num_seqs=4,
+                        decode_chunk_size=2)
+    rs = ReplicaSet.from_model(
+        _tiny_model(cuda), RouterConfig(num_replicas=2, backoff_base=0.01,
+                                        backoff_max=0.02,
+                                        backoff_jitter=0.0),
+        engine_config=ecfg, faults=ServingFaultInjector("kill_replica@2:1"))
+    rng = np.random.RandomState(2)
+    for _ in range(6):
+        rs.add_request(rng.randint(1, 97, (12,)).astype(np.int32),
+                       SamplingParams(max_tokens=24))
+    pool = rs.replicas[1].engine.cache.stored_pools()
+    pool_bytes = sum(t.numel() * t.element_size() for pair in pool
+                     for t in pair)
+    del pool
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    while str(rs.states()[1]) == "up":
+        rs.step()
+    while str(rs.states()[1]) != "up":
+        rs.step()
+    after = torch.cuda.memory_allocated()
+    assert abs(after - before) < pool_bytes
+    rs.run(max_steps=2000)
+    assert rs.router_stats()["unfinished"] == 0

@@ -9,6 +9,7 @@ and create_predictor without the LLM engine raise NotImplementedError.
 """
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.models.generation as jgen
@@ -22,6 +23,14 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 VOCAB = 97
 GEOM_KW = dict(vocab_size=VOCAB, hidden_size=32, num_layers=2, num_heads=4,
                max_seq_len=24)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

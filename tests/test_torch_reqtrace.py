@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.inference.serving.engine as jengine_mod
@@ -41,6 +42,14 @@ GEOM_KW = dict(vocab_size=VOCAB, hidden_size=32, num_layers=2, num_heads=4,
                max_seq_len=24)
 # attributes that are wall-clock readings (everything else must match)
 TIME_ATTRS = ("ttft_s", "seconds", "estimate_s", "retry_after_s")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,14 @@ GEOM_KW = dict(vocab_size=VOCAB, hidden_size=32, num_layers=2, num_heads=4,
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def models():
     paddle.seed(0)
@@ -243,19 +251,80 @@ def test_scrub_zeroes_freed_blocks():
 
 
 def test_unported_cache_modes_raise():
-    """The prefix cache, host tier and int8 pools are ported (their own
-    test files); KV migration and peer prefix fetch are not, and raise."""
-    pc = PagedKVCache(1, 1, 2, num_blocks=4, block_size=2, device="cpu",
-                      enable_prefix_cache=True, host_tier_blocks=4,
-                      kv_cache_dtype="int8")
-    pc.allocate("a", 3)
-    for call in (lambda: pc.export_blocks("a"),
-                 lambda: pc.import_blocks("b", None, 3),
-                 lambda: pc.payload_bytes(None),
-                 lambda: pc.export_prefix(np.arange(5)),
-                 lambda: pc.admit_prefix(np.arange(5), [])):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    """KV migration and peer prefix fetch, the last cache modes to be
+    ported (slice 7), against the JAX cache in f32 and int8 pools:
+    export_blocks gives the JAX payload bit for bit, import_blocks leaves
+    the stored pool (int8: codes and scales) the JAX import leaves,
+    payload_bytes agrees, and export_prefix / admit_prefix ship and
+    install the same blocks, digests and tokens. Nothing raises
+    NotImplementedError any more."""
+    rng = np.random.RandomState(4)
+    shape = (8, 2, 2, 4)                     # blocks, block size, H, D
+    raw = [(rng.randn(*shape).astype(np.float32),
+            rng.randn(*shape).astype(np.float32)) for _ in range(2)]
+
+    def stored(c):
+        if isinstance(c, PagedKVCache):
+            return [np.asarray(a) for pair in c.stored_pools()
+                    for a in (pair if c._qpools is None
+                              else (*pair[0], *pair[1]))]
+        if c._qpools is None:
+            return [np.asarray(a) for pair in c._pools for a in pair]
+        return [np.asarray(a) for q, sc in zip(c._qpools, c._scales)
+                for a in (*q, *sc)]
+
+    def bits(a):
+        a = np.asarray(a)
+        return a.view(np.int32) if a.dtype == np.float32 else a
+
+    for kvdt in ("float32", "int8"):
+        kw = dict(enable_prefix_cache=True, kv_cache_dtype=kvdt)
+        t = PagedKVCache(2, 2, 4, 8, 2, device="cpu", **kw)
+        j = JPagedKVCache(2, 2, 4, 8, 2, **kw)
+        for c in (t, j):
+            c.allocate("a", 5)
+        t.pools = tuple((torch.from_numpy(k), torch.from_numpy(v))
+                        for k, v in raw)
+        j.pools = tuple((jnp.asarray(k), jnp.asarray(v)) for k, v in raw)
+        (tp, tn), (jp, jn) = t.export_blocks("a"), j.export_blocks("a")
+        assert tn == jn == 5
+        for (tk, tv), (jk, jv) in zip(tp, jp):
+            np.testing.assert_array_equal(bits(tk.numpy()), bits(jk))
+            np.testing.assert_array_equal(bits(tv.numpy()), bits(jv))
+        assert t.payload_bytes(tp) == j.payload_bytes(jp) == 2 * 2 * 3 * 64
+        # import into a fresh pool of each package (one block taken
+        # first, so the import lands on other block ids than the source)
+        t2 = PagedKVCache(2, 2, 4, 8, 2, device="cpu", **kw)
+        j2 = JPagedKVCache(2, 2, 4, 8, 2, **kw)
+        for c, p in ((t2, tp), (j2, jp)):
+            c.allocate("x", 1)
+            assert c.import_blocks("a", p, 5) == [1, 2, 3]
+            c.check_integrity()
+        for a, b in zip(stored(t2), stored(j2)):
+            np.testing.assert_array_equal(bits(a), bits(b))
+        # peer prefix fetch: the finished sequence's blocks, cached
+        toks = np.arange(1, 6, dtype=np.int32)
+        for c in (t, j):
+            c.free("a", cache_tokens=toks[:4])
+        te = t.export_prefix(np.arange(1, 7, dtype=np.int32))
+        je = j.export_prefix(np.arange(1, 7, dtype=np.int32))
+        assert te["tokens"] == je["tokens"] == [1, 2, 3, 4]
+        assert te["bytes"] == je["bytes"]
+        assert len(te["blocks"]) == len(je["blocks"]) == 2
+        for (tpay, tdig), (jpay, jdig) in zip(te["blocks"], je["blocks"]):
+            assert tdig == jdig
+            for (tk, tv), (jk, jv) in zip(tpay, jpay):
+                assert tk.dtype == np.float32
+                np.testing.assert_array_equal(bits(tk), bits(jk))
+                np.testing.assert_array_equal(bits(tv), bits(jv))
+        peer_t = PagedKVCache(2, 2, 4, 8, 2, device="cpu", **kw)
+        peer_j = JPagedKVCache(2, 2, 4, 8, 2, **kw)
+        assert peer_t.admit_prefix(te["tokens"], te["blocks"]) == \
+            peer_j.admit_prefix(je["tokens"], je["blocks"]) == 2
+        peer_t.check_integrity()
+        for a, b in zip(stored(peer_t), stored(peer_j)):
+            np.testing.assert_array_equal(bits(a), bits(b))
+        assert peer_t.match_len(np.arange(1, 7)) == 4
 
 
 # ------------------------------------------------------- engine parity
@@ -524,10 +593,24 @@ def test_chip_smoke_phases_run_on_cpu_at_tiny_size():
 
 
 def test_unported_engine_options_raise(models):
+    """EngineConfig.model and revision are ported (slice 7): an engine
+    keyed ("m1", "r1") stamps its key on the KV it exports, and an
+    engine serving other weights refuses that payload, as the JAX
+    engine does. An unknown kernel still raises."""
     _, tm = models
-    for key in ({"model": "m1"}, {"revision": "r1"}):
-        with pytest.raises(NotImplementedError):
-            LLMEngine.from_model(tm, EngineConfig(block_size=4, **key),
-                                 device="cpu")
+    src = LLMEngine.from_model(
+        tm, EngineConfig(block_size=4, model="m1", revision="r1"),
+        device="cpu")
+    rid = src.add_request(np.arange(1, 6, dtype=np.int32),
+                          SamplingParams(max_tokens=4))
+    src.step()
+    snap = src.export_request(rid)
+    assert (snap["model"], snap["revision"]) == ("m1", "r1")
+    for key in ({}, {"model": "m1"}, {"revision": "r1"}):
+        dst = LLMEngine.from_model(tm, EngineConfig(block_size=4, **key),
+                                   device="cpu")
+        with pytest.raises(ValueError, match="cross-revision"):
+            dst.admit_migrated(snap)
+        assert dst.cache.num_free() == dst.cache.num_blocks
     with pytest.raises(ValueError):
         _engine(tm, kernel="pallas")

@@ -71,6 +71,7 @@ NO_COUNTERPART = {
     "paddle_tpu_torch.ops.kernels",
     "paddle_tpu_torch.ops.kernels._build",
     "paddle_tpu_torch.tools",
+    "paddle_tpu_torch.tools.chaos_serve",
     "paddle_tpu_torch.tools.fused_conv_proto",
     "paddle_tpu_torch.tools.engine_bench",
     "paddle_tpu_torch.tools.k3_sweep",
@@ -440,18 +441,7 @@ UNPORTED = {
     "fused_scale_relu_matmul.bm": lambda: _k4(bm=256),
     "define_flag.public": lambda: paddle_tpu_torch.core.flags.define_flag(
         "unported_probe", 1, public=False),
-    "EngineConfig.model": "engine",
-    "EngineConfig.revision": "engine",
-    "LLMEngine.add_request.arrival_time": "add_request",
-    "LLMEngine.add_request.arrival": "add_request",
-    "LLMEngine.add_request.resume_tokens": "add_request",
-    "LLMEngine.add_request.readmit": "add_request",
-    "LLMEngine.add_request.trace_id": "add_request",
 }
-
-_ADD_REQUEST_VALUES = {"arrival_time": 1.0, "arrival": 3,
-                       "resume_tokens": [1, 2], "readmit": True,
-                       "trace_id": "t-1"}
 
 
 def _k3(**kw):
@@ -475,26 +465,8 @@ def _k4(**kw):
 def test_unported_parameter_takes_only_its_default(case, gpt_pair):
     """Each reference parameter kept in place without its feature
     raises NotImplementedError for any value but its default."""
-    call = UNPORTED[case]
-    _, tm = gpt_pair
-    if call == "add_request":
-        field = case.rsplit(".", 1)[1]
-
-        def call():
-            eng = LLMEngine.from_model(tm, EngineConfig(block_size=8),
-                                       device="cpu")
-            eng.add_request(np.arange(1, 5, dtype=np.int32),
-                            **{field: _ADD_REQUEST_VALUES[field]})
-    if call == "engine":
-        field = case.split(".")[1]
-        value = {"model": "m1", "revision": "r1"}[field]
-
-        def call():
-            return LLMEngine.from_model(
-                tm, EngineConfig(block_size=8, **{field: value}),
-                device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        call()
+        UNPORTED[case]()
 
 
 # ---------------------------- parameters ported with slice 5b
@@ -574,6 +546,127 @@ def _ported_engine_obs_label(gpt_pair):
     eng.stats.steps += 1
     assert obs.REGISTRY.get("serving_events_total").get(
         engine=eng.stats.label, event="steps").value == 1
+
+
+# ---------------------------- parameters ported with slice 7
+def _engine_pair(gpt_pair, **kw):
+    """The port's and the JAX package's engine over the same weights."""
+    from paddle_tpu.inference.serving import (EngineConfig as JEC,
+                                              LLMEngine as JLE)
+    jm, _ = gpt_pair
+    return _ported_engine(gpt_pair, **kw), \
+        JLE.from_model(jm, JEC(block_size=8, **kw))
+
+
+def _sp_pair(**kw):
+    from paddle_tpu.inference.serving import SamplingParams as JSP
+    from paddle_tpu_torch.inference.serving import SamplingParams as TSP
+    return TSP(**kw), JSP(**kw)
+
+
+def _drained(eng, rid):
+    while eng.has_unfinished():
+        eng.step()
+    return [int(t) for t in eng.get_request(rid).output_ids]
+
+
+def _ported_engine_model_revision(gpt_pair, field):
+    """A non-default (model, revision) key rides on every exported
+    payload and stamps the engine's first_token / finish events, as in
+    the JAX package; a differently keyed engine refuses the payload."""
+    from paddle_tpu import obs as jobs
+    from paddle_tpu_torch import obs
+    kw = {field: {"model": "m1", "revision": "r1"}[field]}
+    key = {"model": "default", "revision": "r0", **kw}
+    snaps = []
+    for eng, sp, ob in zip(_engine_pair(gpt_pair, **kw), _sp_pair(
+            max_tokens=4), (obs, jobs)):
+        ob.reqtrace.enable()
+        rid = eng.add_request(np.arange(1, 6, dtype=np.int32), sp)
+        eng.step()
+        snap = eng.export_request(rid)
+        snaps.append((snap["model"], snap["revision"]))
+        _drained(eng, rid)
+        tags = [{k: e.attrs.get(k) for k in ("model", "revision")}
+                for e in ob.reqtrace.events(trace_id=eng.get_request(
+                    rid).tid) if e.kind in ("first_token", "finish")]
+        assert tags == [key, key]
+    assert snaps[0] == snaps[1] == (key["model"], key["revision"])
+    other = _ported_engine(gpt_pair)
+    with pytest.raises(ValueError, match="cross-revision"):
+        other.admit_migrated(dict(snap, model=key["model"],
+                                  revision=key["revision"]))
+
+
+def _ported_add_request_arrival_time(gpt_pair):
+    """A re-admitted request keeps its original arrival stamp: its
+    deadline counts from it, so one that already blew it times out."""
+    got = []
+    for eng, sp in zip(_engine_pair(gpt_pair), _sp_pair(
+            max_tokens=4, deadline_s=0.5)):
+        rid = eng.add_request(np.arange(1, 5, dtype=np.int32), sp,
+                              arrival_time=1.0)
+        assert eng.get_request(rid).arrival_time == 1.0
+        eng.step()
+        got.append(eng.get_request(rid).state)
+    assert got == ["finished_timeout"] * 2
+
+
+def _ported_add_request_arrival(gpt_pair):
+    """The FCFS ticket is the one given, and a readmitted request with
+    an earlier ticket goes ahead of a waiting later one."""
+    orders = []
+    for eng, sp in zip(_engine_pair(gpt_pair, max_num_seqs=1),
+                       _sp_pair(max_tokens=2)):
+        eng.add_request(np.arange(1, 5, dtype=np.int32), sp,
+                        request_id="late", arrival=10 ** 9)
+        rid = eng.add_request(np.arange(2, 6, dtype=np.int32), sp,
+                              request_id="early", arrival=5, readmit=True)
+        assert eng.get_request(rid).arrival == 5
+        orders.append([r.request_id for r in eng.scheduler.waiting])
+    assert orders == [["early", "late"]] * 2
+
+
+def _ported_add_request_resume_tokens(gpt_pair):
+    """Resumed tokens seed the output log, and the re-prefill continues
+    the greedy stream where it stopped: the tail equals the whole run's,
+    as in the JAX engine."""
+    full, tails = [], []
+    for eng, sp in zip(_engine_pair(gpt_pair), _sp_pair(max_tokens=6)):
+        p = np.arange(1, 6, dtype=np.int32)
+        full.append(_drained(eng, eng.add_request(p, sp)))
+        rid = eng.add_request(p, sp, resume_tokens=full[-1][:3])
+        tails.append(_drained(eng, rid))
+    assert full[0] == full[1] == tails[0] == tails[1]
+
+
+def _ported_add_request_readmit(gpt_pair):
+    """readmit bypasses max_waiting (a new arrival is refused) and
+    charges no tenant quota."""
+    from paddle_tpu_torch.inference.serving import (
+        EngineOverloaded, SamplingParams, TenantConfig, TenantRegistry)
+    reg = TenantRegistry([TenantConfig("q", quota_tokens=10)])
+    eng = _ported_engine(gpt_pair, max_waiting=1, tenants=reg)
+    sp = SamplingParams(max_tokens=4, tenant="q")
+    eng.add_request(np.arange(1, 5, dtype=np.int32), sp)
+    with pytest.raises(EngineOverloaded):
+        eng.add_request(np.arange(1, 3, dtype=np.int32),
+                        SamplingParams(max_tokens=1, tenant="q"))
+    eng.add_request(np.arange(1, 5, dtype=np.int32), sp, readmit=True)
+    eng.add_request(np.arange(1, 5, dtype=np.int32), sp, readmit=True)
+    assert eng.scheduler.num_waiting() == 3
+
+
+def _ported_add_request_trace_id(gpt_pair):
+    """The given trace id names the request's timeline."""
+    from paddle_tpu_torch import obs
+    obs.reqtrace.enable()
+    eng = _ported_engine(gpt_pair)
+    rid = eng.add_request(np.arange(1, 5, dtype=np.int32),
+                          trace_id="tr-sig-7")
+    _drained(eng, rid)
+    kinds = [e.kind for e in obs.reqtrace.events(trace_id="tr-sig-7")]
+    assert kinds[0] == "engine_admit" and kinds.count("finish") == 1
 
 
 def _ported_linear_weight_attr():
@@ -801,6 +894,15 @@ PORTED = {
     "EngineConfig.prefill_cost_model": _ported_engine_cost_model,
     "EngineConfig.tenants": _ported_engine_tenants,
     "EngineConfig.obs_label": _ported_engine_obs_label,
+    "EngineConfig.model": lambda pair: _ported_engine_model_revision(
+        pair, "model"),
+    "EngineConfig.revision": lambda pair: _ported_engine_model_revision(
+        pair, "revision"),
+    "LLMEngine.add_request.arrival_time": _ported_add_request_arrival_time,
+    "LLMEngine.add_request.arrival": _ported_add_request_arrival,
+    "LLMEngine.add_request.resume_tokens": _ported_add_request_resume_tokens,
+    "LLMEngine.add_request.readmit": _ported_add_request_readmit,
+    "LLMEngine.add_request.trace_id": _ported_add_request_trace_id,
 }
 
 
@@ -810,12 +912,14 @@ def test_ported_parameter_reaches_its_feature(case, gpt_pair):
     engine's and scheduler's), slice 6a (Linear's weight_attr, AdamW's
     apply_decay_param_fun and lr_ratio), slice 6b (dropout's axis and
     mode, the cross-entropies' weight, soft_label, axis and
-    use_softmax) or slice 6c (Conv2D's padding_mode, the max pools'
-    return_mask) now takes a value and reaches its feature, computing
-    as the JAX package does (or, where it drops the argument, as
-    Paddle does, against the JAX package on the equivalent input)."""
+    use_softmax), slice 6c (Conv2D's padding_mode, the max pools'
+    return_mask) or slice 7 (EngineConfig's model and revision,
+    add_request's failover keywords) now takes a value and reaches its
+    feature, computing as the JAX package does (or, where it drops the
+    argument, as Paddle does, against the JAX package on the equivalent
+    input)."""
     fn = PORTED[case]
-    if case.startswith("EngineConfig"):
+    if case.startswith(("EngineConfig", "LLMEngine")):
         fn(gpt_pair)
     else:
         fn()
@@ -909,3 +1013,53 @@ def test_slice_6c_packages_export_every_reference_name(package):
     names = {n for n in dir(ref) if not n.startswith("_")}
     missing = sorted(names - leaked - waits - set(dir(port)))
     assert not missing, (package, missing)
+
+
+# -------------------------------------------- slice 7: every public name
+SLICE_7 = ("inference.serving.replica", "inference.serving.migration",
+           "inference.serving.router", "inference.serving.autoscaler",
+           "inference.serving.deploy")
+
+
+def _reference_order(module):
+    """Public functions, classes and constants of the JAX module, in the
+    order its source defines them."""
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    names = [n for n in vars(ref) if not n.startswith("_")
+             and (callable(vars(ref)[n])
+                  and getattr(vars(ref)[n], "__module__", "")
+                  == f"paddle_tpu.{module}"
+                  or n.isupper())]
+    return names
+
+
+@pytest.mark.parametrize("module", SLICE_7)
+def test_slice_7_module_has_every_reference_name(module):
+    """Every public function, class and constant of the five fleet
+    modules of the JAX package (replica, migration, router, autoscaler,
+    deploy) has a counterpart of the same name in the port's module,
+    defined in the same order, and every public method of each class
+    exists with the reference's positional order (the walk above holds
+    the parameters); the package exports every name of the JAX
+    package's `__all__`."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    names = _reference_order(module)
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+    for name in names:
+        ref = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+        if not inspect.isclass(ref):
+            continue
+        obj = getattr(port, name)
+        for meth, fn in vars(ref).items():
+            if meth.startswith("_") or not callable(fn):
+                continue
+            assert callable(getattr(obj, meth, None)), (name, meth)
+            assert _positional(getattr(obj, meth)) == _positional(
+                getattr(ref, meth)), (name, meth)
+    import paddle_tpu.inference.serving as jserving
+    import paddle_tpu_torch.inference.serving as tserving
+    assert not set(jserving.__all__) - set(tserving.__all__)
