@@ -278,6 +278,32 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    (revision pinning, invariant 8) clean on both dumps; the rollback is
    the canary gate's verdict (at least one prompt diverged), not a
    canary that raised.
+28. hapi on the bench GPT through K1: paddle.Model over bench_gpt's GPT
+   (O2, AdamW + global-norm clipping) fed by DataLoader(num_workers=2)
+   over seeded token rows and DeviceLoader(size=2): the first
+   train_batch loss equal to the port's TrainStep loss on the same
+   batch; fit 2 epochs of 4 steps with K1 launching 12 x 8 times each
+   way, losses finite and falling; evaluate and predict (K1 forward
+   only); an AutoCheckpointManager run cut after epoch 1 and resumed
+   into a model built from seed + 1 with the uninterrupted run's losses
+   (within the spread of two uninterrupted runs, bitwise when they are
+   bitwise equal); prepare(anomaly="skip_step") skips a batch whose
+   loss weights hold a NaN and leaves every parameter and optimizer
+   tensor bitwise unchanged;
+29. hapi on ResNet-50 fed from an image folder: paddle.Model(resnet50())
+   at bench_resnet's width (128 x 224^2, O2, Momentum(0.1)) over a
+   DatasetFolder of seeded 256^2 .npy images (written under a temp dir,
+   deleted after) through RandomResizedCrop / flip / transpose /
+   normalize, DataLoader(shuffle, num_workers=8) and DeviceLoader(size=2),
+   with Accuracy(topk=(1, 5)), LRScheduler and ModelCheckpoint callbacks,
+   2 epochs of 8 steps, then evaluate and predict: losses finite, the
+   last below the first (as phase 12), three checkpoints written, the schedule stepped once a
+   batch; fit imgs/s printed beside phase 12's synthetic-batch imgs/s,
+   with the loader's host wait per batch, the device idle share over
+   epoch 2 (torch.profiler), the host reads per train step and the
+   checkpoints' seconds and bytes;
+30. examples/mnist_lenet.py's body on the port at its defaults
+   (synthetic MNIST, batch 64, DeviceLoader, 2 epochs): the loss falls.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -294,7 +320,8 @@ The last three lines are: one JSON object with each kernel's numbers
 backward as entries of their own, with their launches from phase 13;
 K1 at head dim 64 likewise, with its launches from phase 16; K1's
 entries also carry `eager_launches`, phase 9b's counts, and
-`transformer_launches`, phase 16's; K3's carries `pass_launches`,
+`transformer_launches`, phase 16's, and `hapi_launches`, phase 28's
+fit; K3's carries `pass_launches`,
 6a-6d's, and `fleet_launches`, 23-27's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 float32 matmuls and convolutions run in full float32 (TF32 off)
@@ -304,11 +331,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 from paddle_tpu_torch.tools.engine_bench import K3_SHAPE
 from paddle_tpu_torch.tools.measure import K3_MIXED_LENGTHS, card_line
@@ -3806,6 +3839,296 @@ def _wrappers_vs_cpu(device, seed: int) -> dict:
             for kind in WRAPPER_KINDS}
 
 
+# ------------------------------------------------------------ phase 28
+# numpy's global seed of the fit runs' epochs (fit_bench.EpochSeeder):
+# epoch e of every run shuffles from HAPI_SEED + e
+HAPI_SEED = 1000
+
+
+def _k1_launches() -> list:
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    return [k1.flash_attention_fwd.launches, k1.flash_attention_bwd.launches]
+
+
+def _zero_k1() -> None:
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    k1.flash_attention_fwd.launches = k1.flash_attention_bwd.launches = 0
+
+
+def _token_loader(ds, batch: int, shuffle: bool, device, workers: int = 2):
+    import paddle_tpu_torch as paddle
+    return paddle.io.DeviceLoader(paddle.io.DataLoader(
+        ds, batch_size=batch, shuffle=shuffle, num_workers=workers,
+        drop_last=True), size=2, device=device)
+
+
+def _fit_epochs(model, train, device, first: int, n: int) -> list:
+    """model.fit over epochs first .. first + n - 1 of `train` (each
+    shuffled from HAPI_SEED + its index); the train batches' losses."""
+    from paddle_tpu_torch.tools import fit_bench as fb
+    from paddle_tpu_torch.tools.train_bench import BATCH
+    log = fb.LossLog()
+    model.fit(_token_loader(train, BATCH, True, device), epochs=n,
+              verbose=0, callbacks=[fb.EpochSeeder(HAPI_SEED, first), log])
+    return log.losses
+
+
+def _hapi_resume(train, device, seed: int, tmp: str) -> tuple:
+    """An AutoCheckpointManager run over 3 epochs cut after epoch 2's
+    work (its snapshot lost: the last durable one is epoch 1's, as
+    tests/test_checkpoint.py's kill does), then a resume into a model
+    built from seed + 1. Returns (the cut run's losses, its 3 epochs
+    being a second uninterrupted run; the resumed run's losses; the
+    snapshot index restored; its save and restore seconds)."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpointManager
+    from paddle_tpu_torch.tools import fit_bench as fb
+    d = tempfile.mkdtemp(dir=tmp, prefix="acp_")
+    model, net, opt = fb.gpt_model(seed, device)
+    acp = AutoCheckpointManager(d, [net], [opt], max_keep=2)
+    cut = []
+    t0 = time.perf_counter()
+    for epoch in acp.train_epoch_range(3):
+        cut += _fit_epochs(model, train, device, epoch, 1)
+        if epoch == 2:
+            break
+    t_cut = time.perf_counter() - t0
+    # a new process would regenerate the same parameter names; in this
+    # one the rebuilt model takes the first one's, since the optimizer
+    # state is keyed by name
+    names = [p.name for p in net.parameters()]
+    del model, net, opt, acp
+    torch.cuda.empty_cache()
+    model, net, opt = fb.gpt_model(seed + 1, device)
+    for p, name in zip(net.parameters(), names):
+        p.name = name
+    acp = AutoCheckpointManager(d, [net], [opt], max_keep=2)
+    resumed = []
+    t0 = time.perf_counter()
+    for epoch in acp.train_epoch_range(3):
+        resumed += _fit_epochs(model, train, device, epoch, 1)
+    t_resume = time.perf_counter() - t0
+    return (cut, resumed, acp.restored_index, t_cut, t_resume,
+            (model, net, opt))
+
+
+def _anomaly_check(net, opt, x, y) -> dict:
+    """prepare(anomaly="skip_step") on the trained network with the loss
+    weighted by a per-row weight: a batch whose weights hold a NaN must
+    be skipped, leaving every parameter and optimizer tensor bitwise as
+    it was; the next clean batch trains."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import fit_bench as fb
+
+    def weighted(logits, labels, w):
+        return fb.gpt_loss(logits, labels) * w.mean()
+
+    model = paddle.Model(net)
+    model.prepare(opt, weighted, anomaly="skip_step")
+    guard = model._anomaly_guard
+    ok = torch.ones(x.shape[0], device=x.device)
+    bad = ok.clone()
+    bad[1] = float("nan")
+    first = model.train_batch([x], [y, ok])[0]
+    state = list(net.parameters()) + [
+        t for st in model._train_step._opt_state.values()
+        for t in st.values()]
+    before = [t.detach().clone() for t in state]
+    poisoned = model.train_batch([x], [y, bad])[0]
+    same = all(torch.equal(a, b) for a, b in zip(before, state))
+    skipped = guard.skipped_steps
+    after = model.train_batch([x], [y, ok])[0]
+    moved = not torch.equal(before[0], state[0])
+    print(f"[hapi gpt] anomaly skip_step: clean loss {first:.5f}, poisoned "
+          f"batch loss {poisoned} skipped ({skipped} skipped, state "
+          f"bitwise unchanged: {same}), next clean loss {after:.5f} "
+          f"(parameters moved: {moved}); guard {guard}")
+    _require(skipped == 1 and guard.skipped_steps == 1,
+             f"anomaly guard skipped {guard.skipped_steps} steps, want 1")
+    _require(same, "a skipped step changed the parameters or optimizer "
+                   "state")
+    _require(moved and math.isfinite(after), "training did not go on after "
+                                             "the skipped step")
+    return guard.state_dict()
+
+
+def drive_hapi_gpt(device, seed: int, tmp: str) -> dict:
+    """Phase 28: paddle.Model over bench_gpt's GPT (O2, AdamW + clip)
+    fed by DataLoader(num_workers=2) -> DeviceLoader(size=2): the first
+    train_batch loss equal to the port's TrainStep on the same batch;
+    fit 2 epochs with K1 launching layers x steps each way and losses
+    finite and falling; evaluate and predict; an AutoCheckpointManager
+    run cut after epoch 1 and resumed into a model from another seed
+    with the uninterrupted run's losses; the anomaly guard's skip."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import fit_bench as fb
+    from paddle_tpu_torch.tools import train_bench
+    cfg = fb.gpt_config()
+    B, T, L = train_bench.BATCH, cfg.max_seq_len, cfg.num_layers
+    steps = fb.GPT_STEPS_PER_EPOCH
+    train = fb.TokenRows(steps * B, T, seed)
+    # the port's TrainStep on the first batch the fit will draw
+    np.random.seed(HAPI_SEED)
+    x0, y0 = next(iter(paddle.io.DataLoader(train, batch_size=B,
+                                            shuffle=True, num_workers=2)))
+    built = train_bench.build(6, seed, device)
+    ref_loss = built[1](x0, y0).item()
+    del built
+    torch.cuda.empty_cache()
+
+    model, net, opt = fb.gpt_model(seed, device)
+    _zero_k1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = _fit_epochs(model, train, device, 0, 2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _k1_launches()
+    want = [L * 2 * steps] * 2
+    tokens_s = 2 * steps * B * T / fit_s
+    print(f"[hapi gpt] fit 2 epochs x {steps} steps of {B} x {T}: losses "
+          f"{[round(v, 5) for v in losses]}; {fit_s:.2f} s, "
+          f"{tokens_s:.1f} tokens/s (first step included); K1 fwd/bwd "
+          f"launches {counts} (want {want}); first loss {losses[0]!r} vs "
+          f"TrainStep {ref_loss!r}")
+    _require(all(math.isfinite(v) for v in losses), "non-finite fit loss")
+    _require(np.mean(losses[steps:]) < np.mean(losses[:steps]),
+             f"fit loss did not fall: {losses}")
+    _require(counts == want, f"K1 launches in fit {counts} != {want}")
+    _require(losses[0] == ref_loss, f"first train_batch loss {losses[0]} "
+                                    f"!= TrainStep's {ref_loss}")
+    _zero_k1()
+    ev = model.evaluate(_token_loader(fb.TokenRows(2 * B, T, seed + 1), B,
+                                      False, device), verbose=0)
+    pred = model.predict(_token_loader(fb.TokenRows(16, T, seed + 2), 8,
+                                       False, device), verbose=0)
+    eval_counts = _k1_launches()
+    print(f"[hapi gpt] evaluate {ev}; predict {[o.shape for o in pred[0]]}"
+          f" finite {all(np.isfinite(o).all() for o in pred[0])}; K1 "
+          f"fwd/bwd {eval_counts} (want [{L * 4}, 0])")
+    _require(math.isfinite(ev["loss"][0]), f"evaluate: {ev}")
+    _require([o.shape for o in pred[0]] == [(8, T, cfg.vocab_size)] * 2
+             and all(np.isfinite(o).all() for o in pred[0]),
+             "predict outputs")
+    _require(eval_counts == [L * 4, 0], f"K1 in evaluate/predict "
+                                        f"{eval_counts}")
+    uninterrupted = losses + _fit_epochs(model, train, device, 2, 1)
+    del model, net, opt, pred
+    torch.cuda.empty_cache()
+
+    cut, resumed, restored, t_cut, t_resume, kept = _hapi_resume(
+        train, device, seed, tmp)
+    spread = max(abs(a - b) for a, b in zip(cut, uninterrupted))
+    got = cut[:2 * steps] + resumed
+    off = max(abs(a - b) for a, b in zip(got, uninterrupted))
+    print(f"[hapi gpt] resume: restored epoch {restored}; uninterrupted "
+          f"{[round(v, 5) for v in uninterrupted]}; cut + resumed "
+          f"{[round(v, 5) for v in got]}; largest difference {off!r}, two "
+          f"uninterrupted runs differ by {spread!r}; cut run {t_cut:.1f} s"
+          f", resumed run {t_resume:.1f} s (snapshots of the O2 state "
+          f"included)")
+    _require(restored == 1, f"resumed from snapshot {restored}, want 1")
+    _require(len(got) == len(uninterrupted) and off <= spread,
+             f"resumed losses {got} vs uninterrupted {uninterrupted} "
+             f"(spread {spread})")
+    model, net, opt = kept
+    guard = _anomaly_check(net, opt, x0.to(device), y0.to(device))
+    del model, net, opt, kept
+    torch.cuda.empty_cache()
+    return {"counts": counts, "tokens_per_sec": tokens_s,
+            "bitwise_resume": off == 0.0, "guard": guard}
+
+
+# ------------------------------------------------------------ phase 29
+def drive_hapi_resnet(device, seed: int, tmp: str, synthetic: dict) -> dict:
+    """Phase 29: paddle.Model(resnet50()) at bench_resnet's width (128 x
+    224^2, O2, Momentum(0.1) on a StepDecay the LRScheduler callback
+    steps) fed from a DatasetFolder of seeded 256^2 .npy images through
+    RandomResizedCrop / flip / transpose / normalize, DataLoader(shuffle,
+    num_workers=8) and DeviceLoader(size=2); Accuracy(topk=(1, 5)) and
+    ModelCheckpoint as callbacks; evaluate and predict
+    (fit_bench.run_resnet_fit). Prints fit imgs/s beside phase 12's
+    synthetic-batch imgs/s, the loader's host seconds per batch, the
+    device's idle share over epoch 2, the host reads per train step and
+    ModelCheckpoint's save seconds and bytes."""
+    from paddle_tpu_torch.tools import fit_bench as fb
+    from paddle_tpu_torch.tools.train_bench import RESNET_BATCH
+    r = fb.run_resnet_fit(device, seed, tmp, wrap_step=_count_syncs)
+    losses, steps, ev = r["losses"], r["steps"], r["evaluate"]
+    print(f"[hapi resnet] wrote {r['images']} images, "
+          f"{r['image_bytes'] / 2**20:.1f} MiB, in {r['write_s']:.1f} s; "
+          f"fit 2 epochs x {steps} steps: losses "
+          f"{[round(v, 4) for v in losses]}; {r['fit_s']:.1f} s with the "
+          f"checkpoints and the profiled epoch")
+    print(f"[hapi resnet] fit imgs/s {r['imgs_per_sec']:.1f} over epoch 1 "
+          f"({r['steady_imgs_per_sec']:.1f} after its first step) vs phase "
+          f"12's synthetic batch {synthetic['imgs_per_sec']:.1f}; loader "
+          f"wait per batch {[round(v, 4) for v in r['waits']]} s; epoch 2 "
+          f"under the profiler: wall {r['profile']['wall_s']:.2f} s, device "
+          f"busy {r['profile']['busy_s']:.2f} s, idle share "
+          f"{r['profile']['idle_share']:.3f}; host reads per train step "
+          f"{[len(c) for c in r['step_calls']]} at "
+          f"{sorted(set(x for c in r['step_calls'] for x in c))}")
+    print(f"[hapi resnet] ModelCheckpoint saves (s, bytes): "
+          f"{[(round(a, 3), b) for a, b in r['saves']]}; LR scheduler "
+          f"stepped {r['lr_steps']} times; evaluate {ev}; predict "
+          f"{r['predict_shape']}, finite {r['predict_finite']}")
+    # Momentum(0.1) with no warm-up swings the first steps' loss (batch
+    # statistics of fresh BN layers), so the loss falls as phase 12's
+    # does: the last below the first
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    _require(losses[-1] < losses[0], f"fit loss did not fall: {losses}")
+    _require(len(r["saves"]) == 3 and all(b > 0 for _, b in r["saves"]),
+             f"ModelCheckpoint saves {r['saves']}")
+    _require(r["lr_steps"] == 2 * steps,
+             f"LR scheduler stepped {r['lr_steps']} times")
+    _require(math.isfinite(ev["loss"][0])
+             and 0 <= ev["acc_top1"] <= ev["acc_top5"] <= 1,
+             f"evaluate: {ev}")
+    _require(r["predict_shape"] == (RESNET_BATCH, 1000)
+             and r["predict_finite"], "predict outputs")
+    return r
+
+
+# ------------------------------------------------------------ phase 30
+def run_mnist_example(device) -> dict:
+    """Phase 30: examples/mnist_lenet.py's body on the port at its
+    defaults (synthetic MNIST, batch 64, 2 epochs, DeviceLoader into a
+    LeNet TrainStep, then its test accuracy), `import paddle_tpu as
+    paddle` read as `import paddle_tpu_torch as paddle`; the epoch loss
+    must fall."""
+    import contextlib
+    import io
+    path = Path(__file__).resolve().parent / "examples" / "mnist_lenet.py"
+    src = path.read_text()
+    src = src.replace("import paddle_tpu as paddle",
+                      "import paddle_tpu_torch as paddle")
+    _require("paddle_tpu_torch as paddle" in src and "jax" not in src,
+             "mnist_lenet.py's imports")
+    ns = {"__name__": "mnist_lenet_on_port", "__file__": str(path)}
+    exec(compile(src, "mnist_lenet.py", "exec"), ns)
+    argv, sys.argv = sys.argv, ["mnist_lenet.py"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            ns["main"]()
+    finally:
+        sys.argv = argv
+    text = out.getvalue()
+    losses = [float(v) for v in re.findall(r"loss ([-\d.]+)", text)]
+    acc = [float(v) for v in re.findall(r"test accuracy: ([\d.]+)", text)]
+    print(f"[mnist example] {' | '.join(text.strip().splitlines())} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    _require(len(losses) == 2 and all(math.isfinite(v) for v in losses)
+             and losses[1] < losses[0], f"example's loss: {text}")
+    _require(len(acc) == 1, f"example's accuracy: {text}")
+    return {"losses": losses, "accuracy": acc[0]}
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e and the fleet phases 23-27; returns K3's kernel entry
     (its launches from phase 6, 6a-6d's in pass_launches, 23-27's in
@@ -3941,6 +4264,13 @@ def main(argv=None) -> int:
     drive_resnet_nhwc(device, args.seed, resnet)
     drive_vgg(device, args.seed)
     check_vision_ops(device, args.seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        hapi = drive_hapi_gpt(device, args.seed, tmp)
+        drive_hapi_resnet(device, args.seed, tmp, resnet)
+        run_mnist_example(device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
               "k1_d64": transformer["counts"][:2]}
@@ -3958,6 +4288,7 @@ def main(argv=None) -> int:
             kernels[-1].update(
                 eager_launches=eager["counts"][i],
                 transformer_launches=transformer["counts"][i],
+                hapi_launches=hapi["counts"][i],
                 f16_max_abs_err=errs[kernel]["float16"][("fwd", "bwd")[i]],
                 f16_ms=k1_f16[i]["ms"], f16_plain_ms=k1_f16[i]["plain_ms"],
                 f16_library_ms=k1_f16[i]["library_ms"],

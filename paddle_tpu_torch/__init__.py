@@ -28,7 +28,10 @@ initializers, clipping), the optimizers SGD to Lars, and save/load in
 the JAX package's checkpoint format; the vision half of nn (every
 convolution, pool, norm and resize layer, channel-first and
 channel-last), MobileNetV1/V2, VGG, channel-last ResNet and the EMA,
-ModelAverage and Lookahead wrappers. A name of paddle_tpu's top level
+ModelAverage and Lookahead wrappers; the training runtime: io
+(DataLoader, the samplers, DeviceLoader), vision datasets, transforms
+and image loading, metric, hapi's Model.fit with its callbacks, summary
+and flops, AutoCheckpointManager and the anomaly guard. A name of paddle_tpu's top level
 that is not ported is absent here.
 """
 from .core import errors
@@ -59,8 +62,11 @@ from .ops.math import (abs, add, all, cast, clip, divide, exp, log, max,
                        sqrt, square, subtract, sum, tanh)
 from .ops.search import argmax, topk
 
-from . import (amp, distributed, incubate, inference, jit, models, nn, obs,
-               optimizer, regularizer, vision)
+from .core import anomaly, monitor
+from . import (amp, distributed, incubate, inference, io, jit, metric,
+               models, nn, obs, optimizer, regularizer, vision)
+from . import hapi
+from .hapi import Model, callbacks, flops, summary
 from .nn.layer.base import ParamAttr
 
 bool8 = bool_

@@ -83,6 +83,13 @@ class GradScaler:
         self._unscale(optimizer)
         if self._found_inf:
             self.skipped_steps += 1
+            # an overflow step is an anomaly skip (paddle_tpu/amp/
+            # grad_scaler.py:73-83): an active guard not set to 'raise'
+            # counts it as skipped
+            from ..core.anomaly import current_guard
+            guard = current_guard()
+            if guard is not None and guard.policy != "raise":
+                guard.record(True, where="amp overflow", counter="skipped")
         else:
             optimizer.step()
         self._unscaled = False

@@ -90,10 +90,14 @@ class EngineReplica:
                  backoff: BackoffPolicy, max_restarts: int = 3,
                  heartbeat_timeout: Optional[float] = None,
                  probe_prompt=(1,), probe_timeout_steps: int = 64,
-                 role: str = "mixed"):
+                 role: str = "mixed", *, clock: Callable = time.monotonic):
         if role not in self.ROLES:
             raise ValueError(f"replica role {role!r} not in {self.ROLES}")
         self.index = index
+        # every heartbeat, quarantine and backoff timestamp reads this
+        # clock (the router's: wall time by default, or a stepped clock
+        # that makes the verdicts a function of the router step count)
+        self._clock = clock
         # tier assignment (docs/serving.md): immutable after construction
         # — "prefill" replicas take new prompts and hand finished
         # prefills off, "decode" replicas only receive migrations,
@@ -114,7 +118,7 @@ class EngineReplica:
         self.state = ReplicaState.UP
         self.restarts = 0                 # incarnations spent (0 = first)
         self.restart_at: Optional[float] = None
-        self.last_beat = time.monotonic()
+        self.last_beat = self._clock()
         self.last_step_end = self.last_beat
         self._wedged = False
         self.failed_at: Optional[float] = None  # quarantine timestamp
@@ -191,7 +195,7 @@ class EngineReplica:
                                     resume_tokens=resume_tokens,
                                     readmit=readmit,
                                     trace_id=trace_id)
-            self.last_beat = time.monotonic()
+            self.last_beat = self._clock()
             req = self.engine.get_request(request_id)
             return req.arrival, req.arrival_time
 
@@ -226,14 +230,14 @@ class EngineReplica:
                     and faults.wedge_replica(router_step, self.index):
                 self._wedged = True
             if self._wedged:
-                self.last_step_end = time.monotonic()
+                self.last_step_end = self._clock()
                 return []
             try:
                 outs = self.engine.step()
             except Exception as e:
                 raise ReplicaCrashed(
                     f"replica {self.index} engine step raised: {e}") from e
-            now = time.monotonic()
+            now = self._clock()
             self.last_beat = now
             self.last_step_end = now
             return outs
@@ -243,7 +247,7 @@ class EngineReplica:
         a request added to a momentarily-idle replica can't trip the
         stale-beat check before its first step)."""
         with self._lock:
-            self.last_beat = time.monotonic()
+            self.last_beat = self._clock()
 
     def wedged(self) -> bool:
         """Heartbeat-based wedge verdict: serving, holding unfinished
@@ -276,19 +280,19 @@ class EngineReplica:
             self.history.append((self.restarts, reason))
             self.engine = None
             self._wedged = False
-            self.failed_at = time.monotonic()
+            self.failed_at = self._clock()
             if self.restarts >= self.max_restarts:
                 self.state = ReplicaState.FAILED
                 self.restart_at = None
             else:
                 self.state = ReplicaState.DOWN
-                self.restart_at = time.monotonic() \
+                self.restart_at = self._clock() \
                     + self._backoff.delay(self.restarts)
                 self.restarts += 1
 
     def restart_due(self, now: float = None) -> bool:
         with self._lock:
-            now = time.monotonic() if now is None else now
+            now = self._clock() if now is None else now
             return self.state == ReplicaState.DOWN \
                 and self.restart_at is not None and now >= self.restart_at
 
@@ -308,7 +312,7 @@ class EngineReplica:
                 self.quarantine(f"warmup probe failed: {e}")
                 return False
             self.state = ReplicaState.UP
-            self.last_beat = time.monotonic()
+            self.last_beat = self._clock()
             return True
 
     def _probe(self) -> None:
@@ -364,7 +368,7 @@ class EngineReplica:
         the destination engine's obs label (migrate_in event home)."""
         with self._lock:
             label = self.engine.admit_migrated(snap)
-            self.last_beat = time.monotonic()
+            self.last_beat = self._clock()
             return label
 
     def release_migrated(self, request_id: str) -> None:
@@ -453,7 +457,7 @@ class EngineReplica:
                 self.quarantine(f"rejoin probe failed: {e}")
                 return False
             self.state = ReplicaState.UP
-            self.last_beat = time.monotonic()
+            self.last_beat = self._clock()
             return True
 
     # ------------------------------------------------- revision rollout

@@ -195,14 +195,19 @@ class ReplicaSet:
     }
 
     def __init__(self, engine_factory, config: RouterConfig = None,
-                 faults=None):
+                 faults=None, *, clock=None):
         """`engine_factory(replica_index, incarnation) -> LLMEngine`
         builds each replica incarnation; `from_model` wires the common
         case. `faults` is a ServingFaultInjector shared by the router
         (kill_replica/wedge_replica hooks) and — when the factory passes
         it through, as from_model does — by every engine (the
         engine-level nan/stall/corrupt hooks keep working unchanged in
-        multi-replica runs)."""
+        multi-replica runs). `clock` is a zero-argument callable in
+        seconds that every heartbeat, backoff and recovery verdict reads
+        (default `time.monotonic`); a clock with a `tick()` method is
+        advanced once at the start of every router step, which makes
+        those verdicts a function of the step count alone
+        (`tools.chaos_serve.SteppedClock`)."""
         config = config or RouterConfig()
         if config.num_replicas < 1:
             raise ValueError(
@@ -234,6 +239,8 @@ class ReplicaSet:
         else:
             roles = ("mixed",) * config.num_replicas
         self.config = config
+        self.clock = time.monotonic if clock is None else clock
+        self._tick = getattr(self.clock, "tick", None)
         self.label = f"{config.obs_label or 'router'}-{next(_ROUTER_IDS)}"
         if faults is None:
             from ...testing.faults import ServingFaultInjector
@@ -252,7 +259,7 @@ class ReplicaSet:
                           max_restarts=config.max_restarts,
                           heartbeat_timeout=config.heartbeat_timeout_s,
                           probe_prompt=config.probe_prompt,
-                          role=roles[i])
+                          role=roles[i], clock=self.clock)
             for i in range(config.num_replicas)]
         # migration coordinator: one per router, immutable after
         # construction (it carries its own lock)
@@ -306,7 +313,7 @@ class ReplicaSet:
 
     @classmethod
     def from_model(cls, model, config: RouterConfig = None,
-                   engine_config=None, faults=None):
+                   engine_config=None, faults=None, *, clock=None):
         """Build a ReplicaSet of identical engines over one model's live
         parameters, on the model's own device (a model is built on CUDA
         unless told otherwise). The replicas share the weights; each gets
@@ -327,11 +334,11 @@ class ReplicaSet:
             return LLMEngine.from_model(model, cfg_i, faults=faults,
                                         device=device)
 
-        return cls(factory, config, faults=faults)
+        return cls(factory, config, faults=faults, clock=clock)
 
     @classmethod
     def from_registry(cls, registry, assignments, config: RouterConfig
-                      = None, faults=None):
+                      = None, faults=None, *, clock=None):
         """Build a multi-model fleet over a ModelRegistry (deploy.py):
         `assignments[i]` names the model replica i serves, each pinned
         to the model's revision active at build time (a restart rebuilds
@@ -355,7 +362,7 @@ class ReplicaSet:
         def factory(index, incarnation):
             return pinned[index](index, incarnation)
 
-        return cls(factory, config, faults=faults)
+        return cls(factory, config, faults=faults, clock=clock)
 
     # ------------------------------------------------------------ intake
     def add_request(self, prompt_ids, sampling: SamplingParams = None,
@@ -624,7 +631,7 @@ class ReplicaSet:
     def _retry_after(self) -> float:
         """Client backoff hint: the earliest pending replica restart if
         the fleet is (partially) down, else one drain step's EWMA."""
-        now = time.monotonic()
+        now = self.clock()
         waits = [max(r.restart_at - now, 0.0) for r in self.replicas
                  if r.restart_at is not None
                  and r.state == ReplicaState.DOWN]
@@ -651,6 +658,8 @@ class ReplicaSet:
     def _step_locked(self) -> List[RequestOutput]:
         outs: List[RequestOutput] = list(self._pending)
         self._pending.clear()
+        if self._tick is not None:
+            self._tick()
         self._steps += 1
         step_no = self._steps
         t0 = time.perf_counter()
@@ -662,7 +671,7 @@ class ReplicaSet:
                     before = rep.failed_at
                     if rep.restart():
                         self._set_up_gauge(rep)
-                        dt = time.monotonic() - before
+                        dt = self.clock() - before
                         self.recovery_times.append(dt)
                         self._h_recovery.observe(dt)
             self._readmit_orphans(outs)

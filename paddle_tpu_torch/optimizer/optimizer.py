@@ -124,12 +124,34 @@ class Optimizer:
         return g if reg is None else reg.apply(p, g)
 
     # ------------------------------------------------------- eager api
+    def _guard_grads(self, params_grads) -> bool:
+        """The process-wide anomaly guard (core/anomaly.py) over this
+        step's gradients, before clipping (paddle_tpu/optimizer/
+        optimizer.py:114-137): one host read of the not-finite flag.
+        False drops the update (skip_step); zero_grads repairs the
+        gradients in place; raise raises."""
+        from ..core import anomaly
+        guard = anomaly.current_guard()
+        if guard is None or not params_grads:
+            return True
+        bad = bool(anomaly.tree_not_finite([g for _, g in params_grads]))
+        if not guard.record(bad, where="gradients"):
+            return True
+        if guard.policy == "zero_grads":
+            for _, g in params_grads:
+                plain(g).copy_(anomaly.sanitize_tree(plain(g)))
+            return True
+        return False
+
     @torch.no_grad()
     def step(self):
-        """One update of every trainable parameter that has a .grad."""
+        """One update of every trainable parameter that has a .grad
+        (dropped or repaired by an active anomaly guard)."""
         params_grads = [(p, p.grad) for p in self._parameter_list or []
                         if p.grad is not None
                         and getattr(p, "trainable", True)]
+        if not self._guard_grads(params_grads):
+            return
         self._apply(params_grads)
 
     def _apply(self, params_grads):

@@ -26,6 +26,12 @@ ReplicaSet with the same seeded workloads, fault schedules and gates:
   (revision pinning included) is clean.
 
 Each returns its report dict and raises AssertionError on a failed gate.
+Every fleet runs on a `SteppedClock`: time advances one tick
+(`TICK_S`) per router step and never otherwise, so the heartbeat and
+restart-backoff verdicts, and with them the whole report, depend on the
+seed and the fault schedule and not on how fast the host runs the
+steps. The JAX harnesses read the wall clock; the parity tests run them
+under the same stepped clock.
 The lock-order witness of the JAX harnesses is not ported (the port has
 no lock witness yet). The model defaults to the serving tests' tiny GPT
 with random weights from `seed`; pass `model` (and `models` for the
@@ -42,17 +48,35 @@ import argparse
 import json
 import math
 import sys
-import time
 
 import numpy as np
 
 __all__ = ["DEFAULT_REPLICA_FAULTS", "DEFAULT_DISAGG_FAULTS",
-           "DEFAULT_DEPLOY_FAULTS", "build_model", "run_chaos_replicas",
-           "run_chaos_disagg", "run_chaos_deploy"]
+           "DEFAULT_DEPLOY_FAULTS", "TICK_S", "SteppedClock", "build_model",
+           "run_chaos_replicas", "run_chaos_disagg", "run_chaos_deploy"]
 
 DEFAULT_REPLICA_FAULTS = "kill_replica@6:1,nan_logits@10,stall@12:0.05"
 DEFAULT_DISAGG_FAULTS = "kill_migration@3:0,kill_migration@7:0"
 DEFAULT_DEPLOY_FAULTS = "kill_deploy@1:1"
+# one router step of the tiny fleets on an idle host: the harnesses'
+# 0.02 s heartbeat trips after 5 silent steps, a 0.01 s backoff ends 2
+# steps after the quarantine
+TICK_S = 0.004
+
+
+class SteppedClock:
+    """A clock for `ReplicaSet(clock=)` that reads `ticks * tick_s`
+    seconds. The router calls `tick()` once at the start of each step."""
+
+    def __init__(self, tick_s: float = TICK_S):
+        self.tick_s = float(tick_s)
+        self.ticks = 0
+
+    def __call__(self) -> float:
+        return self.ticks * self.tick_s
+
+    def tick(self) -> None:
+        self.ticks += 1
 
 
 def build_model(seed: int = 0, device=None, vocab=97, hidden=32, layers=2,
@@ -72,9 +96,6 @@ def _drain(rs, max_steps: int, what: str) -> None:
         rs.step()
         steps += 1
         assert steps <= max_steps, what
-        if not any(r.has_unfinished() for r in rs.replicas) \
-                and rs.has_unfinished():
-            time.sleep(0.002)               # restart backoff pending
 
 
 def _slo(rs, st, n: int) -> dict:
@@ -113,7 +134,7 @@ def run_chaos_replicas(seed: int = 0, n_requests: int = 24,
             model, RouterConfig(
                 num_replicas=replicas, heartbeat_timeout_s=0.02,
                 backoff_base=0.01, backoff_max=0.05, backoff_jitter=0.0),
-            engine_config=ecfg, faults=injector)
+            engine_config=ecfg, faults=injector, clock=SteppedClock())
         pending = list(enumerate(specs))
         rids, homes = {}, {}
         for i, (p, mt) in pending[:2 * replicas]:
@@ -130,9 +151,6 @@ def run_chaos_replicas(seed: int = 0, n_requests: int = 24,
                 i, (p, mt) = pending.pop(0)
                 rids[i] = rs.add_request(p, SamplingParams(max_tokens=mt))
                 homes[i] = rs.get_request(rids[i]).replica
-            if not any(r.has_unfinished() for r in rs.replicas) \
-                    and rs.has_unfinished():
-                time.sleep(0.002)
         return rs, rids, homes
 
     # reference pass: greedy tokens depend only on the prompt, so the
@@ -242,7 +260,7 @@ def run_chaos_disagg(seed: int = 0, n_requests: int = 18,
                                 heartbeat_timeout_s=0.02,
                                 backoff_base=0.01, backoff_max=0.05,
                                 backoff_jitter=0.0),
-            engine_config=ecfg, faults=injector)
+            engine_config=ecfg, faults=injector, clock=SteppedClock())
         pending = list(enumerate(specs))
         rids = {}
         for i, (p, mt) in pending[:2 * replicas]:
@@ -257,9 +275,6 @@ def run_chaos_disagg(seed: int = 0, n_requests: int = 18,
             if steps % 2 == 0 and pending:
                 i, (p, mt) = pending.pop(0)
                 rids[i] = rs.add_request(p, SamplingParams(max_tokens=mt))
-            if not any(r.has_unfinished() for r in rs.replicas) \
-                    and rs.has_unfinished():
-                time.sleep(0.002)
         return rs, rids
 
     # reference pass: same tiers, no faults (handoffs still happen, so
@@ -353,7 +368,7 @@ def run_chaos_deploy(seed: int = 0, n_requests: int = 24,
         config=RouterConfig(num_replicas=replicas, heartbeat_timeout_s=0.02,
                             backoff_base=0.01, backoff_max=0.05,
                             backoff_jitter=0.0),
-        faults=injector)
+        faults=injector, clock=SteppedClock())
     # the candidate is meant to diverge: the tolerance covers the whole
     # canary set, and the parity gate's refusal is exercised elsewhere
     dcfg = DeployConfig(canary_tolerance=3)
@@ -395,9 +410,6 @@ def run_chaos_deploy(seed: int = 0, n_requests: int = 24,
         assert step <= max_steps, \
             f"run incomplete after {max_steps} steps (deploys " \
             f"{len(done_deploys)}/2, unfinished {rs.has_unfinished()})"
-        if not any(r.has_unfinished() for r in rs.replicas) \
-                and rs.has_unfinished():
-            time.sleep(0.002)
 
     st = rs.router_stats()
     report = {

@@ -110,6 +110,16 @@ PyTorch is installed:
   CPU's run, with the card's allocated memory after the restart within
   one pool of its value before the kill.
 
+- slice 8a, the training runtime: DeviceLoader's batches pinned on the
+  host (one pin_memory per tensor), then on the card, in order and
+  bitwise equal to the CPU's; a skip_step TrainStep over a NaN batch
+  leaves the parameters and Adam's moments bitwise as they were; an
+  AutoCheckpointManager run killed after epoch 1 resumes on the card
+  into a model from another seed with the uninterrupted run's losses
+  (bitwise: one device, one order of operations); Model.fit of a tiny
+  MLP on the card equal to Model.fit on the CPU (losses within 1e-5
+  relative, f32 with TF32 off).
+
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
 """
@@ -1361,3 +1371,139 @@ def test_fleet_kill_restart_on_card_matches_cpu(cuda):
     assert abs(after - before) < pool_bytes
     rs.run(max_steps=2000)
     assert rs.router_stats()["unfinished"] == 0
+
+
+# ------------------------------------------- slice 8a: training runtime
+def _seq_dataset(n=10):
+    import paddle_tpu_torch as paddle
+
+    class DS(paddle.io.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            rng = np.random.RandomState(i)
+            return (rng.randn(3, 4).astype(np.float32),
+                    np.asarray(i, np.int64))
+    return DS()
+
+
+def test_device_loader_pins_and_delivers_in_order(cuda, monkeypatch):
+    import paddle_tpu_torch as paddle
+    pins = []
+    real_pin = torch.Tensor.pin_memory
+
+    def pin(t, *a, **kw):
+        out = real_pin(t, *a, **kw)
+        pins.append(out.is_pinned())
+        return out
+    monkeypatch.setattr(torch.Tensor, "pin_memory", pin)
+    dl = paddle.io.DataLoader(_seq_dataset(), batch_size=3, num_workers=2)
+    want = [(x.numpy(), y.numpy()) for x, y in dl]
+    got = []
+    for x, y in paddle.io.DeviceLoader(dl, size=2, device=cuda):
+        assert x.device.type == "cuda" and y.device.type == "cuda"
+        got.append((x.cpu().numpy(), y.cpu().numpy()))
+    assert len(pins) == 2 * len(want) and all(pins)
+    assert len(got) == len(want)
+    for (gx, gy), (wx, wy) in zip(got, want):
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy)
+
+
+def test_skip_step_leaves_parameters_bitwise_on_card(cuda):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.anomaly import AnomalyGuard
+    with paddle.core.place.default_device(cuda):
+        net = paddle.nn.Linear(4, 3)
+    opt = paddle.optimizer.Adam(1e-2, parameters=net.parameters())
+    guard = AnomalyGuard("skip_step")
+    step = paddle.jit.TrainStep(
+        net, lambda m, x, y: ((m(x) - y) ** 2).mean(), opt,
+        anomaly_guard=guard)
+    x = torch.randn(5, 4, device=cuda)
+    y = torch.randn(5, 3, device=cuda)
+    step(x, y)
+    before = [t.clone() for t in net.parameters()] + [
+        t.clone() for st in step._opt_state.values() for t in st.values()]
+    bad = x.clone()
+    bad[1, 2] = float("nan")
+    step(bad, y)
+    after = list(net.parameters()) + [
+        t for st in step._opt_state.values() for t in st.values()]
+    assert guard.skipped_steps == 1
+    for b, a in zip(before, after):
+        assert torch.equal(b, a)
+    step(x, y)
+    assert not torch.equal(before[0], net.weight)
+
+
+def test_checkpoint_kill_and_resume_on_card(cuda, tmp_path):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpointManager
+    X = torch.from_numpy(np.random.RandomState(0).randn(8, 4).astype(
+        np.float32)).to(cuda)
+    Y = torch.from_numpy(np.random.RandomState(1).randn(8, 2).astype(
+        np.float32)).to(cuda)
+
+    def build(seed):
+        paddle.seed(seed)
+        with paddle.core.place.default_device(cuda):
+            m = paddle.nn.Linear(4, 2, weight_attr=paddle.ParamAttr(
+                name="w"), bias_attr=paddle.ParamAttr(name="b"))
+        o = paddle.optimizer.Adam(1e-2, parameters=m.parameters())
+        return m, o, paddle.jit.TrainStep(
+            m, lambda mm, a, b: ((mm(a) - b) ** 2).mean(), o)
+
+    _, _, st = build(7)
+    ref = [float(st(X, Y).numpy()) for _ in range(4)]
+    m1, o1, st1 = build(7)
+    run = []
+    for epoch in AutoCheckpointManager(str(tmp_path), [m1], [o1]) \
+            .train_epoch_range(4):
+        run.append(float(st1(X, Y).numpy()))
+        if epoch == 2:
+            break
+    m2, o2, st2 = build(999)
+    mgr = AutoCheckpointManager(str(tmp_path), [m2], [o2])
+    for _ in mgr.train_epoch_range(4):
+        run.append(float(st2(X, Y).numpy()))
+    assert mgr.restored_index == 1
+    assert run[:2] + run[3:] == ref
+
+
+def test_model_fit_on_card_matches_cpu(cuda):
+    import paddle_tpu_torch as paddle
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 8).astype(np.float32)
+    y = (x @ rng.randn(8, 4)).argmax(-1).astype(np.int64)[:, None]
+    ds = paddle.io.TensorDataset([x, y])
+    state = None
+    out = {}
+    for dev in ("cpu", cuda):
+        with paddle.core.place.default_device(dev):
+            net = paddle.nn.Sequential(paddle.nn.Linear(8, 32),
+                                       paddle.nn.ReLU(),
+                                       paddle.nn.Linear(32, 4))
+        if state is None:
+            state = {k: v.detach().cpu().numpy().copy()
+                     for k, v in net.state_dict().items()}
+        net.set_state_dict(state)
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(0.01,
+                                            parameters=net.parameters()),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        losses = []
+
+        class Log(paddle.callbacks.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                losses.append(logs["loss"][0])
+        np.random.seed(3)
+        model.fit(ds, epochs=3, batch_size=16, verbose=0,
+                  callbacks=[Log()])
+        out[str(dev)] = (losses, model.evaluate(ds, batch_size=16,
+                                                verbose=0))
+    (gl, gev), (wl, wev) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    np.testing.assert_allclose(gev["loss"], wev["loss"], rtol=1e-5)
+    assert gev["acc"] == wev["acc"]

@@ -541,7 +541,7 @@ def test_deploy_trace_terminal_rule():
 
 # ------------------------------------------------------ chaos: deploy
 @pytest.mark.chaos
-def test_chaos_deploy_rolls_back_then_commits(pairs):
+def test_chaos_deploy_rolls_back_then_commits(pairs, monkeypatch):
     """The port's rolling-deploy chaos harness (a kill in the
     swap->canary window after another slot rejoined, then a clean
     rollout) against the JAX harness on the same weights (the JAX
@@ -549,11 +549,15 @@ def test_chaos_deploy_rolls_back_then_commits(pairs):
     (rollback then commit, nothing lost, pools clean, live KV moved,
     causality with revision pinning clean) on both, and equal reports
     but the wall-clock SLO readings, the deploy ids (counted process-
-    wide) and the JAX lock witness."""
+    wide) and the JAX lock witness. Both run on a stepped clock
+    (test_torch_fleet_clock.py), so the restart verdicts do not move
+    with the host's load."""
     import tools.chaos_serve as jcs
     from paddle_tpu_torch.tools import chaos_serve as cs
+    from test_torch_fleet_clock import jax_stepped_clock
     got = cs.run_chaos_deploy(seed=0, n_requests=8, models=(
         _pair(0, seq=48)[1], _pair(1, seq=48)[1]))
+    jax_stepped_clock(monkeypatch)
     want = jcs.run_chaos_deploy(seed=0, n_requests=8)
 
     def deploys(rep):

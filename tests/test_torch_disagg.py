@@ -375,13 +375,19 @@ def test_checker_flags_migrate_violations():
 
 # ------------------------------------------- chaos: kill mid-migration
 @pytest.mark.chaos
-def test_chaos_kill_mid_migration(models):
+def test_chaos_kill_mid_migration(models, monkeypatch):
+    """Both harnesses run on a stepped clock (test_torch_fleet_clock.py):
+    the port's by its own SteppedClock, the JAX one's under
+    `jax_stepped_clock`, so the restart verdicts, and with them which
+    kill lands on a live migration, do not move with the host's load."""
     import tools.chaos_serve as jcs
     from paddle_tpu_torch.tools import chaos_serve as cs
+    from test_torch_fleet_clock import jax_stepped_clock
     got = cs.run_chaos_disagg(seed=0, n_requests=10, model=models[1])
     assert got["migrations"]["rolled_back"] >= 1
     assert got["migrations"]["migrations"] >= 1
     assert got["survivors"] == 10
+    jax_stepped_clock(monkeypatch)
     want = jcs.run_chaos_disagg(seed=0, n_requests=10)
     for key in ("fired", "migrations", "requeues", "finish_reasons",
                 "replica_states", "survivors", "integrity"):
@@ -392,7 +398,9 @@ def test_chaos_kill_mid_migration(models):
 @pytest.mark.parametrize("seed", [1, 2])
 def test_chaos_kill_mid_migration_more_seeds(models, seed):
     """The JAX test's other seeds, on the port alone (the JAX harness at
-    these seeds runs only in its slow set)."""
+    these seeds runs only in its slow set); the port's harness runs on
+    its stepped clock, so the outcome does not move with the host's
+    load."""
     from paddle_tpu_torch.tools import chaos_serve as cs
     rep = cs.run_chaos_disagg(seed=seed, n_requests=10, model=models[1])
     assert rep["migrations"]["rolled_back"] >= 1

@@ -2,16 +2,16 @@
 
 Every `paddle.*` attribute chain (and every `from paddle_tpu.X import
 ...` name) that the single-chip path of examples/gpt_pretrain.py,
-examples/bert_pretrain.py and examples/resnet_train.py reaches must
-resolve on paddle_tpu_torch; the multi-chip branches (`if args.dp ...`)
-wait for the distributed slice. Then gpt_pretrain.py's own body runs on
-the port with `import paddle_tpu as paddle` read as `import
-paddle_tpu_torch as paddle` (its JAX platform lines dropped), on the CPU
-at a small batch and sequence.
+examples/bert_pretrain.py, examples/resnet_train.py and
+examples/mnist_lenet.py reaches must resolve on paddle_tpu_torch; the
+multi-chip branches (`if args.dp ...`) wait for the distributed slice.
+Then gpt_pretrain.py's and mnist_lenet.py's own bodies run on the port
+with `import paddle_tpu as paddle` read as `import paddle_tpu_torch as
+paddle` (gpt_pretrain's JAX platform lines dropped), on the CPU at a
+small size.
 
-Not covered yet: examples/mnist_lenet.py needs io/ and
-vision/datasets (ROADMAP Queue 1 item 6) and examples/gpt_generate.py
-needs export_decoder (Queue 1 item 8).
+Not covered yet: examples/gpt_generate.py needs export_decoder (Queue 1
+item 8).
 """
 import ast
 import importlib
@@ -22,12 +22,14 @@ from contextlib import redirect_stdout
 from pathlib import Path
 
 import pytest
+import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.core import place as _place
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
-SINGLE_CHIP = ("gpt_pretrain.py", "bert_pretrain.py", "resnet_train.py")
+SINGLE_CHIP = ("gpt_pretrain.py", "bert_pretrain.py", "resnet_train.py",
+               "mnist_lenet.py")
 
 
 def _multi_chip(node) -> bool:
@@ -135,3 +137,37 @@ def test_gpt_pretrain_body_runs_on_the_port(monkeypatch):
                                            out.getvalue())]
     assert len(losses) == 2 and all(math.isfinite(v) for v in losses), \
         out.getvalue()
+
+
+def test_mnist_lenet_body_runs_on_the_port(monkeypatch):
+    """examples/mnist_lenet.py on the port: synthetic MNIST through the
+    DataLoader and DeviceLoader into a LeNet TrainStep, one epoch at the
+    example's batch of 64 over the first 8 batches of the train set,
+    then its evaluation over the test set."""
+    import paddle_tpu_torch.vision.datasets.mnist as mnist
+    src = (EXAMPLES / "mnist_lenet.py").read_text()
+    src = src.replace("import paddle_tpu as paddle",
+                      "import paddle_tpu_torch as paddle")
+    assert "paddle_tpu_torch as paddle" in src and "jax" not in src
+    ns = {"__name__": "mnist_lenet_on_port",
+          "__file__": str(EXAMPLES / "mnist_lenet.py")}
+    exec(compile(src, "mnist_lenet.py", "exec"), ns)
+    real = mnist._synthetic_digits
+    monkeypatch.setattr(mnist, "_synthetic_digits",
+                        lambda n, seed, **kw: real(min(n, 512), seed, **kw))
+    monkeypatch.setattr("sys.argv", ["mnist_lenet.py", "--epochs", "1"])
+    prev, threads = _place._default, torch.get_num_threads()
+    paddle_tpu_torch.set_device("cpu")
+    torch.set_num_threads(2)
+    out = io.StringIO()
+    try:
+        with redirect_stdout(out):
+            ns["main"]()
+    finally:
+        _place._default = prev
+        torch.set_num_threads(threads)
+    text = out.getvalue()
+    loss = [float(m) for m in re.findall(r"loss ([-\d.]+)", text)]
+    acc = [float(m) for m in re.findall(r"test accuracy: ([\d.]+)", text)]
+    assert len(loss) == 1 and math.isfinite(loss[0]), text
+    assert len(acc) == 1 and 0.0 <= acc[0] <= 1.0, text

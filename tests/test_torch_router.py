@@ -465,11 +465,16 @@ def test_churn_zero_leak_with_failover(models):
 
 # -------------------------------------------------- chaos acceptance
 @pytest.mark.chaos
-def test_replica_chaos_acceptance(models):
+def test_replica_chaos_acceptance(models, monkeypatch):
+    """Both harnesses on a stepped clock (test_torch_fleet_clock.py), so
+    the restart verdicts and the recovery seconds are the same reading
+    in both packages whatever the host's load."""
     import tools.chaos_serve as jcs
     from paddle_tpu_torch.tools import chaos_serve as cs
+    from test_torch_fleet_clock import jax_stepped_clock
     got = cs.run_chaos_replicas(seed=0, n_requests=12, replicas=3,
                                 model=models[1])
+    jax_stepped_clock(monkeypatch)
     want = jcs.run_chaos_replicas(seed=0, n_requests=12, replicas=3)
     assert got["requeues"] >= 1
     assert got["canaries_served"] >= 1
@@ -478,7 +483,7 @@ def test_replica_chaos_acceptance(models):
         assert audit["leaked"] == 0
     for key in ("fired", "targeted_replicas", "requeues", "finish_reasons",
                 "replica_states", "untouched_survivors", "canaries_served",
-                "integrity"):
+                "integrity", "recovery_times_s"):
         assert got[key] == want[key], key
 
 

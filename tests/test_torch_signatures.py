@@ -74,6 +74,7 @@ NO_COUNTERPART = {
     "paddle_tpu_torch.tools.chaos_serve",
     "paddle_tpu_torch.tools.fused_conv_proto",
     "paddle_tpu_torch.tools.engine_bench",
+    "paddle_tpu_torch.tools.fit_bench",
     "paddle_tpu_torch.tools.k3_sweep",
     "paddle_tpu_torch.tools.measure",
     "paddle_tpu_torch.tools.profile_serving",
@@ -433,10 +434,6 @@ UNPORTED = {
     "Embedding.sparse": lambda: tnn.Embedding(10, 4, sparse=True),
     "embedding.sparse": lambda: F.embedding(
         torch.zeros(2, dtype=torch.long), torch.zeros(10, 4), sparse=True),
-    "TrainStep.return_outputs": lambda: paddle_tpu_torch.jit.TrainStep(
-        tnn.Linear(2, 2), None, Adam(0.1), return_outputs=True),
-    "TrainStep.anomaly_guard": lambda: paddle_tpu_torch.jit.TrainStep(
-        tnn.Linear(2, 2), None, Adam(0.1), anomaly_guard=object()),
     "ragged_decode_attention.interpret": lambda: _k3(interpret=True),
     "fused_scale_relu_matmul.bm": lambda: _k4(bm=256),
     "define_flag.public": lambda: paddle_tpu_torch.core.flags.define_flag(
@@ -724,6 +721,71 @@ def _ported_adamw_lr_ratio():
         np.testing.assert_array_equal(tp[k].numpy(), plain_run[k].numpy())
 
 
+def _train_step_pair(x, **kw):
+    """A Linear(3, 2) TrainStep with SGD(0.1) on the same weights in both
+    packages, each given keywords `kw` (the JAX step's `anomaly_guard`
+    is its own package's guard), one call on x and y = 1; returns
+    (port result, JAX result, port layer, JAX layer, port guard, JAX
+    guard)."""
+    from paddle_tpu.core.anomaly import AnomalyGuard as JGuard
+    from paddle_tpu_torch.core.anomaly import AnomalyGuard
+    paddle.seed(3)
+    jl = paddle.nn.Linear(3, 2)
+    tl = tnn.Linear(3, 2)
+    tl.set_state_dict({k: np.asarray(v.numpy())
+                       for k, v in jl.state_dict().items()})
+    tkw, jkw = dict(kw), dict(kw)
+    guards = (None, None)
+    if "anomaly_guard" in kw:
+        guards = (AnomalyGuard(kw["anomaly_guard"]),
+                  JGuard(kw["anomaly_guard"]))
+        tkw["anomaly_guard"], jkw["anomaly_guard"] = guards
+
+    def loss(m, a, b):
+        out = m(a)
+        return ((out - b) ** 2).mean(), out
+
+    y = np.ones((x.shape[0], 2), np.float32)
+    t = paddle_tpu_torch.jit.TrainStep(
+        tl, loss, paddle_tpu_torch.optimizer.SGD(
+            0.1, parameters=tl.parameters()), **tkw)
+    j = paddle.jit.TrainStep(jl, loss, jopt.SGD(
+        0.1, parameters=jl.parameters()), **jkw)
+    return (t(torch.from_numpy(x), torch.from_numpy(y)),
+            j(paddle.to_tensor(x), paddle.to_tensor(y)), tl, jl) + guards
+
+
+def _ported_train_step_return_outputs():
+    """return_outputs=True gives (loss, loss_fn's outputs) as the JAX
+    step does: the same loss and predictions (float32, 1e-6), and the
+    same updated weights."""
+    x = np.random.RandomState(4).randn(5, 3).astype(np.float32)
+    (tloss, tout), (jloss, jout), tl, jl, _, _ = _train_step_pair(
+        x, return_outputs=True)
+    assert len(tout) == len(jout) == 2
+    np.testing.assert_allclose(tloss.numpy(), jloss.numpy(), atol=1e-6)
+    np.testing.assert_allclose(tout[1].numpy(), np.asarray(
+        jout[1].numpy()), atol=1e-6)
+    np.testing.assert_allclose(tl.weight.numpy(), jl.weight.numpy(),
+                               atol=1e-6)
+
+
+def _ported_train_step_anomaly_guard():
+    """anomaly_guard reaches the step: under skip_step a NaN batch
+    leaves the weights bitwise as they were and counts one skipped step
+    in both packages."""
+    x = np.random.RandomState(4).randn(5, 3).astype(np.float32)
+    x[2, 1] = np.nan
+    w0 = None
+    _, _, tl, jl, tg, jg = _train_step_pair(x, anomaly_guard="skip_step")
+    paddle.seed(3)
+    w0 = paddle.nn.Linear(3, 2).weight.numpy()
+    np.testing.assert_array_equal(tl.weight.numpy(), w0)
+    np.testing.assert_array_equal(np.asarray(jl.weight.numpy()), w0)
+    assert tg.state_dict() == jg.state_dict()
+    assert tg.skipped_steps == 1
+
+
 def _ce_pair(port_kw, jax_kw=None, soft=False, axis=-1, probs=False):
     """cross_entropy in both packages on the same logits [3, 5, 4] (or
     their softmax with probs): values and input gradients in float32
@@ -903,6 +965,8 @@ PORTED = {
     "LLMEngine.add_request.resume_tokens": _ported_add_request_resume_tokens,
     "LLMEngine.add_request.readmit": _ported_add_request_readmit,
     "LLMEngine.add_request.trace_id": _ported_add_request_trace_id,
+    "TrainStep.return_outputs": _ported_train_step_return_outputs,
+    "TrainStep.anomaly_guard": _ported_train_step_anomaly_guard,
 }
 
 
@@ -913,8 +977,9 @@ def test_ported_parameter_reaches_its_feature(case, gpt_pair):
     apply_decay_param_fun and lr_ratio), slice 6b (dropout's axis and
     mode, the cross-entropies' weight, soft_label, axis and
     use_softmax), slice 6c (Conv2D's padding_mode, the max pools'
-    return_mask) or slice 7 (EngineConfig's model and revision,
-    add_request's failover keywords) now takes a value and reaches its
+    return_mask), slice 7 (EngineConfig's model and revision,
+    add_request's failover keywords) or slice 8a (TrainStep's
+    return_outputs and anomaly_guard) now takes a value and reaches its
     feature, computing as the JAX package does (or, where it drops the
     argument, as Paddle does, against the JAX package on the equivalent
     input)."""
@@ -999,17 +1064,15 @@ def test_slice_6c_packages_export_every_reference_name(package):
     """The packages' public names: every one the JAX package exports,
     but those waiting for slices 8 (vision data), 9 (SyncBatchNorm is
     present and raises) and 10 (detection), and modules and helpers
-    the JAX package's namespace leaks (numpy, jax, functools...)."""
+    the JAX package's namespace leaks (numpy, jax, functools...); the
+    vision data modules came with slice 8a."""
     ref = importlib.import_module(f"paddle_tpu.{package}")
     port = importlib.import_module(f"paddle_tpu_torch.{package}")
     leaked = {"np", "jnp", "jax", "functools", "annotations", "op",
               "to_tensor", "Tensor", "convert_dtype", "weight_norm_hook",
               "layer", "clip", "decode"}
-    waits = {"incubate": {"checkpoint", "LayerHelper", "load_op_library",
-                          "reader"},
-             "vision": {"datasets", "transforms", "image", "ops",
-                        "set_image_backend", "get_image_backend",
-                        "image_load"}}.get(package, set())
+    waits = {"incubate": {"LayerHelper", "load_op_library", "reader"},
+             "vision": {"ops"}}.get(package, set())
     names = {n for n in dir(ref) if not n.startswith("_")}
     missing = sorted(names - leaked - waits - set(dir(port)))
     assert not missing, (package, missing)
@@ -1063,3 +1126,48 @@ def test_slice_7_module_has_every_reference_name(module):
     import paddle_tpu.inference.serving as jserving
     import paddle_tpu_torch.inference.serving as tserving
     assert not set(jserving.__all__) - set(tserving.__all__)
+
+
+# ------------------------------------------- slice 8a: every public name
+SLICE_8A = ("io.dataset", "io.sampler", "io.dataloader", "io.device_loader",
+            "vision.image", "vision.transforms.functional",
+            "vision.transforms.transforms", "vision.datasets.folder",
+            "vision.datasets.mnist", "vision.datasets.cifar",
+            "vision.datasets.flowers", "vision.datasets.voc2012",
+            "metric.metrics", "core.anomaly", "core.monitor",
+            "incubate.checkpoint", "hapi.callbacks", "hapi.model_summary",
+            "hapi.model")
+
+
+@pytest.mark.parametrize("module", SLICE_8A)
+def test_slice_8a_module_has_every_reference_name(module):
+    """Every public function, class and constant of the training
+    runtime's JAX modules (io, vision data, metric, anomaly, monitor,
+    checkpoint, hapi) has a counterpart of the same name in the port's
+    module, defined in the reference's order; the walk above holds each
+    callable's positional order, and jit.TrainStep's return_outputs and
+    anomaly_guard are held by test_ported_parameter_reaches_its_feature."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    names = _reference_order(module)
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+
+
+@pytest.mark.parametrize("package", ["io", "vision.transforms",
+                                     "vision.datasets", "metric", "hapi"])
+def test_slice_8a_packages_export_every_reference_name(package):
+    """The packages export every public name of the JAX package (io's
+    InMemoryDataset and QueueDataset raise NotImplementedError until the
+    native datafeed is ported) and the top level has Model, summary,
+    flops, callbacks, io and metric."""
+    ref = importlib.import_module(f"paddle_tpu.{package}")
+    port = importlib.import_module(f"paddle_tpu_torch.{package}")
+    names = {n for n in dir(ref) if not n.startswith("_")} - {
+        "dataset_native", "annotations"}
+    missing = sorted(names - set(dir(port)))
+    assert not missing, (package, missing)
+    for name in ("Model", "summary", "flops", "callbacks", "io", "metric"):
+        assert hasattr(paddle_tpu_torch, name), name
