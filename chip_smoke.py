@@ -304,6 +304,25 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    checkpoints' seconds and bytes;
 30. examples/mnist_lenet.py's body on the port at its defaults
    (synthetic MNIST, batch 64, DeviceLoader, 2 epochs): the loss falls.
+31. the core op corpus (no kernel of its own) on CUDA against the port's
+   CPU, at paddle_tpu_torch/testing/op_cases.py's limits (integer,
+   index and sort/argsort/topk/mode/unique outputs exactly; float32
+   1e-5 relative; float64 1e-10; decompositions and solves, cuSOLVER
+   against LAPACK, 1e-4 up to sign or basis), every result on the card:
+   (a) every replayed op case (the cases tests/test_torch_op_suite.py,
+   _op_grad_suite.py and _op_tail.py hold to the JAX package on the
+   CPU), forward and float64 gradient; (b) at the bench GPT's geometry,
+   logits [32, 32768] in float32 and bfloat16 through a top-k / top-p
+   filter (sort descending, cumsum, take_along_axis, where) and 4096
+   multinomial draws a row, the draws held to the filter's CPU
+   probabilities by a chi-square test (p > 1e-3), and one [32, 1024,
+   768] activation on a grid of 0.25 (ties everywhere) through median,
+   quantile, mode, kthvalue, topk, argsort, unique, cumsum, logsumexp,
+   std, var and histogram (the row-wise ones held to the CPU on the
+   first sequence), each op's time printed beside the card;
+   (c) every row of the Tensor method table (op_cases.METHOD_ROWS) on a
+   CUDA Tensor and on a CUDA parameter against the CPU Tensor. Under
+   60 s.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -343,6 +362,7 @@ from pathlib import Path
 
 import numpy as np
 
+from paddle_tpu_torch.testing import op_cases
 from paddle_tpu_torch.tools.engine_bench import K3_SHAPE
 from paddle_tpu_torch.tools.measure import K3_MIXED_LENGTHS, card_line
 
@@ -4129,6 +4149,257 @@ def run_mnist_example(device) -> dict:
     return {"losses": losses, "accuracy": acc[0]}
 
 
+# ------------------------------------------------------------ phase 31
+def _event_ms(fn, reps: int = 3) -> float:
+    """Mean device time of fn over reps calls after one warm call (CUDA
+    events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _op_replay(device) -> int:
+    """Phase 31 (a): every replayed op case on the card against the
+    CPU; returns the number of cases."""
+    cases = op_cases.load_cases()
+    bad, spent = [], []
+    t0 = time.perf_counter()
+    for case in cases:
+        t1 = time.perf_counter()
+        want, want_grads, _ = op_cases.run(case, "cpu")
+        t2 = time.perf_counter()
+        got, grads, devices = op_cases.run(case, device)
+        spent.append((time.perf_counter() - t2, t2 - t1, case.name))
+        msg = (None if devices <= {"cuda:0"} else f"outputs on {devices}") \
+            or op_cases.compare(got, want, case) \
+            or (op_cases.compare(grads, want_grads, case, grads=True)
+                if case.grad else None)
+        if msg:
+            bad.append(f"{case.name}: {msg}")
+    print(f"[ops] (a) {len(cases)} replayed op cases on CUDA against the "
+          f"CPU, forward and float64 gradient: {len(cases) - len(bad)} "
+          f"agree ({time.perf_counter() - t0:.1f} s; the CPU's share "
+          f"{sum(c for _, c, _ in spent):.1f} s; slowest on the card: "
+          + ", ".join(f"{n} {g:.2f} s" for g, _, n in sorted(spent)[-3:])
+          + ")")
+    for line in bad:
+        print(f"[ops]   {line}")
+    _require(not bad, f"{len(bad)} op cases disagree on CUDA")
+    return len(cases)
+
+
+def _topk_topp(paddle, logits, k: int, p: float, draws: int):
+    """A Paddle-style sampling filter over the vocab axis: the k largest
+    logits, cut further to the smallest prefix of the sorted
+    probabilities whose mass before it is under p, then multinomial
+    draws from the filtered softmax."""
+    F = paddle.nn.functional
+    srt = paddle.sort(logits, axis=-1, descending=True)
+    order = paddle.argsort(logits, axis=-1, descending=True)
+    probs = F.softmax(paddle.cast(srt, "float32"), axis=-1)
+    cum = paddle.cumsum(probs, axis=-1)
+    before = cum - probs
+    n_keep = paddle.minimum(
+        paddle.sum(paddle.cast(before < p, "int64"), axis=-1, keepdim=True),
+        paddle.full_like(srt[:, :1], k, dtype="int64"))
+    thr = paddle.take_along_axis(srt, n_keep - 1, axis=-1)
+    filt = paddle.where(logits < thr, paddle.full_like(logits, -math.inf),
+                        logits)
+    kept = F.softmax(paddle.cast(filt, "float32"), axis=-1)
+    draw = paddle.multinomial(kept, draws, replacement=True)
+    return {"sort": srt, "argsort": order, "cumsum": cum, "before": before,
+            "n_keep": n_keep, "where": filt, "probs": kept, "draw": draw}
+
+
+def _chi2_p(draw, probs) -> float:
+    """p-value of the draws' token counts against probs, pooled over the
+    rows (tokens expected under 5 times pooled per row)."""
+    from scipy import stats
+    stat, dof = 0.0, 0
+    for d, pr in zip(draw, probs):
+        counts = np.bincount(d, minlength=pr.size).astype(np.float64)
+        exp = pr.astype(np.float64) / pr.sum() * d.size
+        big = exp >= 5
+        c = np.append(counts[big], counts[~big].sum())
+        e = np.append(exp[big], exp[~big].sum())
+        keep = e > 0
+        stat += float(((c[keep] - e[keep]) ** 2 / e[keep]).sum())
+        dof += int(keep.sum()) - 1
+    return float(stats.chi2.sf(stat, dof))
+
+
+def _sampling_filter(device, seed: int, dtype: str, card: str) -> None:
+    """Phase 31 (b), the logits half: the filter on the card against the
+    CPU (sort values and indices, n_keep, the filtered logits exactly;
+    cumsum at float32's limit); the draws in distribution."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    B, V, K, P, S = 32, 32768, 50, 0.9, 4096
+    logits = np.random.RandomState(seed).randn(B, V).astype(np.float32) * 3
+    out = {}
+    for dev in ("cpu", device):
+        with default_device(dev):
+            x = paddle.cast(paddle.to_tensor(logits), dtype)
+            paddle.seed(seed)
+            out[str(dev)] = {k: op_cases.host(v) for k, v in
+                             _topk_topp(paddle, x, K, P, S).items()}
+            if dev != "cpu":
+                res = _topk_topp(paddle, x, K, P, S)
+                _require(all(v.device.type == "cuda" for v in res.values()),
+                         "the filter's results on the card")
+                ms = _event_ms(lambda: _topk_topp(paddle, x, K, P, S))
+    got, want = out[str(device)], out["cpu"]
+    for key in ("sort", "argsort", "cumsum"):
+        msg = op_cases.agree(got[key], want[key])
+        _require(msg is None, f"{dtype} logits {key}: {msg}")
+    # a row's cut may move by a token where the mass before it is within
+    # float32 rounding of p (the card's scan sums in another order)
+    moved = np.nonzero(got["n_keep"][:, 0] != want["n_keep"][:, 0])[0]
+    for r in moved:
+        lo, hi = sorted((int(got["n_keep"][r, 0]), int(want["n_keep"][r, 0])))
+        gap = np.abs(want["before"][r, lo:hi] - P).max()
+        _require(gap <= 1e-5, f"{dtype} row {r}: cut at {lo} vs {hi}, "
+                              f"{gap:.3g} away from p")
+    same = np.setdiff1d(np.arange(B), moved)
+    _require(np.array_equal(got["where"][same], want["where"][same]),
+             f"{dtype} filtered logits differ")
+    p_card = _chi2_p(got["draw"], want["probs"])
+    p_cpu = _chi2_p(want["draw"], want["probs"])
+    support = all(np.isin(got["draw"][r], np.nonzero(want["probs"][r])[0])
+                  .all() for r in same)
+    print(f"[ops] (b) logits [{B}, {V}] {dtype}: top-{K}/top-p {P} filter "
+          f"and {S} draws a row in {ms:.3f} ms on the card ({card}); sort, "
+          f"argsort, cumsum, filtered logits equal to the CPU's "
+          f"({len(moved)} rows' cut moved within rounding of p); draws "
+          f"inside the kept set: {support}; chi-square p {p_card:.3g} "
+          f"(CPU's own draws {p_cpu:.3g})")
+    _require(support and p_card > 1e-3 and p_cpu > 1e-3,
+             f"{dtype} draws against the filter's probabilities")
+
+
+_ACT_OPS = {
+    "median": lambda P, x: P.median(x, axis=-1),
+    "quantile": lambda P, x: P.quantile(x, [0.1, 0.5, 0.9], axis=-1),
+    "mode": lambda P, x: P.mode(x, axis=-1),
+    "kthvalue": lambda P, x: P.kthvalue(x, 384, axis=-1),
+    "topk": lambda P, x: P.topk(x, 50, axis=-1),
+    "argsort": lambda P, x: P.argsort(x, axis=-1),
+    "unique": lambda P, x: P.unique(x, return_index=True,
+                                    return_counts=True),
+    "cumsum": lambda P, x: P.cumsum(x, axis=-1),
+    "logsumexp": lambda P, x: P.logsumexp(x, axis=-1),
+    "std": lambda P, x: P.std(x, axis=-1),
+    "var": lambda P, x: P.var(x, axis=-1),
+    # 37 bins over the data's range: no value of the 0.25 grid lies on a
+    # bin edge (10 j / 37 = m / 4 has no solution inside the range)
+    "histogram": lambda P, x: P.histogram(x, bins=37),
+}
+
+
+# the ops of _ACT_OPS that work row by row (over the last axis): the
+# CPU computes them on the first sequence only, and the card's rows of
+# that sequence are held to it (the CPU's full-width sorts took most of
+# the phase); unique and histogram see the whole tensor on both
+_ROW_OPS = {"median", "quantile", "mode", "kthvalue", "topk", "argsort",
+            "cumsum", "logsumexp", "std", "var"}
+
+
+def _activation_ops(device, seed: int, card: str) -> None:
+    """Phase 31 (b), the activation half."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    a = np.round(np.random.RandomState(seed + 1).randn(32, 1024, 768)
+                 .astype(np.float32) * 4) / 4
+    with default_device("cpu"):
+        x_cpu = paddle.to_tensor(a)
+        x_row = paddle.to_tensor(a[:1])
+    with default_device(device):
+        x = paddle.to_tensor(a)
+    for name, fn in _ACT_OPS.items():
+        rows = name in _ROW_OPS
+        want = [op_cases.host(t) for t in
+                op_cases.flat(fn(paddle, x_row if rows else x_cpu))]
+        res = op_cases.flat(fn(paddle, x))
+        _require(all(t.device.type == "cuda" for t in res),
+                 f"{name} results on the card")
+        # quantile's q axis leads its output
+        got = [op_cases.host(t[:, :1] if name == "quantile" else t[:1])
+               if rows else op_cases.host(t) for t in res]
+        for i, (g, w) in enumerate(zip(got, want)):
+            msg = op_cases.agree(g, w)
+            _require(msg is None, f"activation {name} output {i}: {msg}")
+        ms = _event_ms(lambda: fn(paddle, x))
+        print(f"[ops] (b) {name} on [32, 1024, 768] float32: {ms:.3f} ms "
+              f"({card}); equal to the CPU's"
+              + (" (its first sequence)" if rows else ""))
+    del x
+
+
+def _values(out) -> list:
+    """A row's outputs as host arrays (a Python number as one)."""
+    tensors = op_cases.flat(out)
+    return [op_cases.host(t) for t in tensors] if tensors else \
+        [np.asarray(out)]
+
+
+def _method_table(device) -> int:
+    """Phase 31 (c): each row of the Tensor method table on a CUDA
+    Tensor and on CUDA parameters (under no_grad, as the in-place rows
+    need) against the CPU Tensor; returns the number of calls."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.place import default_device
+    n = 0
+    for name, call, kinds, random in op_cases.METHOD_ROWS:
+        dtype = "float32" if "f" in kinds else "int64"
+        with default_device("cpu"):
+            want = _values(call(op_cases.MethodEnv(paddle, dtype)))
+        for parameters in (False, True):
+            receiver = "parameter" if parameters else "Tensor"
+            with default_device(device), paddle.no_grad():
+                out = call(op_cases.MethodEnv(paddle, dtype, parameters))
+            on_card = name == "cpu" or all(t.device.type == "cuda"
+                                           for t in op_cases.flat(out))
+            got = _values(out)
+            _require(on_card and len(got) == len(want),
+                     f"x.{name}() on a CUDA {receiver}")
+            for g, w in zip(got, want):
+                msg = (None if g.shape == w.shape and g.dtype == w.dtype
+                       else "shape or dtype") if random else \
+                    op_cases.agree(g, w)
+                _require(msg is None, f"x.{name}() on a CUDA {receiver}: "
+                                      f"{msg}")
+            n += 1
+    return n
+
+
+def run_op_corpus(device, seed: int, card: str) -> None:
+    """Phase 31: the core op corpus on the card (see the docstring)."""
+    import torch
+    t0 = time.perf_counter()
+    n_cases = _op_replay(device)
+    t1 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        _sampling_filter(device, seed, dtype, card)
+    _activation_ops(device, seed, card)
+    t2 = time.perf_counter()
+    n_rows = _method_table(device)
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"[ops] (c) {n_rows} method-table calls (a CUDA Tensor and a CUDA "
+          f"parameter each) equal to the CPU's; phase 31 ({n_cases} cases) "
+          f"in {took:.1f} s: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) "
+          f"{time.perf_counter() - t2:.1f}")
+    _require(took < 60, f"phase 31 took {took:.1f} s (limit 60)")
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e and the fleet phases 23-27; returns K3's kernel entry
     (its launches from phase 6, 6a-6d's in pass_launches, 23-27's in
@@ -4271,6 +4542,7 @@ def main(argv=None) -> int:
         run_mnist_example(device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    run_op_corpus(device, args.seed, card)
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
               "k1_d64": transformer["counts"][:2]}

@@ -31,8 +31,11 @@ channel-last), MobileNetV1/V2, VGG, channel-last ResNet and the EMA,
 ModelAverage and Lookahead wrappers; the training runtime: io
 (DataLoader, the samplers, DeviceLoader), vision datasets, transforms
 and image loading, metric, hapi's Model.fit with its callbacks, summary
-and flops, AutoCheckpointManager and the anomaly guard. A name of paddle_tpu's top level
-that is not ported is absent here.
+and flops, AutoCheckpointManager and the anomaly guard; the core op
+corpus (math, logic, search, manipulation, creation, linalg, random and
+array ops, with paddle.linalg) at the top level and as the Tensor's
+Paddle methods. A name of paddle_tpu's top level that is not ported is
+absent here.
 """
 from .core import errors
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
@@ -48,19 +51,11 @@ from .core.place import (CPUPlace, CUDAPlace, Place, device_count,
 from .core.random import get_rng_state, seed
 from .core.tensor import Tensor, to_tensor
 from .core.unported import not_ported as _not_ported
-from .ops.creation import (arange, full, full_like, ones, ones_like, rand,
-                           randint, randn, zeros, zeros_like)
 from .framework_io import load, save
+from .ops import *  # noqa: F401,F403
+from . import ops  # noqa: F401
+from .ops import sum, max, min, abs, all, any, round, pow, slice  # noqa: F401,A004,E501
 from .ops.extra_ops import gather_tree
-from .ops.linalg import bmm, matmul
-from .ops.logic import logical_not, logical_or
-from .ops.manipulation import (concat, expand, flatten, index_select,
-                               reshape, split, squeeze, stack,
-                               take_along_axis, transpose, unsqueeze, where)
-from .ops.math import (abs, add, all, cast, clip, divide, exp, log, max,
-                       maximum, mean, min, minimum, multiply, neg, pow,
-                       sqrt, square, subtract, sum, tanh)
-from .ops.search import argmax, topk
 
 from .core import anomaly, monitor
 from . import (amp, distributed, incubate, inference, io, jit, metric,
@@ -68,6 +63,10 @@ from . import (amp, distributed, incubate, inference, io, jit, metric,
 from . import hapi
 from .hapi import Model, callbacks, flops, summary
 from .nn.layer.base import ParamAttr
+from .ops.array_ops import TensorArray as LoDTensorArray
+from .ops.extra_ops import register_legacy_aliases as _register_aliases
+
+_register_aliases()
 
 bool8 = bool_
 

@@ -12,10 +12,11 @@ ignored, as in the reference."""
 from __future__ import annotations
 
 from ..core.dtypes import convert_dtype
-from .auto_cast import auto_cast
+from .auto_cast import amp_guard, auto_cast, black_list, white_list
 from .grad_scaler import AmpScaler, GradScaler
 
-__all__ = ["decorate", "auto_cast", "GradScaler", "AmpScaler"]
+__all__ = ["decorate", "auto_cast", "amp_guard", "white_list", "black_list",
+           "GradScaler", "AmpScaler"]
 
 
 def decorate(models=None, optimizers=None, level="O1", dtype="bfloat16",

@@ -27,7 +27,8 @@ import torch
 from ..core import dispatch as _dispatch
 from ..core.dtypes import convert_dtype
 
-__all__ = ["auto_cast", "WHITE_LIST", "BLACK_LIST", "cast_dtype"]
+__all__ = ["auto_cast", "amp_guard", "WHITE_LIST", "BLACK_LIST",
+           "white_list", "black_list", "cast_dtype"]
 
 # reference: fluid/contrib/mixed_precision/fp16_lists.py white/black lists
 WHITE_LIST = {
@@ -45,6 +46,10 @@ BLACK_LIST = {
     "frobenius_norm", "softmax", "log_softmax", "logsumexp", "cumsum",
     "nll_loss", "kl_div", "mse_loss", "l1_loss",
 }
+
+white_list = WHITE_LIST
+black_list = BLACK_LIST
+
 
 class _AmpState:
     enabled = False
@@ -106,3 +111,6 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         (_AmpState.enabled, _AmpState.level, _AmpState.dtype,
          _AmpState.white, _AmpState.black, hook) = prev
         _dispatch.register_amp_hook(hook)
+
+
+amp_guard = auto_cast

@@ -83,7 +83,7 @@ def rows_not_finite(a: torch.Tensor) -> torch.Tensor:
         a = a[None]
     if a.ndim == 1:
         a = a[None]
-    return ~torch.isfinite(a).reshape(a.shape[0], -1).all(dim=1)
+    return ~torch.all(torch.isfinite(a).reshape(a.shape[0], -1), dim=1)
 
 
 def any_not_finite_host(a) -> bool:

@@ -30,7 +30,7 @@ from . import flags as _flags
 from .tensor import Tensor, box, plain
 
 __all__ = ["op", "get_op", "registered_ops", "register_amp_hook",
-           "outermost", "has_tensor"]
+           "outermost", "has_tensor", "eager"]
 
 _OP_REGISTRY = {}
 
@@ -110,6 +110,19 @@ def op(op_type: str, differentiable: bool = True):
         _OP_REGISTRY[op_type] = wrapper
         return wrapper
     return deco
+
+
+def eager(fn: Callable):
+    """The call boundary of `op` for a function that has no op type (the
+    JAX package computes it outside any registered op): plain tensors
+    in and Tensors out at user level, nothing added inside an op or a
+    Layer."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _State.depth or not has_tensor(args, kwargs):
+            return fn(*args, **kwargs)
+        return outermost(fn, *args, **kwargs)
+    return wrapper
 
 
 def get_op(op_type: str):

@@ -27,10 +27,42 @@ once, with Paddle's name, trainable, need_clip, optimize_attr and
 regularizer. Their `__torch_function__` is torch's disabled one (as
 nn.Parameter's is), so a parameter read inside a module body costs
 nothing per op; operations on a parameter return plain tensors.
+
+Paddle's methods. ops/__init__.py attaches the JAX package's method
+table (paddle_tpu/ops/__init__.py `_attach_tensor_methods`) to this
+class, so `x.split(2)`, `x.median()` or `x.max(axis=1)` answer as in
+the JAX package wherever Paddle and torch share a name. Five rules keep
+that safe:
+- torch's own Python calls methods on the subclass. torch's library
+  functions written in Python that do so (torch.functional's split and
+  norm, torch.nn.functional, torch.distributions) get plain aliases of
+  their Tensor arguments from `__torch_function__`, so they meet torch's
+  methods; torch's C functions, torch.autograd and torch.Tensor's own
+  methods (register_hook, requires_grad_) run on the Tensor itself,
+  which they need. `__repr__`, `__reduce_ex__` and
+  `__deepcopy__` are this class's own and work on a plain alias, so
+  every result prints, pickles and deep-copies; `__format__` formats a
+  0-d Tensor as its value, as torch formats a plain one. `real` and
+  `imag` are methods here, as in Paddle (torch has properties);
+  `numel()` returns a Tensor and `item(*args)` takes a flat or multi
+  index, as in the JAX package.
+- Parameters (`EagerParamBase`) take the Paddle methods too, except the
+  names in `TORCH_ON_PARAMETERS` ("numel", "size"): torch's library and
+  the port's module bodies call those on parameters and expect torch's
+  answers (an int and a torch.Size).
+- The port's own host code (hapi, metric, io collation, the optimizers,
+  clipping, save/load, checkpoints) calls torch functions, or methods
+  on plain tensors, never a method whose meaning the table changes.
+- `tpu()` is the one JAX Tensor name the port leaves out: this card
+  has no TPU, and torch's `cuda()` stands in for it.
+- `Tensor.size` stays torch's method (the JAX package has a property
+  that returns the element count): torch code calls `size()` and
+  `size(dim)` on tensors and parameters alike.
 """
 from __future__ import annotations
 
 import copy
+import inspect
 
 import numpy as np
 import torch
@@ -38,7 +70,11 @@ import torch
 from . import dtypes as _dt
 from . import place as _place
 
-__all__ = ["Tensor", "EagerParamBase", "to_tensor", "box", "plain"]
+__all__ = ["Tensor", "EagerParamBase", "to_tensor", "box", "plain",
+           "wrap", "TORCH_ON_PARAMETERS"]
+
+# torch methods that parameters keep over the Paddle method table
+TORCH_ON_PARAMETERS = ("numel", "size")
 
 _DIS = torch._C.DisableTorchFunctionSubclass
 _TensorBase = torch._C.TensorBase
@@ -89,6 +125,53 @@ def plain(t):
     return t
 
 
+def _unbox(a):
+    """Tensors (also inside a list or tuple) as plain aliases (call
+    under _DIS)."""
+    if type(a) is Tensor:
+        return torch.Tensor.as_subclass(a, torch.Tensor)
+    if type(a) in (list, tuple) and any(type(x) is Tensor for x in a):
+        return type(a)(_unbox(x) for x in a)
+    return a
+
+
+# torch's modules of functions written in Python that call methods on
+# their tensor arguments (torch.split calls tensor.split); autograd's
+# functions are not among them: they need the Tensor itself
+_LIBRARY_MODULES = ("torch.functional", "torch.nn.functional",
+                    "torch.distributions")
+
+
+def _library_function(func) -> bool:
+    """A torch function written in Python that may call methods on its
+    arguments."""
+    return inspect.isfunction(func) and \
+        (func.__module__ or "").startswith(_LIBRARY_MODULES)
+
+
+_REPR_TYPES = {}
+
+
+def _repr(t, tensor_contents=None) -> str:
+    """torch's text for t, made from an alias of a plain subclass of the
+    same name (torch's printing calls methods on what it prints)."""
+    name = type(t).__name__
+    cls = _REPR_TYPES.get(name)
+    if cls is None:
+        cls = _REPR_TYPES[name] = type(name, (torch.Tensor,), {
+            "__torch_function__": torch._C._disabled_torch_function_impl})
+    with _DIS():
+        alias = torch.Tensor.as_subclass(t, cls)
+    return torch._tensor_str._str(alias, tensor_contents=tensor_contents)
+
+
+def _rebuild(t, state):
+    """Unpickle a Tensor: the plain tensor boxed, with its attributes."""
+    out = torch.Tensor.as_subclass(t, Tensor)
+    out.__dict__.update(state)
+    return out
+
+
 class Tensor(torch.Tensor):
     """Paddle's eager tensor over a torch.Tensor (see the module
     docstring). Build one with to_tensor, or Tensor(value,
@@ -105,9 +188,48 @@ class Tensor(torch.Tensor):
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
         with _DIS():
-            out = func(*args, **(kwargs or {}))
+            if _library_function(func):
+                args = tuple(_unbox(a) for a in args)
+                kwargs = {k: _unbox(v) for k, v in kwargs.items()}
+            out = func(*args, **kwargs)
         return box(out)
+
+    def __repr__(self, *, tensor_contents=None):
+        return _repr(self, tensor_contents)
+
+    def __format__(self, format_spec):
+        # torch formats a 0-d tensor as its value only when it is not a
+        # subclass: f"{t:.1f}" on a 0-d result (numel(), a mean) works
+        if self.dim() == 0:
+            return format(self.item(), format_spec)
+        return object.__format__(self, format_spec)
+
+    def __reduce_ex__(self, proto):
+        with _DIS():
+            t = torch.Tensor.as_subclass(self, torch.Tensor)
+        return _rebuild, (t, dict(self.__dict__))
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        with _DIS():
+            t = torch.Tensor.__deepcopy__(
+                torch.Tensor.as_subclass(self, torch.Tensor), {})
+            out = torch.Tensor.as_subclass(t, type(self))
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        memo[id(self)] = out
+        return out
+
+    # the JAX Tensor's own parameter attributes: a Tensor that is not a
+    # parameter answers with what the port's optimizers assume for it
+    is_parameter = False
+    trainable = True
+    need_clip = True
+    optimize_attr = None
+    regularizer = None
+    do_model_average = None
 
     # ------------------------------------------------------------- meta
     @property
@@ -199,6 +321,32 @@ class Tensor(torch.Tensor):
     def cast(self, dtype):
         return self.astype(dtype)
 
+    def rank(self):
+        """The number of axes (an int, as in the JAX package)."""
+        return self.ndim
+
+    def value(self):
+        return self
+
+    def get_tensor(self):
+        return self
+
+    def retain_grads(self):
+        """Keep .grad on a non-leaf Tensor after backward."""
+        with _DIS():
+            _TensorBase.retain_grad(self)
+
+    def item(self, *args):
+        """The value as a Python scalar; args index it as numpy's
+        ndarray.item does (one flat index, or one index per axis)."""
+        with _DIS():
+            t = torch.Tensor.as_subclass(self, torch.Tensor)
+            if len(args) == 1 and not isinstance(args[0], tuple):
+                t = t.reshape(-1)[args[0]]
+            elif args:
+                t = t[tuple(args[0]) if len(args) == 1 else args]
+            return t.item()
+
     def set_value(self, value):
         """Overwrite the values in place (shape kept, own dtype). Like
         Paddle's eager set_value this is an in-place write: a graph that
@@ -214,12 +362,15 @@ class Tensor(torch.Tensor):
         return self
 
 
-def _transpose(x, perm, *dims, name=None):
-    """Paddle's x.transpose(perm) with a permutation list, or torch's
-    x.transpose(dim0, dim1). (Bound as a method with the reference's
-    first parameter x, as the JAX package binds its Tensor methods.)"""
+def _transpose(x, perm=None, *dims, name=None):
+    """Paddle's x.transpose(perm) with a permutation list (all axes
+    reversed when None), or torch's x.transpose(dim0, dim1). (Bound as
+    a method with the reference's first parameter x, as the JAX package
+    binds its Tensor methods.)"""
     if dims:
         return torch.Tensor.transpose(x, perm, *dims)
+    if perm is None:
+        perm = list(reversed(range(x.ndim)))
     return x.permute(*perm)
 
 
@@ -249,6 +400,11 @@ class EagerParamBase(Tensor, torch.nn.Parameter):
         self.need_clip = need_clip
         self.do_model_average = do_model_average
 
+    __reduce_ex__ = torch.nn.Parameter.__reduce_ex__
+
+    def __repr__(self, *, tensor_contents=None):
+        return "Parameter containing:\n" + _repr(self, tensor_contents)
+
     def __deepcopy__(self, memo):
         if id(self) in memo:
             return memo[id(self)]
@@ -257,6 +413,21 @@ class EagerParamBase(Tensor, torch.nn.Parameter):
         out.__dict__.update(copy.deepcopy(self.__dict__, memo))
         memo[id(self)] = out
         return out
+
+
+for _name in TORCH_ON_PARAMETERS:
+    setattr(EagerParamBase, _name, getattr(torch.Tensor, _name))
+
+
+def wrap(x, like=None):
+    """x as a tensor: a torch tensor as it is, anything else (a number,
+    a list, an ndarray) through to_tensor, on `like`'s device when like
+    is a tensor, else on the default device (the JAX package's
+    `_wrap`)."""
+    if torch.is_tensor(x):
+        return x
+    return to_tensor(x, place=like.device if torch.is_tensor(like)
+                     else None)
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
@@ -276,4 +447,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
             raise TypeError(f"to_tensor: cannot convert {type(data)}")
         t = torch.from_numpy(np.array(a, copy=True))
     t = t.to(device=device, dtype=dtype or t.dtype, copy=True)
-    return torch.Tensor._make_subclass(Tensor, t, not stop_gradient)
+    # Paddle lets an integer Tensor have stop_gradient False; torch has
+    # no gradient for it, so it stays a constant
+    grad = not stop_gradient and (t.is_floating_point() or t.is_complex())
+    return torch.Tensor._make_subclass(Tensor, t, grad)

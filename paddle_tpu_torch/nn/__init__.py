@@ -5,6 +5,7 @@ utils (weight and spectral norm) and seq2seq decoding, with the JAX
 package's module aliases (`vision` is layer.common, PixelShuffle's
 home; `extension` is functional.extension)."""
 from . import functional, initializer, utils
+from . import utils as weight_norm_hook  # noqa: F401 (the module's other name)
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue, clip_grad_norm_)

@@ -169,20 +169,22 @@ class BeamSearchDecoder(Decoder):
             * self.beam_size
         flat_parent = (parent + offs.unsqueeze(-1)).reshape(-1)
         next_cell_states = _map_state(
-            next_cell_states, lambda s: s.index_select(0, plain(flat_parent)))
-        prev_fin = fin.gather(1, parent)
+            next_cell_states,
+            lambda s: torch.index_select(s, 0, plain(flat_parent)))
+        prev_fin = torch.gather(fin, 1, parent)
         now_fin = prev_fin | (token == self.end_token)
         if self._impute_finished:
             # the states of beams that had finished pass through unchanged
             old = _map_state(cell_states,
-                             lambda s: s.index_select(0, plain(flat_parent)))
+                             lambda s: torch.index_select(
+                                 s, 0, plain(flat_parent)))
             flat_fin = prev_fin.reshape(-1)
 
             def impute(new_s, old_s):
                 m = flat_fin.reshape(-1, *([1] * (new_s.ndim - 1)))
                 return torch.where(m, old_s, new_s)
             next_cell_states = _map_state2(next_cell_states, old, impute)
-        lengths = states["lengths"].gather(1, parent) \
+        lengths = torch.gather(states["lengths"], 1, parent) \
             + (~prev_fin).to(torch.int64)
         next_states = {"cell_states": next_cell_states, "log_probs": top_lp,
                        "finished": now_fin, "lengths": lengths}

@@ -477,8 +477,8 @@ def dice_loss(input, label, epsilon=1e-5, name=None):
     lab = label.squeeze(-1) if label.shape[-1] == 1 else label
     lab = one_hot(lab, input.shape[-1]).to(input.dtype)
     axes = list(range(1, input.ndim))
-    inse = (input * lab).sum(dim=axes)
-    denom = input.sum(dim=axes) + lab.sum(dim=axes)
+    inse = torch.sum(input * lab, dim=axes)
+    denom = torch.sum(input, dim=axes) + torch.sum(lab, dim=axes)
     return (1.0 - 2.0 * inse / (denom + epsilon)).mean()
 
 
@@ -489,12 +489,12 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
     bs = labels.shape[0]
     lab = labels.reshape(bs, 1).to(torch.float32)
     eq = (lab == lab.t()).to(torch.float32)
-    targets = eq / eq.sum(dim=1, keepdim=True)
-    l2 = ((anchor * anchor).sum(dim=1).mean()
-          + (positive * positive).sum(dim=1).mean()) * 0.25 * l2_reg
+    targets = eq / torch.sum(eq, dim=1, keepdim=True)
+    l2 = (torch.sum(anchor * anchor, dim=1).mean()
+          + torch.sum(positive * positive, dim=1).mean()) * 0.25 * l2_reg
     sim = anchor @ positive.t()
     ce = softmax_with_cross_entropy(sim, targets, soft_label=True)
-    return l2 + (targets * ce).sum(dim=0).mean()
+    return l2 + torch.sum(targets * ce, dim=0).mean()
 
 
 def hsigmoid_loss(input, label, num_classes, weight, bias=None,

@@ -20,9 +20,10 @@ import math
 import numpy as np
 import torch
 
-from ..core.dispatch import op
+from ..core.dispatch import _OP_REGISTRY, get_op, op
 
-__all__ = ["gather_tree", "hierarchical_sigmoid", "sigmoid_focal_loss"]
+__all__ = ["gather_tree", "hierarchical_sigmoid", "sigmoid_focal_loss",
+           "register_legacy_aliases"]
 
 
 @op("gather_tree", differentiable=False)
@@ -101,3 +102,53 @@ def sigmoid_focal_loss(x, label, normalizer=1.0, alpha=0.25, gamma=2.0,
     nrm = normalizer if torch.is_tensor(normalizer) else float(normalizer)
     return _sigmoid_focal_loss(x, label.to(x.dtype), nrm, float(gamma),
                                float(alpha))
+
+
+# ----------------------------------------------------------------- aliases
+def _alias(new_name, existing_name):
+    """Register a legacy op name whose kernel is the same computation as
+    an already-registered v2 op (the reference keeps both generations
+    registered, e.g. reshape/reshape2, top_k/top_k_v2)."""
+    fn = get_op(existing_name)
+    if fn is not None and new_name not in _OP_REGISTRY:
+        _OP_REGISTRY[new_name] = fn
+
+
+# the JAX package's list (paddle_tpu/ops/extra_ops.py _ALIASES)
+_ALIASES = [
+    ("matmul", "matmul_v2"), ("reshape2", "reshape"),
+    ("transpose2", "transpose"), ("squeeze2", "squeeze"),
+    ("unsqueeze2", "unsqueeze"), ("flatten2", "flatten"),
+    ("flatten_contiguous_range", "flatten"), ("top_k", "top_k_v2"),
+    ("expand_v2", "expand"), ("expand_as_v2", "expand"),
+    ("lookup_table", "lookup_table_v2"), ("mean", "reduce_mean"),
+    ("sum", "add_n"), ("reverse", "flip"), ("tril_triu", "tril"),
+    ("one_hot", "one_hot_v2"), ("kldiv_loss", "kl_div"),
+    ("lrn", "local_response_norm"), ("warpctc", "ctc_loss"),
+    ("margin_rank_loss", "margin_ranking_loss"),
+    ("cross_entropy", "softmax_with_cross_entropy"),
+    ("cross_entropy2", "softmax_with_cross_entropy"), ("norm", "p_norm"),
+    ("pad", "pad_nd"), ("pad2d", "pad_nd"), ("pad3d", "pad_nd"),
+    ("fill_any_like", "ones_like"), ("depthwise_conv2d", "conv2d"),
+    ("depthwise_conv2d_transpose", "conv2d_transpose"),
+    ("max_pool2d_with_index", "pool_max"),
+    ("max_pool3d_with_index", "pool_max"), ("cudnn_lstm", "rnn_scan_lstm"),
+    ("rnn", "rnn_scan_simple"), ("gru", "rnn_scan_gru"),
+    ("lstm", "rnn_scan_lstm"), ("crf_decoding", "viterbi_decode"),
+    ("conv3d", "conv2d"), ("conv3d_transpose", "conv2d_transpose"),
+    ("bilinear_interp_v2", "interpolate"),
+    ("nearest_interp_v2", "interpolate"),
+    ("bicubic_interp_v2", "interpolate"),
+    ("trilinear_interp_v2", "interpolate"),
+    ("linear_interp_v2", "interpolate"), ("bilinear_interp", "interpolate"),
+    ("nearest_interp", "interpolate"), ("bicubic_interp", "interpolate"),
+    ("trilinear_interp", "interpolate"), ("linear_interp", "interpolate"),
+]
+
+
+def register_legacy_aliases():
+    """Called from paddle_tpu_torch/__init__.py after nn.functional has
+    registered its ops; aliases whose target the port has not ported
+    are skipped."""
+    for new, old in _ALIASES:
+        _alias(new, old)

@@ -325,7 +325,7 @@ def run(num_heads: int = 6, warmup: int = 2, steps: int = 10,
     before = flash_launches()
     t2 = _time_steps(step, (x, y), 0, steps, dev)
     launches = {k: v - before[k] for k, v in flash_launches().items()}
-    tps = x.numel() * steps / t2["timed_s"] if steps else None
+    tps = int(np.prod(x.shape)) * steps / t2["timed_s"] if steps else None
     out = {"num_heads": num_heads, "num_layers": model.cfg.num_layers,
            "batch": int(x.shape[0]), "seq": int(x.shape[1]),
            "losses": t["losses"] + t2["losses"],
@@ -413,7 +413,7 @@ def run_eager(warmup: int = 2, steps: int = 10, seed: int = 0,
     before = flash_launches()
     t = _time_steps(step, (), warmup, steps, dev)
     launches = {k: v - before[k] for k, v in flash_launches().items()}
-    tokens = st["x"].numel()
+    tokens = int(np.prod(st["x"].shape))
     tps = tokens * steps / t["timed_s"] if steps else None
     sc = st["scaler"]
     out = {"route": "eager", "num_heads": model.cfg.num_heads,
@@ -477,7 +477,7 @@ def run_o1_trainstep(warmup: int = 2, steps: int = 10, seed: int = 0,
     before = flash_launches()
     t = _time_steps(step, (x, y), warmup, steps, dev)
     launches = {k: v - before[k] for k, v in flash_launches().items()}
-    tps = x.numel() * steps / t["timed_s"] if steps else None
+    tps = int(np.prod(x.shape)) * steps / t["timed_s"] if steps else None
     out = {"route": "o1_trainstep", "losses": t["losses"],
            "step_s": t["step_s"], "tokens_per_sec": tps,
            "mfu": (tps * flops_per_token(model.cfg) / H100_BF16_FLOPS

@@ -120,6 +120,16 @@ PyTorch is installed:
   MLP on the card equal to Model.fit on the CPU (losses within 1e-5
   relative, f32 with TF32 off).
 
+- slice 8b, the core op corpus: every replayed op case of
+  paddle_tpu_torch/testing/op_cases (the cases that
+  tests/test_torch_op_suite.py, _op_grad_suite.py and _op_tail.py hold
+  to the JAX package on the CPU) on CUDA tensors against the port's own
+  CPU result for the same inputs, forward and gradient: integer, index
+  and sort/argsort/topk/mode/unique outputs exactly, float32 within
+  1e-5 relative, float64 gradients within 1e-10, decompositions and
+  solves (cuSOLVER against LAPACK) within 1e-4 up to sign or basis;
+  every output on the card.
+
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
 """
@@ -1507,3 +1517,21 @@ def test_model_fit_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gl, wl, rtol=1e-5)
     np.testing.assert_allclose(gev["loss"], wev["loss"], rtol=1e-5)
     assert gev["acc"] == wev["acc"]
+
+
+# ------------------------------------------------ slice 8b: the op corpus
+from paddle_tpu_torch.testing import op_cases  # noqa: E402
+
+OP_CASES = op_cases.load_cases()
+
+
+@pytest.mark.parametrize("case", OP_CASES, ids=[c.name for c in OP_CASES])
+def test_op_case_cuda_matches_cpu(cuda, case):
+    want, want_grads, _ = op_cases.run(case, "cpu")
+    got, grads, devices = op_cases.run(case, "cuda")
+    assert devices <= {"cuda:0"}, (case.name, devices)
+    assert op_cases.compare(got, want, case) is None, \
+        (case.name, op_cases.compare(got, want, case))
+    if case.grad:
+        msg = op_cases.compare(grads, want_grads, case, grads=True)
+        assert msg is None, (case.name, msg)

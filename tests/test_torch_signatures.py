@@ -68,6 +68,9 @@ def _cpu_device():
 # tools/ under other names
 NO_COUNTERPART = {
     "paddle_tpu_torch.core.unported",
+    # the op corpus's replayed cases for runs with no JAX (chip_smoke.py's
+    # phase 31, tests/test_torch_cuda.py)
+    "paddle_tpu_torch.testing.op_cases",
     "paddle_tpu_torch.ops.kernels",
     "paddle_tpu_torch.ops.kernels._build",
     "paddle_tpu_torch.tools",
@@ -1171,3 +1174,26 @@ def test_slice_8a_packages_export_every_reference_name(package):
     assert not missing, (package, missing)
     for name in ("Model", "summary", "flops", "callbacks", "io", "metric"):
         assert hasattr(paddle_tpu_torch, name), name
+
+
+# ------------------------------------------- slice 8b: every public name
+SLICE_8B = ("ops.math", "ops.logic", "ops.search", "ops.manipulation",
+            "ops.creation", "ops.linalg", "ops.random_ops", "ops.array_ops")
+# the two names of ops/array_ops.py that wait for core/lod.py (ROADMAP
+# Queue 1, the long tail)
+SLICE_8B_WAITS = {"array_to_lod_tensor", "lod_tensor_to_array"}
+
+
+@pytest.mark.parametrize("module", SLICE_8B)
+def test_slice_8b_module_has_every_reference_name(module):
+    """Every public function and class of the core op corpus's eight JAX
+    modules has a counterpart of the same name in the port's module,
+    defined in the reference's order, but array_ops' two LoD functions;
+    the walk above holds each callable's positional order."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    names = [n for n in _reference_order(module) if n not in SLICE_8B_WAITS]
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
