@@ -323,6 +323,30 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    (c) every row of the Tensor method table (op_cases.METHOD_ROWS) on a
    CUDA Tensor and on a CUDA parameter against the CPU Tensor. Under
    60 s.
+32. GPT-3 1.3B (BASELINE.json config 5: 24 layers, hidden 2048, 16
+   heads of 128, vocab 50304, T 2048; random weights from --seed) on
+   one card through jit.TrainStep O2 (AdamW 1e-4, global-norm clip) and
+   K1, under activation recompute: K1 at its shape (B 16, T 2048,
+   causal, bf16) held against the plain version on rows 0-1 (limits:
+   twice the reference rounding's own reading there, floored as phase
+   7's) and timed beside its bound, the plain version and SDPA; at
+   batch 8 x 2048 the first loss bitwise equal without recompute and
+   under "full", the gradients bitwise equal (or, if two runs without
+   recompute differ, within their spread), K1 launching layers x 2
+   forward under "full", each way's peak memory; at batch 16 x 2048
+   under "full" 1 + 4 steps: losses finite and falling, K1 2 x 24
+   forward and 24 backward launches a step, tokens/s, MFU (bench.py's
+   FLOPs a token over 989 TFLOP/s), peak memory and the idle share of a
+   profiled step; one "group:4" step's peak memory;
+33. elastic supervision: tools/ft_worker.py (the bench GPT, 32 x 1024,
+   O2, "full" recompute, 6 steps, a snapshot every 3) under an
+   ElasticSupervisor each, as subprocesses, the three jobs at once:
+   uninterrupted, killed at step 4 (it resumes from the step-2
+   snapshot) and stalled at step 1 with a heartbeat timeout of 20 s; one
+   restart each for the kill and the stall, the stall's reason a hang,
+   final parameters of both bitwise the uninterrupted job's, K1 2 x 12
+   forward and 12 backward a step in every worker; the time to detect
+   and to resume and the snapshots' seconds and bytes printed.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -339,8 +363,10 @@ The last three lines are: one JSON object with each kernel's numbers
 backward as entries of their own, with their launches from phase 13;
 K1 at head dim 64 likewise, with its launches from phase 16; K1's
 entries also carry `eager_launches`, phase 9b's counts, and
-`transformer_launches`, phase 16's, and `hapi_launches`, phase 28's
-fit; K3's carries `pass_launches`,
+`transformer_launches`, phase 16's, `hapi_launches`, phase 28's
+fit, `recompute_launches`, phase 32's timed steps under "full",
+`elastic_launches`, phase 33's workers', and phase 32's check and times
+of K1 at the 1.3B shape (`gpt13_*`); K3's carries `pass_launches`,
 6a-6d's, and `fleet_launches`, 23-27's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 float32 matmuls and convolutions run in full float32 (TF32 off)
@@ -1961,7 +1987,13 @@ FLASH = {
                    scale=1.0 / 8.0, causal=False, layout="bthd"),
     "k1_d64_x": dict(batch=32, heads=8, seq=512, kv_seq=768, width=64,
                      head_dim=64, scale=1.0 / 8.0, causal=False,
-                     layout="bthd")}
+                     layout="bthd"),
+    # GPT-3 1.3B's attention in phase 32 (B 16, 16 heads of 128, T 2048,
+    # causal), checked and timed there (check_k1_1p3b), not in 7-8
+    "k1_1p3b": dict(batch=16, heads=16, seq=2048, width=128, head_dim=128,
+                    scale=1.0 / 128 ** 0.5, causal=True)}
+# the entries phases 7 and 8 hold and time
+FLASH_CHECKED = ("k1", "k2", "k2_nc", "k1_d64", "k1_d64_x")
 
 
 def _is_k1(kernel) -> bool:
@@ -2096,7 +2128,7 @@ _BF16_FLOOR = {"out": dict(l2=5e-4, excess=1e-3),
 FLASH_NAMES = ("out", "lse", "dq", "dk", "dv")
 FLASH_TOL = {
     "float32": {kernel: dict.fromkeys(FLASH_NAMES, _F32_TOL)
-                for kernel in FLASH},
+                for kernel in FLASH_CHECKED},
     "bfloat16": {
         "k1": {"out": dict(l2=4.1e-3, excess=3.9e-2),
                "lse": dict(l2=1e-6, excess=1e-3),
@@ -4400,6 +4432,363 @@ def run_op_corpus(device, seed: int, card: str) -> None:
     _require(took < 60, f"phase 31 took {took:.1f} s (limit 60)")
 
 
+# ------------------------------------------------------------ phase 32
+# BASELINE.json config 5's model (GPT-3 1.3B: 24 layers, hidden 2048, 16
+# heads of 128, vocab 50304, T 2048) on one card under the reference's
+# recompute: the batch whose gradients are held with and without it, the
+# timed batch under "full", its warm-up and timed steps
+GPT13_BATCH = dict(check=8, timed=16)
+GPT13_STEPS = (1, 4)
+
+
+def _set_recompute(model, policy) -> None:
+    """Switch a built GPT to another use_recompute value (the weights
+    and the optimizer state stay)."""
+    from paddle_tpu_torch.models.gpt import _resolve_remat_group
+    model.cfg.use_recompute = policy
+    model._remat_group = _resolve_remat_group(model.cfg)
+
+
+def check_k1_1p3b(device, seed: int) -> dict:
+    """K1 at the 1.3B step's attention (FLASH["k1_1p3b"]: B 16, 16 heads
+    of 128, T 2048, causal, bf16): forward and backward at the full
+    batch, its first 2 rows held against the plain version on those rows
+    (the plain version's f32 scores take 4.3 GB at B 16). The limits are
+    FLASH_TOL's rule applied at this shape: FLASH_REF_MARGIN times the
+    reference rounding's own reading on the same rows, never below
+    _BF16_FLOOR. Returns the max |err| of the forward and the backward."""
+    import torch
+    from paddle_tpu_torch.tools.measure import agreement
+    fwd, bwd, ref = _flash_fns("k1_1p3b")
+    c = FLASH["k1_1p3b"]
+    sc, causal = c["scale"], c["causal"]
+    q, k, v, do = flash_inputs("k1_1p3b", torch.bfloat16, device, seed)
+    o, lse = fwd(q, k, v, causal, sc)
+    got = [t[:2] for t in (o, lse, *bwd(q, k, v, o, lse, do, causal, sc))]
+    rows = [t[:2] for t in (q, k, v, do)]
+    del q, k, v, do, o, lse
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in rows[:3])
+    ro, rlse = ref(qr, kr, vr, causal, sc, return_lse=True)
+    want = (ro.detach(), rlse.detach(),
+            *torch.autograd.grad(ro, (qr, kr, vr), rows[3]))
+    del ro, rlse, qr, kr, vr
+    stats = {n: agreement(a, w) for n, a, w in zip(FLASH_NAMES, got, want)}
+    emu = reference_rounding(*rows, causal, sc)
+    emulated = {n: agreement(a, w) for n, a, w in zip(FLASH_NAMES, emu, want)}
+    del emu, want, got, rows
+    torch.cuda.empty_cache()
+    tol = {n: {m: max(FLASH_REF_MARGIN * emulated[n][m], _BF16_FLOOR[n][m])
+               for m in ("l2", "excess")} for n in FLASH_NAMES}
+    print(f"[k1_1p3b] kernel vs plain, bfloat16, {_shape('k1_1p3b')}, rows "
+          f"0-1: {_line(stats)}")
+    print(f"[k1_1p3b] reference rounding vs plain (limits "
+          f"{FLASH_REF_MARGIN} x its readings, floor _BF16_FLOOR): "
+          f"{_line(emulated)}")
+    _require(not _over(stats, tol), f"k1_1p3b disagrees with its plain "
+                                    f"version: {_over(stats, tol)}")
+    return {"fwd": max(stats[n]["abs"] for n in ("out", "lse")),
+            "bwd": max(stats[n]["abs"] for n in ("dq", "dk", "dv"))}
+
+
+def _gpt13_grads(model, x, y, policy, held: int):
+    """(loss, gradients, peak device bytes, K1 launches) of one forward
+    and backward under `policy`; the peak leaves out the `held` bytes the
+    harness keeps from an earlier pass."""
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    _set_recompute(model, policy)
+    params = [p for p in model.parameters() if p.requires_grad]
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+    for f in fns:
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = gpt_loss_fn(model, x, y)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    return loss.detach(), grads, peak, [f.launches for f in fns]
+
+
+def _grad_bytes(grads) -> int:
+    return sum(g.numel() * g.element_size() for g in grads)
+
+
+def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
+    """Phase 32: GPT-3 1.3B through jit.TrainStep O2 (AdamW 1e-4,
+    ClipGradByGlobalNorm(1.0)) and K1. At GPT13_BATCH["check"] rows of
+    2048 the first loss and the gradients without recompute and under
+    "full" (two runs without it give the spread), with each one's peak
+    memory; then GPT13_STEPS steps at GPT13_BATCH["timed"] rows under
+    "full" (tokens/s, MFU by bench.py's FLOPs a token, peak memory, the
+    idle share of one more profiled step, K1 launches 2 x layers forward
+    and layers backward a step) and one "group:4" step's peak memory."""
+    import math
+    import torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools import train_bench as tb
+    cuda = device.type == "cuda"
+    cfg = cfg or GPTConfig.gpt3_1p3b()
+    L, T = cfg.num_layers, cfg.max_seq_len
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = GPT(cfg, device=device, seed=seed)
+    opt = AdamW(1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[gpt 1.3b] {n_params / 1e9:.4f} B parameters (untied head), "
+          f"built and cast to bf16 in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed)
+    B = GPT13_BATCH["timed"]
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).to(device)
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).to(device)
+    b = GPT13_BATCH["check"]
+    t1 = time.perf_counter()
+    # compared on the card, the first pass's gradients held meanwhile
+    base = _gpt13_grads(model, x[:b], y[:b], False, 0)
+    held = _grad_bytes(base[1])
+    again = _gpt13_grads(model, x[:b], y[:b], False, held)
+    bitwise = all(torch.equal(a, w) for a, w in zip(again[1], base[1]))
+    spread = max(_rel_l2(a, w) for a, w in zip(again[1], base[1]))
+    del again
+    full = _gpt13_grads(model, x[:b], y[:b], "full", held)
+    gerr = max(_rel_l2(a, w) for a, w in zip(full[1], base[1]))
+    full_bitwise = all(torch.equal(a, w) for a, w in zip(full[1], base[1]))
+    print(f"[gpt 1.3b] B {b} x {T}: first loss {base[0].item()!r} without "
+          f"recompute, {full[0].item()!r} under full; gradients under full "
+          f"bitwise equal: {full_bitwise} (worst relative L2 {gerr:.3e}); "
+          f"two runs without recompute bitwise equal: {bitwise} (spread "
+          f"{spread:.3e}); peak memory {base[2] / 1e9:.2f} GB without, "
+          f"{full[2] / 1e9:.2f} GB under full; K1 fwd/bwd {base[3]} "
+          f"without, {full[3]} under full")
+    _require(torch.equal(base[0], full[0]),
+             f"first loss {base[0].item()} vs {full[0].item()} under full")
+    _require(full_bitwise if bitwise else gerr <= spread,
+             f"gradients under full: relative L2 {gerr} (two runs without "
+             f"recompute: bitwise {bitwise}, spread {spread})")
+    if cuda:
+        _require(full[3] == [2 * L, L] and base[3] == [L, L],
+                 f"K1 launches {full[3]} under full, {base[3]} without")
+    del base, full
+
+    _set_recompute(model, "full")
+    step = jit.TrainStep(model, gpt_loss_fn, opt)
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+    for f in fns:
+        f.launches = 0
+    warm, timed = GPT13_STEPS
+    t2 = time.perf_counter()
+    res = tb._time_steps(step, (x, y), warm, timed, device)
+    counts = [f.launches for f in fns]
+    t3 = time.perf_counter()
+    n = warm + timed
+    losses = res["losses"]
+    tps = B * T * timed / res["timed_s"]
+    mfu = tps * tb.flops_per_token(cfg) / tb.H100_BF16_FLOPS if cuda \
+        else None
+    prof = tb.profile_steps(step, (x, y), 1, tb._GPT_GROUPS,
+                            ("cross_entropy", "optimizer")) if cuda else {}
+    _set_recompute(model, "group:4")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses.append(step(x, y).item())
+    group_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    t4 = time.perf_counter()
+    print(f"[gpt 1.3b] B {B} x {T} under full: losses "
+          f"{[round(v, 5) for v in losses]} (the last under group:4); "
+          f"step s {[round(t, 4) for t in res['step_s']]}; tokens/s "
+          f"{tps:.1f}, MFU {mfu} (bench.py's FLOPs a token, "
+          f"{tb.flops_per_token(cfg) / 1e9:.3f} G, over 989 TFLOP/s); "
+          f"peak memory {res['peak_mem_gb']} GB under full, "
+          f"{group_peak / 1e9:.2f} GB under group:4; idle share "
+          f"{prof.get('idle_share')} (one profiled step, busy "
+          f"{prof.get('busy_s')} s of {prof.get('wall_s')} s; groups "
+          f"{prof.get('groups_s')}); K1 fwd/bwd {counts} over {n} steps "
+          f"(want {[2 * L * n, L * n]}); seconds: build {t1 - t0:.1f}, "
+          f"the three passes at B {b} {t2 - t1:.1f}, the steps "
+          f"{t3 - t2:.1f}, the profiled and group:4 steps {t4 - t3:.1f}")
+    _require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    _require(losses[n - 1] < losses[0], f"loss did not fall: {losses}")
+    if cuda:
+        _require(counts == [2 * L * n, L * n],
+                 f"K1 launches {counts} under full, want "
+                 f"{[2 * L * n, L * n]}")
+    out = {"counts": counts, "tokens_per_sec": tps, "mfu": mfu,
+           "peak_mem_gb": res["peak_mem_gb"], "group4_peak_gb":
+           group_peak / 1e9, "idle_share": prof.get("idle_share")}
+    del step, model, opt, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 33
+# the supervised jobs, run at once: tools/ft_worker.py on the bench GPT
+# (bench.py's bench_gpt widths, 32 x 1024, O2) under use_recompute=
+# "full", 6 steps with a snapshot every 3 (about 1.9 GB each, one kept a
+# job). The kill comes at step 4, after the step-2 snapshot, which the
+# restarted worker restores; the stall at step 1, before any snapshot:
+# a snapshot's save (7 s in PR 17's first chip call) lies between two
+# beats, so the timeout watches steps without one. The first step of a
+# fresh worker (cuBLAS and kernel loading, three workers starting at
+# once) lies between two beats too, and the timeout stays well above
+# it: phase 33 prints each worker's step times beside the timeout
+ELASTIC_JOB = dict(model="bench", steps=6, save_every=3, kill=4, stall=1)
+ELASTIC_HANG_TIMEOUT = 20.0
+
+
+def _elastic_job(name, tmp, device, seed, faults="", timeout=None):
+    """One supervised job of tools/ft_worker.py; returns (report, the
+    finishing worker's result, its step log, the supervisor's verdict
+    times)."""
+    from paddle_tpu_torch.distributed.elastic import (ElasticSupervisor,
+                                                      WorkerSpec)
+
+    class Timed(ElasticSupervisor):
+        """The supervisor, noting when it decides each failure."""
+
+        def _fail(self, h, reason, handles):
+            self.verdicts.append((reason, time.time()))
+            super()._fail(h, reason, handles)
+
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    out = os.path.join(d, "out.json")
+    repo = str(Path(__file__).resolve().parent)
+    spec = WorkerSpec(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.ft_worker",
+         "--model", ELASTIC_JOB["model"], "--device", device.type,
+         "--ckpt-dir", os.path.join(d, "ckpt"), "--out", out,
+         "--steps", str(ELASTIC_JOB["steps"]),
+         "--save-every", str(ELASTIC_JOB["save_every"]),
+         "--seed", str(seed)],
+        env={"PADDLE_TPU_FAULTS": faults,
+             "PADDLE_TPU_FAULT_STATE_DIR": os.path.join(d, "faults"),
+             "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             "")},
+        log_path=os.path.join(d, "worker.log"))
+    sup = Timed(max_restarts=2, heartbeat_timeout=timeout,
+                heartbeat_dir=os.path.join(d, "hb"), seed=seed)
+    sup.verdicts = []
+    try:
+        report = sup.run([spec])
+    except Exception:
+        with open(os.path.join(d, "worker.log")) as f:
+            print(f.read()[-4000:])
+        raise
+    with open(out) as f:
+        result = json.load(f)
+    with open(out + ".steps") as f:
+        steps = [json.loads(line) for line in f]
+    shutil.rmtree(os.path.join(d, "ckpt"), ignore_errors=True)
+    return report, result, steps, sup.verdicts
+
+
+def run_elastic(device, seed: int) -> dict:
+    """Phase 33: the uninterrupted, the killed and the stalled job at
+    once, each under its own ElasticSupervisor; gates: one restart each
+    for the kill and the stall, the kill's reason its exit code and the
+    stall's a hang, the killed worker resumed from the step-2 snapshot,
+    the final parameters of both bitwise the uninterrupted job's, K1 2 x
+    layers forward and layers backward a step in every worker. Prints
+    the time to detect, the time to resume and the snapshots' seconds
+    and bytes; returns the workers' K1 launches and those times."""
+    import tempfile
+    import threading
+    import torch
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    specs = {"clean": ("", None),
+             "kill": (f"kill@{ELASTIC_JOB['kill']}", None),
+             "stall": (f"stall@{ELASTIC_JOB['stall']}:600",
+                       ELASTIC_HANG_TIMEOUT)}
+    jobs = {}
+
+    def run(name):
+        faults, timeout = specs[name]
+        jobs[name] = _elastic_job(name, tmp, device, seed, faults, timeout)
+
+    try:
+        threads = [threading.Thread(target=run, args=(n,)) for n in specs]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        took = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _require(set(jobs) == set(specs),
+             f"elastic jobs that did not end: {sorted(set(specs) - set(jobs))}")
+    clean = jobs["clean"][1]
+    L = 12 if ELASTIC_JOB["model"] == "bench" else 2
+    launches, detect, resume = [0, 0], {}, {}
+    for name, (report, result, steps, verdicts) in jobs.items():
+        last = {}
+        for s in steps:
+            last[s["incarnation"]] = s
+        for s in last.values():
+            launches = [a + b for a, b in zip(launches, s["k1"])]
+        first = [s for s in steps if s["incarnation"] == 0]
+        gaps = [b["t0"] - a["t0"] for a, b in zip(first, first[1:])]
+        line = (f"[elastic {name}] restarts {report['restarts'][0]}, "
+                f"history {report['history'][0]}; the first worker's steps "
+                f"{[round(s['t1'] - s['t0'], 2) for s in first]} s, gaps "
+                f"between beats {[round(g, 2) for g in gaps]} s; the last "
+                f"worker started at step {result['first_step']} (snapshot "
+                f"{result['restored']}); final parameters bitwise equal to "
+                f"the uninterrupted job's: "
+                f"{result['params'] == clean['params']}; K1 fwd/bwd "
+                f"{result['k1']} over {len(result['losses'])} steps; its "
+                f"snapshots: {result['save_s'][1]} saved in "
+                f"{result['save_s'][0]:.2f} s, restored in "
+                f"{result['restore_s'][0]:.2f} s, "
+                f"{result['snapshot_bytes'] / 1e9:.3f} GB on disk")
+        if verdicts:
+            # the fault fires just after the beat that follows the last
+            # logged step's end, so the verdict's delay from that end is
+            # the time to detect (for the stall, the timeout and up to a
+            # monitor pass); the restarted worker's first step ends the
+            # time to resume (backoff, process and CUDA start, the model,
+            # the restore, one step)
+            t_fail = verdicts[0][1]
+            after = [s for s in steps if s["incarnation"] == 1]
+            detect[name] = t_fail - first[-1]["t1"]
+            resume[name] = after[0]["t1"] - t_fail
+            line += (f"; detected {detect[name]:.2f} s after the last "
+                     f"step ended, the restarted worker's first step done "
+                     f"{resume[name]:.2f} s after the verdict")
+        print(line)
+        n_steps = len(result["losses"])
+        _require(report["restarts"][0] == (0 if name == "clean" else 1),
+                 f"elastic {name}: {report['restarts'][0]} restarts")
+        _require(result["params"] == clean["params"],
+                 f"elastic {name}: final parameters differ from the "
+                 f"uninterrupted job's")
+        if device.type == "cuda":
+            _require(result["k1"] == [2 * L * n_steps, L * n_steps],
+                     f"elastic {name}: K1 {result['k1']} over {n_steps} "
+                     f"steps")
+    kill_history = jobs["kill"][0]["history"][0]
+    stall_history = jobs["stall"][0]["history"][0]
+    _require(kill_history[0][1] == "exit code 37",
+             f"the kill's history: {kill_history}")
+    _require(jobs["kill"][1]["restored"] == ELASTIC_JOB["kill"] - 2,
+             f"the killed job restored snapshot {jobs['kill'][1]['restored']}")
+    _require(stall_history[0][1].startswith("hang"),
+             f"the stall's history: {stall_history}")
+    print(f"[elastic] three jobs at once in {took:.1f} s; heartbeat timeout "
+          f"{ELASTIC_HANG_TIMEOUT} s; K1 fwd/bwd in the workers {launches}")
+    return {"launches": launches, "detect_s": detect, "resume_s": resume,
+            "took_s": took, "snapshot_s": clean["save_s"],
+            "snapshot_bytes": clean["snapshot_bytes"]}
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e and the fleet phases 23-27; returns K3's kernel entry
     (its launches from phase 6, 6a-6d's in pass_launches, 23-27's in
@@ -4510,8 +4899,8 @@ def main(argv=None) -> int:
 
     build_kernels()
     kernels = [run_serving(device, args.seed)]
-    errs = {k: check_flash(k, device, args.seed) for k in FLASH}
-    timing = {k: time_flash(k, device, args.seed) for k in FLASH}
+    errs = {k: check_flash(k, device, args.seed) for k in FLASH_CHECKED}
+    timing = {k: time_flash(k, device, args.seed) for k in FLASH_CHECKED}
     k1_f16 = time_flash("k1", device, args.seed, torch.float16)
     train = {6: drive_train(6, 2, 10, device, args.seed),
              12: drive_train(12, 2, 3, device, args.seed)}
@@ -4543,6 +4932,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     run_op_corpus(device, args.seed, card)
+    k1_big = (check_k1_1p3b(device, args.seed),
+              time_flash("k1_1p3b", device, args.seed))
+    gpt13 = drive_gpt_1p3b(device, args.seed)
+    elastic = run_elastic(device, args.seed)
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
               "k1_d64": transformer["counts"][:2]}
@@ -4564,7 +4957,13 @@ def main(argv=None) -> int:
                 f16_max_abs_err=errs[kernel]["float16"][("fwd", "bwd")[i]],
                 f16_ms=k1_f16[i]["ms"], f16_plain_ms=k1_f16[i]["plain_ms"],
                 f16_library_ms=k1_f16[i]["library_ms"],
-                f16_launches=eager["fp16"]["k1"][i])
+                f16_launches=eager["fp16"]["k1"][i],
+                recompute_launches=gpt13["counts"][i],
+                elastic_launches=elastic["launches"][i],
+                gpt13_max_abs_err=k1_big[0][("fwd", "bwd")[i]],
+                **{f"gpt13_{key}": k1_big[1][i][key] for key in (
+                    "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")})
     total = {key: sum(r[key] for r in k4)
              for key in ("ms", "plain_ms", "bound_ms", "composed_ms",
                          "matmul_ms", "profiler_ms")}

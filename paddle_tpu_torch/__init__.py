@@ -34,8 +34,11 @@ and image loading, metric, hapi's Model.fit with its callbacks, summary
 and flops, AutoCheckpointManager and the anomaly guard; the core op
 corpus (math, logic, search, manipulation, creation, linalg, random and
 array ops, with paddle.linalg) at the top level and as the Tensor's
-Paddle methods. A name of paddle_tpu's top level that is not ported is
-absent here.
+Paddle methods; activation recompute (distributed.fleet.utils.recompute,
+GPTConfig.use_recompute), the elastic supervisor (distributed.elastic),
+and the data zoo's last sources: text (the text datasets), reader,
+batch and the fluid-era dataset generators. A name of paddle_tpu's top
+level that is not ported is absent here.
 """
 from .core import errors
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
@@ -60,6 +63,10 @@ from .ops.extra_ops import gather_tree
 from .core import anomaly, monitor
 from . import (amp, distributed, incubate, inference, io, jit, metric,
                models, nn, obs, optimizer, regularizer, vision)
+from . import text  # noqa: F401
+from .batch import batch  # noqa: F401
+from . import reader  # noqa: F401
+from . import dataset  # noqa: F401
 from . import hapi
 from .hapi import Model, callbacks, flops, summary
 from .nn.layer.base import ParamAttr

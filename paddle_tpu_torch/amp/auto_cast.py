@@ -97,14 +97,27 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     if level not in ("O1", "O2"):
         raise ValueError(f"level {level!r}: expected 'O1' or 'O2'")
     cw, cb = set(custom_white_list or ()), set(custom_black_list or ())
-    prev = (_AmpState.enabled, _AmpState.level, _AmpState.dtype,
+    with restored((bool(enable), level, convert_dtype(dtype),
+                   (WHITE_LIST | cw) - cb, (BLACK_LIST | cb) - cw,
+                   _amp_hook if enable else None)):
+        yield
+
+
+def current():
+    """The active casting state, as `restored` takes it."""
+    return (_AmpState.enabled, _AmpState.level, _AmpState.dtype,
             _AmpState.white, _AmpState.black, _dispatch._State.amp)
-    _AmpState.enabled = bool(enable)
-    _AmpState.level = level
-    _AmpState.dtype = convert_dtype(dtype)
-    _AmpState.white = (WHITE_LIST | cw) - cb
-    _AmpState.black = (BLACK_LIST | cb) - cw
-    _dispatch.register_amp_hook(_amp_hook if enable else None)
+
+
+@contextmanager
+def restored(state):
+    """Run the body under a casting state taken by `current` (a
+    recomputed forward runs under the casts of its first run), then put
+    back the one before."""
+    prev = current()
+    (_AmpState.enabled, _AmpState.level, _AmpState.dtype, _AmpState.white,
+     _AmpState.black, hook) = state
+    _dispatch.register_amp_hook(hook)
     try:
         yield
     finally:

@@ -1,9 +1,14 @@
-"""The committed plan's admission pricing, read as data.
+"""The committed plan's admission pricing and remat policy, read as
+data.
 
 Port of the reader half of paddle_tpu/analysis/jaxplan.py:
 `PrefillCostModel` (a copy of the reference's), `load_plan` (the plan
-file at the repo root, `jaxplan.json`) and `default_admission_model`,
-which `EngineConfig(prefill_cost_model="auto")` resolves through.
+file at the repo root, `jaxplan.json`), `default_admission_model`,
+which `EngineConfig(prefill_cost_model="auto")` resolves through, and
+`committed_remat_policy` / `remat_group_size`, which
+`GPTConfig(use_recompute="auto")` resolves through (the committed
+policy for the train step is "none": on the reference's registry GPT no
+remat fits the envelope best).
 
 The committed cost model (base 6224, 57034 a token, 362 a token
 squared) was fit by the reference's planner on its small registry GPT;
@@ -20,7 +25,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 __all__ = ["DEFAULT_PLAN_PATH", "PrefillCostModel", "load_plan",
-           "default_admission_model"]
+           "default_admission_model", "remat_group_size",
+           "committed_remat_policy"]
 
 _REPO = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
@@ -41,6 +47,34 @@ def load_plan(path: str = DEFAULT_PLAN_PATH) -> Optional[dict]:
     except OSError:
         return None
     return _load_plan_cached(os.path.abspath(path), st.st_mtime_ns)
+
+
+def remat_group_size(policy: str, num_layers: int) -> int:
+    """Checkpoint group size for a policy string: 0 = no remat, 1 =
+    per-block, k = contiguous k-block groups. Group sizes larger than
+    the model clamp to one whole-model group (a plan computed on a
+    deeper model stays applicable to a shallower one)."""
+    if policy in ("none", ""):
+        return 0
+    if policy == "full":
+        return 1
+    if isinstance(policy, str) and policy.startswith("group:"):
+        k = int(policy.split(":", 1)[1])
+        if k < 1:
+            raise ValueError(f"group size must be >= 1, got {policy!r}")
+        return min(k, max(int(num_layers), 1))
+    raise ValueError(
+        f"unknown remat policy {policy!r}; expected 'none', 'full' or "
+        f"'group:<k>'")
+
+
+def committed_remat_policy(path: str = DEFAULT_PLAN_PATH,
+                           program: str = "train_step") -> str:
+    """The remat policy `use_recompute="auto"` resolves to. No plan file
+    (or no entry) means no remat."""
+    plan = load_plan(path) or {}
+    entry = plan.get("remat", {}).get(program) or {}
+    return str(entry.get("policy", "none"))
 
 
 def default_admission_model(path: str = DEFAULT_PLAN_PATH

@@ -7,13 +7,15 @@ AMP hook (amp/auto_cast.py) sees the same names and decides the same
 casts. A call through the wrapper:
 1. applies the AMP hook when auto_cast is active (one flag test when it
    is not), casting the floating tensor arguments;
-2. inside a Layer's forward or another op (`_State.depth` > 0), or
-   when no argument is a Tensor (plain torch.Tensors, as the serving
-   engine and the train steps pass), calls the function on what it got:
-   module bodies and kernels see plain torch.Tensors;
-3. otherwise (user code handing in Tensors) converts the Tensor
-   arguments to plain aliases, runs the function and returns its result
-   as Tensors;
+2. inside a Layer's forward or another op (`_State.depth` > 0), under
+   plain dispatch, or when no argument is a Tensor or a parameter (plain
+   torch.Tensors, as the serving engine and the train steps pass), calls
+   the function on what it got: module bodies and kernels see plain
+   torch.Tensors;
+3. otherwise (user code handing in Tensors or parameters) converts the
+   Tensor arguments to plain aliases, runs the function under plain
+   dispatch (core/tensor.py `plain_dispatch`: parameters act as plain
+   tensors there) and returns its result as Tensors;
 4. at user level checks the result for NaN/Inf under
    FLAGS_check_nan_inf.
 There is no tape to record: torch's autograd graph is built by the
@@ -27,10 +29,10 @@ from typing import Callable
 import torch
 
 from . import flags as _flags
-from .tensor import Tensor, box, plain
+from .tensor import _DIS, Tensor, box, plain
 
 __all__ = ["op", "get_op", "registered_ops", "register_amp_hook",
-           "outermost", "has_tensor", "eager"]
+           "inside", "outermost", "has_tensor", "eager"]
 
 _OP_REGISTRY = {}
 
@@ -48,20 +50,27 @@ def register_amp_hook(fn):
 
 
 def has_tensor(args, kwargs) -> bool:
-    """Whether a Tensor (not a parameter, not a plain torch.Tensor) is
-    among the arguments, or in a list or tuple among them."""
+    """Whether a call boxes its result: a Tensor or a parameter (not a
+    plain torch.Tensor) is among the arguments, or in a list or tuple
+    among them, and the caller is not under plain dispatch (the port's
+    code there gets plain results, as inside a Layer)."""
     for a in (*args, *kwargs.values()):
-        if type(a) is Tensor:
-            return True
-        if type(a) in (list, tuple) and any(type(x) is Tensor for x in a):
-            return True
+        if isinstance(a, Tensor) or type(a) in (list, tuple) and any(
+                isinstance(x, Tensor) for x in a):
+            return torch._C._is_torch_function_enabled()
     return False
+
+
+def _plain_arg(a):
+    # a parameter passes as itself (an op may write to it, as assign's
+    # output does): under _DIS it acts as a plain tensor
+    return plain(a) if type(a) is Tensor else a
 
 
 def _unwrap(a):
     if type(a) in (list, tuple):
-        return type(a)(plain(x) for x in a)
-    return plain(a)
+        return type(a)(_plain_arg(x) for x in a)
+    return _plain_arg(a)
 
 
 def _check_finite(op_type, out):
@@ -74,17 +83,24 @@ def _check_finite(op_type, out):
                 "(FLAGS_check_nan_inf is set)")
 
 
+def inside(fn: Callable, *args, **kwargs):
+    """Run fn at depth 1 under plain dispatch (its operations on
+    parameters call no __torch_function__), arguments and result as
+    they are: Layer.__call__'s boundary for plain tensors."""
+    _State.depth += 1
+    try:
+        with _DIS():
+            return fn(*args, **kwargs)
+    finally:
+        _State.depth -= 1
+
+
 def outermost(fn: Callable, *args, **kwargs):
-    """Run fn at depth 1 on plain arguments and box its result; the
+    """Run fn `inside` on plain arguments and box its result; the
     boundary of Layer.__call__ and of every op at user level."""
     args = tuple(_unwrap(a) for a in args)
     kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
-    _State.depth += 1
-    try:
-        out = fn(*args, **kwargs)
-    finally:
-        _State.depth -= 1
-    return box(out)
+    return box(inside(fn, *args, **kwargs))
 
 
 def op(op_type: str, differentiable: bool = True):

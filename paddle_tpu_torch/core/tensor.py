@@ -24,9 +24,14 @@ plain results and no per-op Python.
 
 Parameters are `EagerParamBase`: a Tensor and a torch.nn.Parameter at
 once, with Paddle's name, trainable, need_clip, optimize_attr and
-regularizer. Their `__torch_function__` is torch's disabled one (as
-nn.Parameter's is), so a parameter read inside a module body costs
-nothing per op; operations on a parameter return plain tensors.
+regularizer. At user level an operation on a parameter returns a Tensor,
+as on any Tensor (`(p * 2).scale_(2.0)`, `p.clone().numpy()`). Inside
+the port the parameters cost nothing per op all the same: the op
+boundary, Layer.__call__ and the train steps run under torch's
+DisableTorchFunctionSubclass (`plain_dispatch`, core/dispatch.py
+`inside`), where torch calls no `__torch_function__`, a parameter acts
+as the plain tensor it holds and the op boundary boxes nothing; the
+optimizers and the serving engine take parameters through `plain`.
 
 Paddle's methods. ops/__init__.py attaches the JAX package's method
 table (paddle_tpu/ops/__init__.py `_attach_tensor_methods`) to this
@@ -62,6 +67,7 @@ that safe:
 from __future__ import annotations
 
 import copy
+import functools
 import inspect
 
 import numpy as np
@@ -71,7 +77,7 @@ from . import dtypes as _dt
 from . import place as _place
 
 __all__ = ["Tensor", "EagerParamBase", "to_tensor", "box", "plain",
-           "wrap", "TORCH_ON_PARAMETERS"]
+           "plain_dispatch", "wrap", "TORCH_ON_PARAMETERS"]
 
 # torch methods that parameters keep over the Paddle method table
 TORCH_ON_PARAMETERS = ("numel", "size")
@@ -116,21 +122,33 @@ def box(out):
 
 
 def plain(t):
-    """A Tensor as a plain torch.Tensor alias (on the autograd graph);
-    anything else unchanged. Parameters pass as they are: ops on them
-    already run without __torch_function__."""
-    if type(t) is Tensor:
+    """A Tensor or a parameter as a plain torch.Tensor alias (on the
+    autograd graph); anything else unchanged."""
+    if isinstance(t, Tensor):
         with _DIS():
             return torch.Tensor.as_subclass(t, torch.Tensor)
     return t
 
 
+def plain_dispatch(fn):
+    """fn run under torch's DisableTorchFunctionSubclass: no
+    `__torch_function__` is called inside, Tensors and parameters act as
+    the plain tensors they hold, and what torch makes there is plain.
+    The port's code that works on parameters runs so, and pays no Python
+    call per op."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with _DIS():
+            return fn(*args, **kwargs)
+    return wrapper
+
+
 def _unbox(a):
-    """Tensors (also inside a list or tuple) as plain aliases (call
-    under _DIS)."""
-    if type(a) is Tensor:
+    """Tensors and parameters (also inside a list or tuple) as plain
+    aliases (call under _DIS)."""
+    if isinstance(a, Tensor):
         return torch.Tensor.as_subclass(a, torch.Tensor)
-    if type(a) in (list, tuple) and any(type(x) is Tensor for x in a):
+    if type(a) in (list, tuple) and any(isinstance(x, Tensor) for x in a):
         return type(a)(_unbox(x) for x in a)
     return a
 
@@ -380,8 +398,6 @@ Tensor.transpose = _transpose
 class EagerParamBase(Tensor, torch.nn.Parameter):
     """A parameter: a leaf Tensor with stop_gradient False (unless made
     not trainable), registered on a Layer like a torch.nn.Parameter."""
-
-    __torch_function__ = torch._C._disabled_torch_function_impl
 
     def __new__(cls, data, requires_grad: bool = True, **attrs):
         return torch.Tensor._make_subclass(cls, plain(data).detach(),

@@ -10,7 +10,9 @@ lr_schedulers, rng}), the sha256 manifest `checksums.json` and
 `meta.json`. Restores quarantine snapshots that fail to parse or to
 verify and fall back to the next newest. The `checkpoint.save` /
 `checkpoint.restore` spans and the save / restore histograms and the
-quarantine counter are the JAX module's (:206-326).
+quarantine counter are the JAX module's (:206-326). The ranges beat
+the elastic heartbeat once an epoch or step (distributed/elastic.py),
+so a supervisor sees a hung step, as in the JAX module (:375, :403).
 
 Differences, each for the port's reasons:
 - `_to_host` copies: a CPU tensor's `.numpy()` is a view of its
@@ -20,8 +22,6 @@ Differences, each for the port's reasons:
 - `rng` is the CPU torch generator's state (a uint8 array). A snapshot
   of the JAX package carries (seed, draw counter) of a threefry stream;
   restoring one here reseeds with its seed.
-- No elastic heartbeat is beaten per epoch or step: the elastic
-  supervisor is not ported yet (ROADMAP Queue 1 item 6').
 - `save_sharded_state` takes torch tensors, each written as one whole
   shard (the port has no device mesh yet).
 """
@@ -38,6 +38,8 @@ import hashlib
 
 import numpy as np
 import torch
+
+from ..distributed.elastic import heartbeat
 
 __all__ = ["AutoCheckpointManager", "train_epoch_range", "register",
            "save_sharded_state", "load_sharded_state", "CHECKSUM_FILE"]
@@ -393,6 +395,7 @@ class AutoCheckpointManager:
         start = 0 if self.restored_kind != "epoch" else last + 1
         try:
             for epoch in range(start, max_epoch_num):
+                heartbeat()  # no-op outside a supervised run
                 yield epoch
                 if (epoch + 1) % self.save_interval == 0 \
                         or epoch == max_epoch_num - 1:
@@ -419,6 +422,7 @@ class AutoCheckpointManager:
         start = 0 if self.restored_kind != "step" else last + 1
         try:
             for step in range(start, max_steps):
+                heartbeat()
                 yield step
                 if (step + 1) % every == 0 or step == max_steps - 1:
                     if self.async_save:

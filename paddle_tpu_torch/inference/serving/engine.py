@@ -75,8 +75,9 @@ exported payload carries the key, the admit paths refuse another key,
 and an engine with a non-default key stamps it on its first_token,
 decode_chunk and terminal events (obs/reqtrace.py invariant 8).
 
-Left out (later slices): the elastic heartbeat in step() (the rest of
-distributed/elastic.py) and the lock witness.
+`step()` and `ServingPredictor.run` beat the elastic heartbeat
+(distributed/elastic.py; a no-op unless supervised), as in the JAX
+package. Left out (a later slice): the lock witness.
 """
 from __future__ import annotations
 
@@ -92,6 +93,7 @@ import torch
 from ... import obs
 from ...core.anomaly import any_not_finite_host
 from ...core.place import DeviceLike, resolve_device
+from ...distributed.elastic import heartbeat
 from ...models import generation as gen
 from ...obs.trace import Span
 from ...testing.faults import ServingFaultInjector
@@ -1109,6 +1111,7 @@ class LLMEngine:
         chunk, stream the tokens, under the non-finite guard and the
         watchdog. Flight dumps a quarantine queued are written after the
         lock is released, so a slow disk never stalls intake."""
+        heartbeat()  # no-op when unsupervised
         with self._lock:
             outs = self._step_locked()
             flights, self._flights = self._flights, []
@@ -1358,10 +1361,8 @@ class ServingPredictor:
     'prompt_lens' [B]; output 'sequences' [B, T_out], each row its
     prompt and then its generated tokens, right-padded with the pad
     token (eos when set, else 0), int64. The engine runs on CUDA unless
-    the Config asked for the CPU (Config.disable_gpu()).
-
-    Left out: the reference's elastic heartbeat in run() (the port has
-    no distributed/elastic.py yet)."""
+    the Config asked for the CPU (Config.disable_gpu()). Each run beats
+    the elastic heartbeat."""
 
     def __init__(self, config):
         model = getattr(config, "_llm_model", None)
@@ -1396,6 +1397,7 @@ class ServingPredictor:
         return self._outputs[name]
 
     def run(self, inputs: Optional[list] = None):
+        heartbeat()  # no-op when unsupervised
         if inputs is not None:
             self._inputs["input_ids"].copy_from_cpu(
                 np.asarray(inputs[0]))

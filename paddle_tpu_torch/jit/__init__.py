@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from ..core.anomaly import _leaves, sanitize_tree, tree_not_finite
-from ..core.tensor import box, plain
+from ..core.tensor import box, plain, plain_dispatch
 
 __all__ = ["TrainStep", "MultiStepTrainStep"]
 
@@ -227,6 +227,7 @@ class TrainStep:
                           "measured tokens/s over the jaxcost static "
                           "roofline for train_step").set(tps / roof)
 
+    @plain_dispatch
     def __call__(self, *args):
         args = [self._arg(a) for a in args]
         loss, out, bad = self._step(args)
@@ -259,6 +260,7 @@ class MultiStepTrainStep(TrainStep):
         super().__init__(model, loss_fn, optimizer)
         self.steps = int(steps)
 
+    @plain_dispatch
     def __call__(self, *args):
         stacked = [self._arg(a) for a in args]
         for a in stacked:

@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.tensor import plain
+
 __all__ = ["extract_params", "prefill", "decode_step", "generate",
            "beam_search_generate"]
 
@@ -44,7 +46,7 @@ def extract_params(model) -> Params:
     """GPT module -> flat {name: tensor} dict for the decode functions
     (detached views of the live parameters, same names as the JAX
     package's extract_params)."""
-    return {k: p.detach() for k, p in model.named_parameters()}
+    return {k: plain(p).detach() for k, p in model.named_parameters()}
 
 
 def _ln(x, w, b, eps=1e-5):

@@ -12,9 +12,18 @@ flash kernel K1 (heads-major, any ported head dim) or, at head dim 64,
 to the packed-pair kernel K2 (`sliced_qkv(pack_pairs=True)`), and
 `GPT.loss` / `gpt_loss_fn` add the fused hard-label cross-entropy.
 Serving runs the functional decode of models/generation.py over the
-same parameters. Tensor/sequence/context parallelism, MoE and remat are
-not ported in this slice: their config fields exist so configs read the
-same, and setting them raises.
+same parameters.
+
+Activation recompute takes every `use_recompute` value of the JAX GPT
+(paddle_tpu/models/gpt.py:45-52): True recomputes each block inside
+GPTBlock.forward; "none", "full" and "group:k" wrap contiguous groups
+of k blocks (1 for "full") in one checkpoint each in GPT.forward;
+"auto" resolves through the committed plan (jaxplan.json, read as data
+by analysis/jaxplan.py). The checkpoint is distributed.fleet.utils.
+recompute, which replays the port's dropout draws and casts, so a
+recomputed forward is bitwise the first. Sequence/context parallelism
+and MoE are not ported yet (ROADMAP Queue 1 item 7): their config
+fields exist so configs read the same, and setting them raises.
 """
 from __future__ import annotations
 
@@ -25,8 +34,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..analysis import jaxplan
 from ..core.place import DeviceLike, default_device
 from ..core.tensor import plain
+from ..distributed.fleet.utils import recompute
 from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..nn import functional as F
@@ -140,19 +151,45 @@ class GPTMLP(Layer):
 
 class GPTBlock(Layer):
     """layer_idx names the block's place in the stack (the reference's
-    planned remat and MoE placement read it; neither is ported yet)."""
+    MoE placement reads it; MoE is not ported yet)."""
 
     def __init__(self, cfg: GPTConfig, layer_idx: int = 0):
         super().__init__()
+        self.cfg = cfg
         self.layer_idx = layer_idx
         self.ln1 = LayerNorm(cfg.hidden_size)
         self.attn = GPTAttention(cfg)
         self.ln2 = LayerNorm(cfg.hidden_size)
         self.mlp = GPTMLP(cfg)
 
-    def forward(self, x):
+    def _body(self, x):
         x = x + self.attn(self.ln1(x))
         return x + self.mlp(self.ln2(x))
+
+    def forward(self, x):
+        # `is True` on purpose: the planned policies ("auto", "full",
+        # "group:k", truthy strings) are applied by GPT.forward's block
+        # loop; only the boolean recomputes here, one block at a time
+        if self.cfg.use_recompute is True:
+            return recompute(self._body, x)
+        return self._body(x)
+
+
+def _resolve_remat_group(cfg: GPTConfig) -> int:
+    """cfg.use_recompute as GPT.forward's checkpoint group size (0: no
+    GPT-level recompute; booleans give 0, True recomputing inside each
+    GPTBlock). "auto" reads the committed plan (paddle_tpu/models/
+    gpt.py:244-257)."""
+    pol = cfg.use_recompute
+    if pol is True or pol is False or pol is None:
+        return 0
+    if isinstance(pol, str):
+        if pol == "auto":
+            pol = jaxplan.committed_remat_policy()
+        return jaxplan.remat_group_size(pol, cfg.num_layers)
+    raise ValueError(
+        f"use_recompute must be a bool, 'auto', 'none', 'full' or "
+        f"'group:<k>', got {pol!r}")
 
 
 class GPT(Layer):
@@ -178,6 +215,8 @@ class GPT(Layer):
             self.ln_f = LayerNorm(cfg.hidden_size)
             self.lm_head = ColumnParallelLinear(
                 cfg.hidden_size, cfg.vocab_size, has_bias=False)
+        # GPT.forward's checkpoint group size (0: none at this level)
+        self._remat_group = _resolve_remat_group(cfg)
         self._init_weights(seed)
 
     @torch.no_grad()
@@ -207,8 +246,14 @@ class GPT(Layer):
         T = ids.shape[1]
         pos = torch.arange(T, device=self.device)
         x = self.drop(self.wte(ids) + self.wpe(pos)[None])
-        for blk in self.blocks:
-            x = blk(x)
+        g = self._remat_group
+        if g:
+            blocks = list(self.blocks)
+            for s in range(0, len(blocks), g):
+                x = recompute(_run_blocks, blocks[s:s + g], x)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.lm_head(self.ln_f(x))
 
     def loss(self, input_ids, labels):
@@ -227,6 +272,13 @@ class GPT(Layer):
         return load_jax_state(cls(cfg, device=device), params)
 
 
+def _run_blocks(group, x):
+    """One checkpointed segment: `group`'s blocks in turn."""
+    for b in group:
+        x = b(x)
+    return x
+
+
 def gpt_loss_fn(model, input_ids, labels):
     """loss_fn signature for jit.TrainStep."""
     return model.loss(input_ids, labels)
@@ -236,9 +288,7 @@ def _check_supported(cfg: GPTConfig) -> None:
     if cfg.hidden_size % cfg.num_heads:
         raise ValueError(f"hidden_size {cfg.hidden_size} is not divisible "
                          f"by num_heads {cfg.num_heads}")
-    unported = {"use_recompute": cfg.use_recompute not in (False, None,
-                                                           "none"),
-                "sequence_parallel": cfg.sequence_parallel,
+    unported = {"sequence_parallel": cfg.sequence_parallel,
                 "context_parallel": cfg.context_parallel,
                 "moe_experts": cfg.moe_experts > 0}
     bad = [k for k, on in unported.items() if on]

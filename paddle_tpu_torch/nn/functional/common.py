@@ -32,8 +32,8 @@ with jax.image.resize, not with torch's defaults:
 The output size comes from `size`, or from the spatial dims times
 scale_factor. The JAX package scales x.shape[2:] even for a
 channel-last input, a fault (its size then mixes a spatial dim and the
-channels); the port scales the spatial dims. `align_mode` 1 (Paddle's
-asymmetric sampling) is not ported yet and raises.
+channels); the port scales the spatial dims. `align_mode` is accepted
+and ignored, as in the JAX package (its interpolate never reads it).
 
 `unfold` reads `paddings` as [top, left, bottom, right] (common.py:
 237-247). `pixel_shuffle` keeps the JAX package's channel order in both
@@ -308,7 +308,6 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 name=None):
     """Resize the spatial dims to `size` (or times scale_factor) by
     jax.image.resize's rules (see the module docstring)."""
-    require_defaults("interpolate", align_mode=(align_mode, 0))
     if mode not in _METHOD:
         raise ValueError(f"mode {mode!r}: expected one of {sorted(_METHOD)}")
     return _interpolate(x, tuple(_interp_size(x, size, scale_factor,

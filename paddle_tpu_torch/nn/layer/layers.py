@@ -27,7 +27,9 @@ outermost call, when handed Tensors, it turns them into plain
 torch.Tensors, runs the module, and returns Tensors; nested calls, and
 calls with plain torch.Tensors (the train steps', the serving
 engine's), run the module as torch would. So forward bodies, and the
-kernels they reach, see plain tensors.
+kernels they reach, see plain tensors. The outermost call runs its body
+under plain dispatch either way (core/dispatch.py `inside`), so the
+bodies' operations on parameters call no `__torch_function__`.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import torch
 from torch import nn
 
 from ...core import place as _place
-from ...core.dispatch import _State, has_tensor, outermost
+from ...core.dispatch import _State, has_tensor, inside, outermost
 from ...core.dtypes import convert_dtype, get_default_dtype
 from ...core.tensor import EagerParamBase, box, plain
 from .base import ParamAttr
@@ -82,9 +84,11 @@ class Layer(nn.Module):
 
     # ------------------------------------------------------------ call
     def __call__(self, *inputs, **kwargs):
-        if _State.depth or not has_tensor(inputs, kwargs):
+        if _State.depth:
             return nn.Module.__call__(self, *inputs, **kwargs)
-        return outermost(nn.Module.__call__, self, *inputs, **kwargs)
+        if has_tensor(inputs, kwargs):
+            return outermost(nn.Module.__call__, self, *inputs, **kwargs)
+        return inside(nn.Module.__call__, self, *inputs, **kwargs)
 
     # -------------------------------------------------------- creation
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,

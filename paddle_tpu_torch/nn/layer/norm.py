@@ -16,7 +16,7 @@ import math
 import torch
 
 from ...core import place as _place
-from ...core.unported import not_ported, require_defaults
+from ...core.unported import not_ported
 from .. import functional as F
 from .. import initializer as I
 from ..functional.norm import batch_norm, layer_norm
@@ -90,8 +90,9 @@ class _BatchNormBase(Layer):
 class BatchNorm(_BatchNormBase):
     """The fluid-style BatchNorm(num_channels): `act` names the
     functional applied after the norm. dtype, in_place, the moving
-    names and do_model_average_for_mean_and_var do not change the
-    result and are accepted; trainable_statistics is not ported yet."""
+    names, do_model_average_for_mean_and_var and trainable_statistics
+    do not change the result and are accepted and ignored, as in the
+    JAX package."""
 
     def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-5,
                  param_attr=None, bias_attr=None, dtype="float32",
@@ -99,8 +100,6 @@ class BatchNorm(_BatchNormBase):
                  moving_variance_name=None,
                  do_model_average_for_mean_and_var=True,
                  use_global_stats=False, trainable_statistics=False):
-        require_defaults("BatchNorm", trainable_statistics=(
-            trainable_statistics, False))
         super().__init__(num_channels, momentum, epsilon, param_attr,
                          bias_attr, data_layout, use_global_stats or None)
         self._act = act

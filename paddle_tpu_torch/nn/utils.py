@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from ..core.tensor import box
+from ..core.tensor import box, plain_dispatch
 
 __all__ = ["weight_norm", "remove_weight_norm", "spectral_norm",
            "parameters_to_vector", "vector_to_parameters"]
@@ -34,6 +34,7 @@ def _direction(v, dim):
     return v * (1.0 / torch.clamp(_norm_except(v, dim), min=1e-12))
 
 
+@plain_dispatch
 def weight_norm(layer, name="weight", dim=0):
     """w = g * v / ||v||, g and v new parameters of the layer."""
     dim = 0 if dim is None else dim
@@ -57,6 +58,7 @@ def weight_norm(layer, name="weight", dim=0):
     return layer
 
 
+@plain_dispatch
 def remove_weight_norm(layer, name="weight"):
     """Fold {name}_v and {name}_g back into the parameter `name`."""
     v = layer._parameters.pop(name + "_v")
@@ -72,6 +74,7 @@ def remove_weight_norm(layer, name="weight"):
     return layer
 
 
+@plain_dispatch
 def spectral_norm(layer, name="weight", n_power_iterations=1, eps=1e-12,
                   dim=None):
     """name = {name}_orig / sigma, recomputed before every forward."""

@@ -1535,3 +1535,43 @@ def test_op_case_cuda_matches_cpu(cuda, case):
     if case.grad:
         msg = op_cases.compare(grads, want_grads, case, grads=True)
         assert msg is None, (case.name, msg)
+
+
+# ------------------------------------------ slice 8c: recompute through K1
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_under_recompute_matches_k1_without(cuda, min_seq_128, dtype):
+    """A 2-layer GPT with 2 heads of 128 at T 128 (K1) under each
+    use_recompute value against no recompute on the card: the loss and
+    every gradient bitwise equal (the rerun launches the same kernels on
+    the same values, and K1's backward has no atomics), K1 launched once
+    a layer forward, again in backward for each recomputed layer, and
+    once a layer backward."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.nn.functional import attention as A
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randint(0, 256, (2, 128))).to(cuda)
+    y = torch.from_numpy(rng.randint(0, 256, (2, 128))).to(cuda)
+    got = {}
+    for policy in (False, True, "full", "group:2", "auto"):
+        cfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                        num_heads=2, max_seq_len=128, use_recompute=policy)
+        model = GPT(cfg, device=cuda, seed=3)
+        if dtype == "bfloat16":
+            model = amp.decorate(model, level="O2", dtype="bfloat16")
+        fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+        before = [f.launches for f in fns]
+        loss = gpt_loss_fn(model, x, y)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        assert A.LAST_PATH == "flash"
+        got[policy] = (loss.detach(), grads,
+                       [f.launches - b for f, b in zip(fns, before)])
+    base_loss, base_grads, base_counts = got[False]
+    assert base_counts == [2, 2]
+    for policy, (loss, grads, counts) in got.items():
+        assert torch.equal(loss, base_loss), policy
+        for g, w in zip(grads, base_grads):
+            assert torch.equal(g, w), policy
+        rerun = 0 if policy in (False, "auto") else 2
+        assert counts == [2 + rerun, 2], (policy, counts)

@@ -78,6 +78,8 @@ NO_COUNTERPART = {
     "paddle_tpu_torch.tools.fused_conv_proto",
     "paddle_tpu_torch.tools.engine_bench",
     "paddle_tpu_torch.tools.fit_bench",
+    # the supervised worker (the JAX package's is tests/ft_worker.py)
+    "paddle_tpu_torch.tools.ft_worker",
     "paddle_tpu_torch.tools.k3_sweep",
     "paddle_tpu_torch.tools.measure",
     "paddle_tpu_torch.tools.profile_serving",
@@ -426,13 +428,6 @@ def _cache(**kw):
 
 
 UNPORTED = {
-    "interpolate.align_mode": lambda: F.interpolate(
-        torch.zeros(1, 1, 4, 4), size=[8, 8], mode="bilinear",
-        align_mode=1),
-    "Upsample.align_mode": lambda: tnn.Upsample(
-        size=[8, 8], mode="bilinear", align_mode=1)(torch.zeros(1, 1, 4, 4)),
-    "BatchNorm.trainable_statistics": lambda: tnn.BatchNorm(
-        4, trainable_statistics=True),
     "Adam.lazy_mode": lambda: Adam(0.1, lazy_mode=True),
     "Embedding.sparse": lambda: tnn.Embedding(10, 4, sparse=True),
     "embedding.sparse": lambda: F.embedding(
@@ -1197,3 +1192,69 @@ def test_slice_8b_module_has_every_reference_name(module):
     assert not missing, (module, missing)
     order = [n for n in vars(port) if n in set(names)]
     assert order == names, (module, order, names)
+
+
+# ------------------------------------------- slice 8c: every public name
+SLICE_8C = ("distributed.fleet.utils", "distributed.elastic",
+            "text.datasets", "reader", "batch") + tuple(
+    f"dataset.{m}" for m in ("common", "image", "mnist", "cifar", "imdb",
+                             "imikolov", "uci_housing", "movielens",
+                             "conll05", "flowers", "voc2012", "wmt14",
+                             "wmt16"))
+
+
+@pytest.mark.parametrize("module", SLICE_8C)
+def test_slice_8c_module_has_every_reference_name(module):
+    """Every public function, class and constant of slice 8c's JAX
+    modules (recompute and the file-system helpers, the elastic
+    supervisor, the text datasets, the reader decorators, batch and the
+    fluid-era dataset generators) has a counterpart of the same name in
+    the port's module, defined in the reference's order; the walk above
+    holds each callable's positional order. recompute keeps
+    preserve_rng_state (keyword-only after *args, as the reference pops
+    it from its kwargs) and the supervisor its parameters in order, with
+    the port's clock keyword-only after them."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    names = _reference_order(module)
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+    if module == "distributed.fleet.utils":
+        sig = inspect.signature(port.recompute).parameters
+        assert list(sig)[:2] == ["function", "args"]
+        assert sig["preserve_rng_state"].kind == \
+            inspect.Parameter.KEYWORD_ONLY
+        assert sig["preserve_rng_state"].default is True
+    if module == "distributed.elastic":
+        from paddle_tpu.distributed import elastic as ref
+        got = inspect.signature(port.ElasticSupervisor).parameters
+        want = inspect.signature(ref.ElasticSupervisor).parameters
+        assert list(got)[:len(want)] == list(want)
+        assert [got[n].default for n in want] == \
+            [want[n].default for n in want]
+        assert list(got)[len(want):] == ["clock"]
+        assert got["clock"].kind == inspect.Parameter.KEYWORD_ONLY
+
+
+@pytest.mark.parametrize("package", ["distributed", "distributed.fleet",
+                                     "text", "dataset"])
+def test_slice_8c_packages_export_every_reference_name(package):
+    """distributed exports elastic, fleet and the supervisor's names as
+    the JAX package does (paddle_tpu/distributed/__init__.py:21-24);
+    fleet, for now, utils and recompute; text and dataset every name;
+    the top level text, dataset, reader and batch."""
+    ref = importlib.import_module(f"paddle_tpu.{package}")
+    port = importlib.import_module(f"paddle_tpu_torch.{package}")
+    wanted = {
+        "distributed": {"elastic", "fleet", "ElasticSupervisor",
+                        "ElasticJobError", "WorkerSpec", "elastic_spawn"},
+        "distributed.fleet": {"utils", "recompute"},
+    }.get(package, {n for n in dir(ref) if not n.startswith("_")}
+          - {"annotations"})
+    assert wanted <= set(dir(ref))
+    missing = sorted(wanted - set(dir(port)))
+    assert not missing, (package, missing)
+    for name in ("text", "dataset", "reader", "batch"):
+        assert hasattr(paddle_tpu_torch, name), name
