@@ -341,10 +341,11 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 33. elastic supervision: tools/ft_worker.py (the bench GPT, 32 x 1024,
    O2, "full" recompute, 6 steps, a snapshot every 3) under an
    ElasticSupervisor each, as subprocesses, the three jobs at once:
-   uninterrupted, killed at step 4 (it resumes from the step-2
-   snapshot) and stalled at step 1 with a heartbeat timeout of 20 s; one
-   restart each for the kill and the stall, the stall's reason a hang,
-   final parameters of both bitwise the uninterrupted job's, K1 2 x 12
+   uninterrupted, killed at step 4 and stalled at step 4 with a
+   heartbeat timeout of 20 s; one restart each for the kill and the
+   stall, the stall's reason a hang, each restarted worker resumed from
+   the step-2 snapshot, final parameters of both bitwise the
+   uninterrupted job's, K1 2 x 12
    forward and 12 backward a step in every worker; the time to detect
    and to resume and the snapshots' seconds and bytes printed.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
@@ -1987,13 +1988,11 @@ FLASH = {
                    scale=1.0 / 8.0, causal=False, layout="bthd"),
     "k1_d64_x": dict(batch=32, heads=8, seq=512, kv_seq=768, width=64,
                      head_dim=64, scale=1.0 / 8.0, causal=False,
-                     layout="bthd"),
-    # GPT-3 1.3B's attention in phase 32 (B 16, 16 heads of 128, T 2048,
-    # causal), checked and timed there (check_k1_1p3b), not in 7-8
-    "k1_1p3b": dict(batch=16, heads=16, seq=2048, width=128, head_dim=128,
-                    scale=1.0 / 128 ** 0.5, causal=True)}
-# the entries phases 7 and 8 hold and time
-FLASH_CHECKED = ("k1", "k2", "k2_nc", "k1_d64", "k1_d64_x")
+                     layout="bthd")}
+# K1 at GPT-3 1.3B's attention in phase 32 (B 16, 16 heads of 128,
+# T 2048, causal), checked there (check_k1_1p3b) and timed
+K1_1P3B = dict(batch=16, heads=16, seq=2048, width=128, head_dim=128,
+               scale=1.0 / 128 ** 0.5, causal=True)
 
 
 def _is_k1(kernel) -> bool:
@@ -2009,21 +2008,19 @@ def _flash_fns(kernel):
     return k2.packed_flash_fwd, k2.packed_flash_bwd, k2.packed_flash_reference
 
 
-def _shape(kernel) -> str:
-    c = FLASH[kernel]
+def _shape(c) -> str:
     tk = f" Tk {c['kv_seq']}" if "kv_seq" in c else ""
     lay = " [B,T,H,D] view" if c.get("layout") == "bthd" else ""
     return (f"B {c['batch']} T {c['seq']}{tk} "
             f"{'causal' if c['causal'] else 'not causal'}{lay}")
 
 
-def flash_inputs(kernel, dtype, device, seed):
-    """q, k, v and do at the kernel's FLASH shape, N(0, 1) from `seed`,
+def flash_inputs(c, dtype, device, seed):
+    """q, k, v and do at a FLASH shape `c`, N(0, 1) from `seed`,
     heads-major [B, H, T, W]; with layout "bthd", views of [B, T, H, W]
     tensors (the layout MultiHeadAttention hands K1); k and v over
     kv_seq keys where one is given."""
     import torch
-    c = FLASH[kernel]
     g = torch.Generator().manual_seed(seed)
     lens = (c["seq"], c.get("kv_seq", c["seq"]),
             c.get("kv_seq", c["seq"]), c["seq"])
@@ -2128,7 +2125,7 @@ _BF16_FLOOR = {"out": dict(l2=5e-4, excess=1e-3),
 FLASH_NAMES = ("out", "lse", "dq", "dk", "dv")
 FLASH_TOL = {
     "float32": {kernel: dict.fromkeys(FLASH_NAMES, _F32_TOL)
-                for kernel in FLASH_CHECKED},
+                for kernel in FLASH},
     "bfloat16": {
         "k1": {"out": dict(l2=4.1e-3, excess=3.9e-2),
                "lse": dict(l2=1e-6, excess=1e-3),
@@ -2229,7 +2226,7 @@ def flash_readings(kernel, dtype, device, seed: int):
     from paddle_tpu_torch.tools.measure import agreement
     fwd, bwd, ref = _flash_fns(kernel)
     sc, causal = FLASH[kernel]["scale"], FLASH[kernel]["causal"]
-    q, k, v, do = flash_inputs(kernel, dtype, device, seed)
+    q, k, v, do = flash_inputs(FLASH[kernel], dtype, device, seed)
     o, lse = fwd(q, k, v, causal, sc)
     got = (o, lse, *bwd(q, k, v, o, lse, do, causal, sc))
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -2280,8 +2277,8 @@ def check_flash(kernel, device, seed: int) -> dict:
         dname = str(dtype)[6:]
         tol = FLASH_TOL[dname][kernel]
         stats, emulated = flash_readings(kernel, dtype, device, seed)
-        print(f"[{kernel}] kernel vs plain, {dname}, {_shape(kernel)} "
-              f"(limits FLASH_TOL): {_line(stats)}")
+        print(f"[{kernel}] kernel vs plain, {dname}, "
+              f"{_shape(FLASH[kernel])} (limits FLASH_TOL): {_line(stats)}")
         _require(not _over(stats, tol), f"{kernel} disagrees with its plain "
                                         f"version in {dname}: "
                                         f"{_over(stats, tol)}")
@@ -2298,18 +2295,17 @@ def check_flash(kernel, device, seed: int) -> dict:
 
 
 # ------------------------------------------------------------ phase 8
-def time_flash(kernel, device, seed: int, dtype=None):
-    """(forward numbers, backward numbers) at the kernel's FLASH shape,
-    in bf16 (or `dtype`), cold L2."""
+def time_flash(kernel, c, device, seed: int, dtype=None):
+    """(forward numbers, backward numbers) of the kernel at the FLASH
+    shape `c`, in bf16 (or `dtype`), cold L2."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.packed_flash import _unpack
     from paddle_tpu_torch.tools.measure import cold_ms
     fwd, bwd, ref = _flash_fns(kernel)
-    c = FLASH[kernel]
     sc, causal = c["scale"], c["causal"]
     dtype = dtype or torch.bfloat16
-    q, k, v, do = flash_inputs(kernel, dtype, device, seed)
+    q, k, v, do = flash_inputs(c, dtype, device, seed)
     o, lse = fwd(q, k, v, causal, sc)
     ms_f = cold_ms(lambda: fwd(q, k, v, causal, sc), 10)
     ms_b = cold_ms(lambda: bwd(q, k, v, o, lse, do, causal, sc), 5)
@@ -4441,16 +4437,8 @@ GPT13_BATCH = dict(check=8, timed=16)
 GPT13_STEPS = (1, 4)
 
 
-def _set_recompute(model, policy) -> None:
-    """Switch a built GPT to another use_recompute value (the weights
-    and the optimizer state stay)."""
-    from paddle_tpu_torch.models.gpt import _resolve_remat_group
-    model.cfg.use_recompute = policy
-    model._remat_group = _resolve_remat_group(model.cfg)
-
-
 def check_k1_1p3b(device, seed: int) -> dict:
-    """K1 at the 1.3B step's attention (FLASH["k1_1p3b"]: B 16, 16 heads
+    """K1 at the 1.3B step's attention (K1_1P3B: B 16, 16 heads
     of 128, T 2048, causal, bf16): forward and backward at the full
     batch, its first 2 rows held against the plain version on those rows
     (the plain version's f32 scores take 4.3 GB at B 16). The limits are
@@ -4459,10 +4447,9 @@ def check_k1_1p3b(device, seed: int) -> dict:
     _BF16_FLOOR. Returns the max |err| of the forward and the backward."""
     import torch
     from paddle_tpu_torch.tools.measure import agreement
-    fwd, bwd, ref = _flash_fns("k1_1p3b")
-    c = FLASH["k1_1p3b"]
-    sc, causal = c["scale"], c["causal"]
-    q, k, v, do = flash_inputs("k1_1p3b", torch.bfloat16, device, seed)
+    fwd, bwd, ref = _flash_fns("k1")
+    sc, causal = K1_1P3B["scale"], K1_1P3B["causal"]
+    q, k, v, do = flash_inputs(K1_1P3B, torch.bfloat16, device, seed)
     o, lse = fwd(q, k, v, causal, sc)
     got = [t[:2] for t in (o, lse, *bwd(q, k, v, o, lse, do, causal, sc))]
     rows = [t[:2] for t in (q, k, v, do)]
@@ -4479,7 +4466,7 @@ def check_k1_1p3b(device, seed: int) -> dict:
     torch.cuda.empty_cache()
     tol = {n: {m: max(FLASH_REF_MARGIN * emulated[n][m], _BF16_FLOOR[n][m])
                for m in ("l2", "excess")} for n in FLASH_NAMES}
-    print(f"[k1_1p3b] kernel vs plain, bfloat16, {_shape('k1_1p3b')}, rows "
+    print(f"[k1_1p3b] kernel vs plain, bfloat16, {_shape(K1_1P3B)}, rows "
           f"0-1: {_line(stats)}")
     print(f"[k1_1p3b] reference rounding vs plain (limits "
           f"{FLASH_REF_MARGIN} x its readings, floor _BF16_FLOOR): "
@@ -4497,7 +4484,7 @@ def _gpt13_grads(model, x, y, policy, held: int):
     import torch
     from paddle_tpu_torch.models.gpt import gpt_loss_fn
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
-    _set_recompute(model, policy)
+    model.cfg.use_recompute = policy  # read at each forward
     params = [p for p in model.parameters() if p.requires_grad]
     fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
     for f in fns:
@@ -4515,7 +4502,7 @@ def _grad_bytes(grads) -> int:
     return sum(g.numel() * g.element_size() for g in grads)
 
 
-def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
+def drive_gpt_1p3b(device, seed: int) -> dict:
     """Phase 32: GPT-3 1.3B through jit.TrainStep O2 (AdamW 1e-4,
     ClipGradByGlobalNorm(1.0)) and K1. At GPT13_BATCH["check"] rows of
     2048 the first loss and the gradients without recompute and under
@@ -4532,8 +4519,7 @@ def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.tools import train_bench as tb
-    cuda = device.type == "cuda"
-    cfg = cfg or GPTConfig.gpt3_1p3b()
+    cfg = GPTConfig.gpt3_1p3b()
     L, T = cfg.num_layers, cfg.max_seq_len
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4572,12 +4558,11 @@ def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
     _require(full_bitwise if bitwise else gerr <= spread,
              f"gradients under full: relative L2 {gerr} (two runs without "
              f"recompute: bitwise {bitwise}, spread {spread})")
-    if cuda:
-        _require(full[3] == [2 * L, L] and base[3] == [L, L],
-                 f"K1 launches {full[3]} under full, {base[3]} without")
+    _require(full[3] == [2 * L, L] and base[3] == [L, L],
+             f"K1 launches {full[3]} under full, {base[3]} without")
     del base, full
 
-    _set_recompute(model, "full")
+    model.cfg.use_recompute = "full"
     step = jit.TrainStep(model, gpt_loss_fn, opt)
     fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
     for f in fns:
@@ -4590,15 +4575,13 @@ def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
     n = warm + timed
     losses = res["losses"]
     tps = B * T * timed / res["timed_s"]
-    mfu = tps * tb.flops_per_token(cfg) / tb.H100_BF16_FLOPS if cuda \
-        else None
+    mfu = tps * tb.flops_per_token(cfg) / tb.H100_BF16_FLOPS
     prof = tb.profile_steps(step, (x, y), 1, tb._GPT_GROUPS,
-                            ("cross_entropy", "optimizer")) if cuda else {}
-    _set_recompute(model, "group:4")
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+                            ("cross_entropy", "optimizer"))
+    model.cfg.use_recompute = "group:4"
+    torch.cuda.reset_peak_memory_stats()
     losses.append(step(x, y).item())
-    group_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    group_peak = torch.cuda.max_memory_allocated()
     t4 = time.perf_counter()
     print(f"[gpt 1.3b] B {B} x {T} under full: losses "
           f"{[round(v, 5) for v in losses]} (the last under group:4); "
@@ -4607,21 +4590,19 @@ def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
           f"{tb.flops_per_token(cfg) / 1e9:.3f} G, over 989 TFLOP/s); "
           f"peak memory {res['peak_mem_gb']} GB under full, "
           f"{group_peak / 1e9:.2f} GB under group:4; idle share "
-          f"{prof.get('idle_share')} (one profiled step, busy "
-          f"{prof.get('busy_s')} s of {prof.get('wall_s')} s; groups "
-          f"{prof.get('groups_s')}); K1 fwd/bwd {counts} over {n} steps "
+          f"{prof['idle_share']} (one profiled step, busy "
+          f"{prof['busy_s']} s of {prof['wall_s']} s; groups "
+          f"{prof['groups_s']}); K1 fwd/bwd {counts} over {n} steps "
           f"(want {[2 * L * n, L * n]}); seconds: build {t1 - t0:.1f}, "
           f"the three passes at B {b} {t2 - t1:.1f}, the steps "
           f"{t3 - t2:.1f}, the profiled and group:4 steps {t4 - t3:.1f}")
     _require(all(math.isfinite(v) for v in losses), f"losses {losses}")
     _require(losses[n - 1] < losses[0], f"loss did not fall: {losses}")
-    if cuda:
-        _require(counts == [2 * L * n, L * n],
-                 f"K1 launches {counts} under full, want "
-                 f"{[2 * L * n, L * n]}")
+    _require(counts == [2 * L * n, L * n],
+             f"K1 launches {counts} under full, want {[2 * L * n, L * n]}")
     out = {"counts": counts, "tokens_per_sec": tps, "mfu": mfu,
            "peak_mem_gb": res["peak_mem_gb"], "group4_peak_gb":
-           group_peak / 1e9, "idle_share": prof.get("idle_share")}
+           group_peak / 1e9, "idle_share": prof["idle_share"]}
     del step, model, opt, x, y
     torch.cuda.empty_cache()
     return out
@@ -4631,14 +4612,14 @@ def drive_gpt_1p3b(device, seed: int, cfg=None) -> dict:
 # the supervised jobs, run at once: tools/ft_worker.py on the bench GPT
 # (bench.py's bench_gpt widths, 32 x 1024, O2) under use_recompute=
 # "full", 6 steps with a snapshot every 3 (about 1.9 GB each, one kept a
-# job). The kill comes at step 4, after the step-2 snapshot, which the
-# restarted worker restores; the stall at step 1, before any snapshot:
-# a snapshot's save (7 s in PR 17's first chip call) lies between two
-# beats, so the timeout watches steps without one. The first step of a
-# fresh worker (cuBLAS and kernel loading, three workers starting at
-# once) lies between two beats too, and the timeout stays well above
-# it: phase 33 prints each worker's step times beside the timeout
-ELASTIC_JOB = dict(model="bench", steps=6, save_every=3, kill=4, stall=1)
+# job). The kill and the stall come at step 4, after the step-2
+# snapshot, which each restarted worker restores. A snapshot's save
+# (6-7 s on an H100) and the first step of a fresh worker (cuBLAS and
+# kernel loading, three workers starting at once: 10-13 s) each lie
+# between two beats, and the timeout stays well above both: phase 33
+# prints each worker's step times and gaps between beats beside it
+ELASTIC_JOB = dict(steps=6, save_every=3, kill=4, stall=4)
+ELASTIC_LAYERS = 12  # bench_gpt's
 ELASTIC_HANG_TIMEOUT = 20.0
 
 
@@ -4662,7 +4643,7 @@ def _elastic_job(name, tmp, device, seed, faults="", timeout=None):
     repo = str(Path(__file__).resolve().parent)
     spec = WorkerSpec(
         [sys.executable, "-m", "paddle_tpu_torch.tools.ft_worker",
-         "--model", ELASTIC_JOB["model"], "--device", device.type,
+         "--model", "bench", "--device", device.type,
          "--ckpt-dir", os.path.join(d, "ckpt"), "--out", out,
          "--steps", str(ELASTIC_JOB["steps"]),
          "--save-every", str(ELASTIC_JOB["save_every"]),
@@ -4693,8 +4674,8 @@ def run_elastic(device, seed: int) -> dict:
     """Phase 33: the uninterrupted, the killed and the stalled job at
     once, each under its own ElasticSupervisor; gates: one restart each
     for the kill and the stall, the kill's reason its exit code and the
-    stall's a hang, the killed worker resumed from the step-2 snapshot,
-    the final parameters of both bitwise the uninterrupted job's, K1 2 x
+    stall's a hang, both restarted workers resumed from the step-2
+    snapshot, the final parameters of both bitwise the uninterrupted job's, K1 2 x
     layers forward and layers backward a step in every worker. Prints
     the time to detect, the time to resume and the snapshots' seconds
     and bytes; returns the workers' K1 launches and those times."""
@@ -4726,7 +4707,7 @@ def run_elastic(device, seed: int) -> dict:
     _require(set(jobs) == set(specs),
              f"elastic jobs that did not end: {sorted(set(specs) - set(jobs))}")
     clean = jobs["clean"][1]
-    L = 12 if ELASTIC_JOB["model"] == "bench" else 2
+    L = ELASTIC_LAYERS
     launches, detect, resume = [0, 0], {}, {}
     for name, (report, result, steps, verdicts) in jobs.items():
         last = {}
@@ -4770,16 +4751,16 @@ def run_elastic(device, seed: int) -> dict:
         _require(result["params"] == clean["params"],
                  f"elastic {name}: final parameters differ from the "
                  f"uninterrupted job's")
-        if device.type == "cuda":
-            _require(result["k1"] == [2 * L * n_steps, L * n_steps],
-                     f"elastic {name}: K1 {result['k1']} over {n_steps} "
-                     f"steps")
+        _require(result["k1"] == [2 * L * n_steps, L * n_steps],
+                 f"elastic {name}: K1 {result['k1']} over {n_steps} steps")
     kill_history = jobs["kill"][0]["history"][0]
     stall_history = jobs["stall"][0]["history"][0]
     _require(kill_history[0][1] == "exit code 37",
              f"the kill's history: {kill_history}")
-    _require(jobs["kill"][1]["restored"] == ELASTIC_JOB["kill"] - 2,
-             f"the killed job restored snapshot {jobs['kill'][1]['restored']}")
+    for name in ("kill", "stall"):
+        restored = jobs[name][1]["restored"]
+        _require(restored == ELASTIC_JOB[name] - 2,
+                 f"the {name} job restored snapshot {restored}")
     _require(stall_history[0][1].startswith("hang"),
              f"the stall's history: {stall_history}")
     print(f"[elastic] three jobs at once in {took:.1f} s; heartbeat timeout "
@@ -4899,9 +4880,11 @@ def main(argv=None) -> int:
 
     build_kernels()
     kernels = [run_serving(device, args.seed)]
-    errs = {k: check_flash(k, device, args.seed) for k in FLASH_CHECKED}
-    timing = {k: time_flash(k, device, args.seed) for k in FLASH_CHECKED}
-    k1_f16 = time_flash("k1", device, args.seed, torch.float16)
+    errs = {k: check_flash(k, device, args.seed) for k in FLASH}
+    timing = {k: time_flash(k, c, device, args.seed)
+              for k, c in FLASH.items()}
+    k1_f16 = time_flash("k1", FLASH["k1"], device, args.seed,
+                        torch.float16)
     train = {6: drive_train(6, 2, 10, device, args.seed),
              12: drive_train(12, 2, 3, device, args.seed)}
     eager = drive_eager(device, args.seed)
@@ -4933,7 +4916,7 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     run_op_corpus(device, args.seed, card)
     k1_big = (check_k1_1p3b(device, args.seed),
-              time_flash("k1_1p3b", device, args.seed))
+              time_flash("k1", K1_1P3B, device, args.seed))
     gpt13 = drive_gpt_1p3b(device, args.seed)
     elastic = run_elastic(device, args.seed)
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],

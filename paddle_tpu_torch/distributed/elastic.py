@@ -404,15 +404,20 @@ def main(argv=None):
     ns = ap.parse_args(argv)
     if ns.log_dir:
         os.makedirs(ns.log_dir, exist_ok=True)
+    # the reference names its TPU (FLAGS_selected_tpus); a worker here
+    # sees only the card of its rank (the rank-th of the cards this
+    # process sees), which is then its cuda:0, the port's default device
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible
+             else [str(r) for r in range(ns.nproc_per_node)])
     specs = []
     for rank in range(ns.nproc_per_node):
         log = (os.path.join(ns.log_dir, f"worker.{rank}.log")
                if ns.log_dir else None)
-        # the reference names its TPU (FLAGS_selected_tpus); a worker here
-        # takes the GPU of its rank
         specs.append(WorkerSpec(
             [sys.executable, ns.training_script] + ns.training_script_args,
-            env={"FLAGS_selected_gpus": str(rank)}, log_path=log))
+            env={"CUDA_VISIBLE_DEVICES": cards[rank % len(cards)]},
+            log_path=log))
     sup = ElasticSupervisor(max_restarts=ns.max_restarts,
                             heartbeat_timeout=ns.heartbeat_timeout,
                             backoff_base=ns.backoff_base,

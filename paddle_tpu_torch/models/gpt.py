@@ -215,8 +215,7 @@ class GPT(Layer):
             self.ln_f = LayerNorm(cfg.hidden_size)
             self.lm_head = ColumnParallelLinear(
                 cfg.hidden_size, cfg.vocab_size, has_bias=False)
-        # GPT.forward's checkpoint group size (0: none at this level)
-        self._remat_group = _resolve_remat_group(cfg)
+        _resolve_remat_group(cfg)  # a value the JAX GPT refuses raises here
         self._init_weights(seed)
 
     @torch.no_grad()
@@ -240,6 +239,13 @@ class GPT(Layer):
     @property
     def device(self) -> torch.device:
         return self.wte.weight.device
+
+    @property
+    def _remat_group(self) -> int:
+        """GPT.forward's checkpoint group size (0: none at this level),
+        read from cfg.use_recompute at each call (jaxplan caches the
+        committed plan), so a new value applies to a built model."""
+        return _resolve_remat_group(self.cfg)
 
     def forward(self, input_ids):
         ids = torch.as_tensor(input_ids, device=self.device).long()

@@ -4,17 +4,17 @@ chip_smoke.py's phase 33.
 
     python -m paddle_tpu_torch.tools.ft_worker --ckpt-dir DIR --out OUT
         [--model tiny|bench] [--device cuda|cpu] [--steps N]
-        [--save-every K] [--recompute none|full|group:k|auto]
-        [--seed S] [--max-keep M]
+        [--save-every K] [--seed S]
 
-It trains a GPT through jit.TrainStep (AdamW(1e-4) with
-ClipGradByGlobalNorm(1.0); bench: bench.py's bench_gpt widths, 12
-layers, hidden 768, 6 heads of 128, vocab 32768, batch 32 x 1024, AMP O2
-bf16; tiny: GPTConfig.tiny() at batch 2 x 16 in float32) for N steps
-under AutoCheckpointManager.train_step_range, which restores the newest
-step snapshot, snapshots every K steps and beats the elastic heartbeat
-once a step. Faults come from testing.faults.FaultInjector's environment
-contract (PADDLE_TPU_FAULTS, e.g. "kill@4" or "stall@4:3600", and
+It trains a GPT under use_recompute="full" through jit.TrainStep
+(AdamW(1e-4) with ClipGradByGlobalNorm(1.0); bench: bench.py's
+bench_gpt widths, 12 layers, hidden 768, 6 heads of 128, vocab 32768,
+batch 32 x 1024, AMP O2 bf16; tiny: GPTConfig.tiny() at batch 2 x 16 in
+float32) for N steps under AutoCheckpointManager.train_step_range,
+which restores the newest step snapshot, snapshots every K steps
+(keeping one) and beats the elastic heartbeat once a step. Faults
+come from testing.faults.FaultInjector's environment contract
+(PADDLE_TPU_FAULTS, e.g. "kill@4" or "stall@4:3600", and
 PADDLE_TPU_FAULT_STATE_DIR, so a restarted worker passes the step that
 killed its predecessor). Every batch is a function of its step index and
 the model runs at dropout 0, so a killed and resumed job must end with
@@ -40,15 +40,16 @@ import numpy as np
 __all__ = ["build", "batch", "param_digests", "main"]
 
 
-def build(model: str, device, recompute: str, seed: int):
-    """(GPT, AdamW, TrainStep) for the worker's model."""
+def build(model: str, device, seed: int):
+    """(GPT, AdamW, TrainStep) for the worker's model, under full
+    recompute."""
     from .. import amp, jit
     from ..models.gpt import GPT, GPTConfig, gpt_loss_fn
     from ..nn import ClipGradByGlobalNorm
     from ..optimizer import AdamW
     from .train_bench import bench_config
     cfg = bench_config(6) if model == "bench" else GPTConfig.tiny()
-    cfg.use_recompute = recompute
+    cfg.use_recompute = "full"
     net = GPT(cfg, device=device, seed=seed)
     opt = AdamW(1e-4, parameters=net.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
@@ -91,9 +92,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--save-every", type=int, default=3)
-    ap.add_argument("--recompute", default="full")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-keep", type=int, default=1)
     args = ap.parse_args(argv)
     import torch
     from .. import obs
@@ -107,14 +106,13 @@ def main(argv=None) -> dict:
     else:
         torch.backends.cuda.matmul.allow_tf32 = False
     incarnation = int(os.environ.get("PADDLE_ELASTIC_RESTART_COUNT", "0"))
-    net, opt, step_fn = build(args.model, device, args.recompute,
-                              args.seed)
+    net, opt, step_fn = build(args.model, device, args.seed)
     vocab = net.cfg.vocab_size
     inj = FaultInjector()  # env-driven; inert without PADDLE_TPU_FAULTS
     acp = AutoCheckpointManager(args.ckpt_dir, models=[net],
                                 optimizers=[opt],
                                 save_every_n_steps=args.save_every,
-                                max_keep=args.max_keep)
+                                max_keep=1)
     fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
     start = [f.launches for f in fns]
     losses, first = [], None

@@ -1538,40 +1538,61 @@ def test_op_case_cuda_matches_cpu(cuda, case):
 
 
 # ------------------------------------------ slice 8c: recompute through K1
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k1_under_recompute_matches_k1_without(cuda, min_seq_128, dtype):
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "dropout", "O1"])
+def test_k1_under_recompute_matches_k1_without(cuda, min_seq_128, mode):
     """A 2-layer GPT with 2 heads of 128 at T 128 (K1) under each
     use_recompute value against no recompute on the card: the loss and
     every gradient bitwise equal (the rerun launches the same kernels on
     the same values, and K1's backward has no atomics), K1 launched once
     a layer forward, again in backward for each recomputed layer, and
-    once a layer backward."""
+    once a layer backward. The rerun runs inside backward, on autograd's
+    device thread: at dropout 0.1 it must draw the first run's masks
+    from the port's CUDA generator (the same paddle.seed before each
+    run; attention dropout takes the composed path, so K1 is not
+    launched), and under auto_cast O1 it must run under the first run's
+    casts, which the backward outside the context no longer has."""
+    import paddle_tpu_torch as paddle
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models.gpt import gpt_loss_fn
     from paddle_tpu_torch.nn.functional import attention as A
     rng = np.random.RandomState(8)
     x = torch.from_numpy(rng.randint(0, 256, (2, 128))).to(cuda)
     y = torch.from_numpy(rng.randint(0, 256, (2, 128))).to(cuda)
-    got = {}
-    for policy in (False, True, "full", "group:2", "auto"):
+    dropout = 0.1 if mode == "dropout" else 0.0
+
+    def run(policy, seed=11):
         cfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
-                        num_heads=2, max_seq_len=128, use_recompute=policy)
+                        num_heads=2, max_seq_len=128, dropout=dropout,
+                        use_recompute=policy)
         model = GPT(cfg, device=cuda, seed=3)
-        if dtype == "bfloat16":
+        if mode == "bfloat16":
             model = amp.decorate(model, level="O2", dtype="bfloat16")
         fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
         before = [f.launches for f in fns]
-        loss = gpt_loss_fn(model, x, y)
+        paddle.seed(seed)
+        with amp.auto_cast(enable=mode == "O1", level="O1",
+                           dtype="bfloat16"):
+            loss = gpt_loss_fn(model, x, y)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         torch.cuda.synchronize()
-        assert A.LAST_PATH == "flash"
-        got[policy] = (loss.detach(), grads,
-                       [f.launches - b for f, b in zip(fns, before)])
+        # the last attention call is the rerun's where there is one
+        assert A.LAST_PATH == ("composed" if dropout else "flash")
+        assert A.LAST_DTYPE == (torch.float32 if mode in ("float32",
+                                                          "dropout")
+                                else torch.bfloat16), policy
+        return (loss.detach(), grads,
+                [f.launches - b for f, b in zip(fns, before)])
+
+    got = {policy: run(policy)
+           for policy in (False, True, "full", "group:2", "auto")}
     base_loss, base_grads, base_counts = got[False]
-    assert base_counts == [2, 2]
+    if mode == "dropout":
+        assert not torch.equal(run(False, seed=12)[0], base_loss)  # masks
+    assert base_counts == ([0, 0] if dropout else [2, 2])
     for policy, (loss, grads, counts) in got.items():
         assert torch.equal(loss, base_loss), policy
         for g, w in zip(grads, base_grads):
             assert torch.equal(g, w), policy
         rerun = 0 if policy in (False, "auto") else 2
-        assert counts == [2 + rerun, 2], (policy, counts)
+        assert counts == ([0, 0] if dropout else [2 + rerun, 2]), \
+            (policy, counts)

@@ -187,6 +187,29 @@ def test_elastic_spawn_and_cli(tmp_path, capsys):
             [[sys.executable, "-c", "import sys; sys.exit(2)"]])
 
 
+
+@pytest.mark.parametrize("visible,want", [(None, ["0", "1"]),
+                                          ("5,7", ["5", "7"])])
+def test_cli_gives_each_worker_the_card_of_its_rank(tmp_path, capsys,
+                                                     monkeypatch, visible,
+                                                     want):
+    """--nproc_per_node 2: each worker sees only the card of its rank,
+    the rank-th of those the launcher sees."""
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    script = tmp_path / "w.py"
+    script.write_text(
+        "import os, sys\n"
+        f"want = {want!r}[int(os.environ['PADDLE_TRAINER_ID'])]\n"
+        "sys.exit(0 if os.environ['CUDA_VISIBLE_DEVICES'] == want else 3)\n")
+    elastic.main(["--nproc_per_node", "2", "--max_restarts", "0",
+                  str(script)])
+    assert "elastic job done: restarts={0: 0, 1: 0}" in \
+        capsys.readouterr().out
+
+
 # ------------------------------------------------------------ heartbeat
 def test_heartbeat_is_a_no_op_unsupervised(tmp_path, monkeypatch):
     monkeypatch.delenv(elastic.HEARTBEAT_FILE_ENV, raising=False)
