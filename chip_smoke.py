@@ -291,7 +291,7 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    loss weights hold a NaN and leaves every parameter and optimizer
    tensor bitwise unchanged;
 29. hapi on ResNet-50 fed from an image folder: paddle.Model(resnet50())
-   at bench_resnet's width (128 x 224^2, O2, Momentum(0.1)) over a
+   at bench_resnet's width (128 x 224^2, O2, Momentum(0.01)) over a
    DatasetFolder of seeded 256^2 .npy images (written under a temp dir,
    deleted after) through RandomResizedCrop / flip / transpose /
    normalize, DataLoader(shuffle, num_workers=8) and DeviceLoader(size=2),
@@ -348,6 +348,34 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    uninterrupted job's, K1 2 x 12
    forward and 12 backward a step in every worker; the time to detect
    and to resume and the snapshots' seconds and bytes printed.
+Phases 34-36 run over one NCCL process group of world size 1
+(init_parallel_env on a free local port), set up after phase 33's
+workers have ended and torn down after phase 36:
+34. the MoE GPT: bench_gpt's widths (vocab 32768, hidden 768, 12
+   layers, 6 heads of 128, T 1024) with 8 experts in every second block
+   (6 MoE blocks), top-2, capacity 1.25, aux weight 0.01; B 32, AdamW +
+   ClipGradByGlobalNorm(1.0), O2, jit.TrainStep, 2 + 8 steps: losses
+   finite and falling, each MoE block's aux loss finite and within
+   MOE_AUX_START of 1 at step 1, K1 12 forward and 12 backward launches
+   a step; the indexed routing held to its dense twin at S 4096 (B 4 x
+   1024) in f32 at the same widths, outputs, aux, dropped pairs and
+   every gradient within MOE_TWIN_TOL; tokens/s, the dropped (token,
+   pass) pairs, peak memory and one profiled step's idle share printed;
+35. BASELINE config 4: ERNIE-large through fleet.init with a
+   DistributedStrategy (amp O2 bf16, sharding stage 2) and
+   fleet.distributed_train_step, at bench_ernie's batch and steps (2 +
+   15): losses within FLEET_LOSS_REL of phase 13's TrainStep run of the
+   same seed, K2 non-causal launches equal to phase 13's, the backend
+   nccl and the reduce-scatter and all-gather counters at least one a
+   step; tokens/s beside phase 13's and peak memory printed;
+36. BASELINE config 3 and SyncBatchNorm: BERT-base (bench_bert's batch)
+   through init_parallel_env + ShardedTrainStep (dp), 2 + 3 steps,
+   losses within FLEET_LOSS_REL of phase 14's first 5; one ResNet-50 O2
+   step (bench_resnet's batch) after SyncBatchNorm.
+   convert_sync_batchnorm: its loss within ROUTE_TOL["loss"] of phase
+   10's first (BatchNorm) step, each layer's statistics all-gathered in
+   the forward and its gradient sums all-reduced in the backward, a
+   second step finite.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -366,8 +394,9 @@ K1 at head dim 64 likewise, with its launches from phase 16; K1's
 entries also carry `eager_launches`, phase 9b's counts, and
 `transformer_launches`, phase 16's, `hapi_launches`, phase 28's
 fit, `recompute_launches`, phase 32's timed steps under "full",
-`elastic_launches`, phase 33's workers', and phase 32's check and times
-of K1 at the 1.3B shape (`gpt13_*`); K3's carries `pass_launches`,
+`elastic_launches`, phase 33's workers', `moe_launches`, phase 34's,
+and phase 32's check and times of K1 at the 1.3B shape (`gpt13_*`);
+K2 non-causal's entries carry `fleet_launches`, phase 35's; K3's carries `pass_launches`,
 6a-6d's, and `fleet_launches`, 23-27's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 float32 matmuls and convolutions run in full float32 (TF32 off)
@@ -4093,7 +4122,7 @@ def drive_hapi_gpt(device, seed: int, tmp: str) -> dict:
 # ------------------------------------------------------------ phase 29
 def drive_hapi_resnet(device, seed: int, tmp: str, synthetic: dict) -> dict:
     """Phase 29: paddle.Model(resnet50()) at bench_resnet's width (128 x
-    224^2, O2, Momentum(0.1) on a StepDecay the LRScheduler callback
+    224^2, O2, Momentum(0.01) on a StepDecay the LRScheduler callback
     steps) fed from a DatasetFolder of seeded 256^2 .npy images through
     RandomResizedCrop / flip / transpose / normalize, DataLoader(shuffle,
     num_workers=8) and DeviceLoader(size=2); Accuracy(topk=(1, 5)) and
@@ -4124,9 +4153,8 @@ def drive_hapi_resnet(device, seed: int, tmp: str, synthetic: dict) -> dict:
           f"{[(round(a, 3), b) for a, b in r['saves']]}; LR scheduler "
           f"stepped {r['lr_steps']} times; evaluate {ev}; predict "
           f"{r['predict_shape']}, finite {r['predict_finite']}")
-    # Momentum(0.1) with no warm-up swings the first steps' loss (batch
-    # statistics of fresh BN layers), so the loss falls as phase 12's
-    # does: the last below the first
+    # the loss falls: the last below the first (at fit_bench.FIT_LR;
+    # 0.1 swung it past its first loss in one of eight runs)
     _require(all(math.isfinite(v) for v in losses), "non-finite loss")
     _require(losses[-1] < losses[0], f"fit loss did not fall: {losses}")
     _require(len(r["saves"]) == 3 and all(b > 0 for _, b in r["saves"]),
@@ -4770,6 +4798,301 @@ def run_elastic(device, seed: int) -> dict:
             "snapshot_bytes": clean["snapshot_bytes"]}
 
 
+# ------------------------------------------------------------ phase 34
+# the MoE GPT (module docstring): its MoE fields, warm-up and timed
+# steps; the twin check's tokens (B 4 x T 1024) and limit (f32 with TF32
+# off: the same products summed in other orders, gathers and index_add
+# against einsums); the band around 1 of each MoE block's aux loss at
+# step 1: near-uniform gates give E * sum(frac * 1/E) = 1 and a router
+# collapsed onto one expert gives E = 8; at init the first MoE block's
+# gates are near uniform (1.03 on the H100) and deeper blocks, fed a
+# larger residual stream, more peaked (up to 1.30): the band, set after
+# that first reading, is 0.5
+MOE_GPT = dict(moe_experts=8, moe_every=2, moe_top_k=2,
+               moe_capacity_factor=1.25, moe_aux_weight=0.01)
+MOE_STEPS = (2, 8)
+MOE_TWIN_B = 4
+MOE_TWIN_TOL = 1e-5
+MOE_AUX_START = 0.5
+
+
+def check_moe_twin(device, seed: int) -> dict:
+    """The indexed routing against the dense one-hot twin at S 4096, the
+    bench widths (H 768, F 3072, 8 experts, top-2, capacity 1.25), f32:
+    outputs, aux, dropped pairs and every gradient; worst error relative
+    to each tensor's largest entry."""
+    import torch
+    from paddle_tpu_torch.distributed import moe
+    cfg = MOE_GPT
+    torch.manual_seed(seed)
+    m = moe.MoEMLP(768, cfg["moe_experts"], ffn_hidden_size=3072,
+                   top_k=cfg["moe_top_k"],
+                   capacity_factor=cfg["moe_capacity_factor"])
+    x = torch.randn(MOE_TWIN_B, 1024, 768, device=device,
+                    requires_grad=True)
+    r = torch.randn(MOE_TWIN_B, 1024, 768, device=device)
+    args = (m.router, m.w_up, m.b_up, m.w_down, m.b_down, m.top_k,
+            m.capacity_factor, m.min_capacity)
+    got = []
+    for fn in (moe._moe_indexed, moe._moe_dense):
+        out, aux, dropped = fn(x, *args)
+        g = torch.autograd.grad((out * r).sum() + aux,
+                                [x] + list(m.parameters()))
+        got.append([out.detach(), aux.detach(), dropped.float()] + list(g))
+        del out, aux, g
+    worst = max(((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(*got))
+    dropped = [int(got[0][2]), int(got[1][2])]
+    del got, m, x, r
+    torch.cuda.empty_cache()
+    print(f"[moe] indexed vs dense twin, S {MOE_TWIN_B * 1024}, f32: worst "
+          f"error {worst:.3e} of each tensor's largest entry (limit "
+          f"{MOE_TWIN_TOL:g}); dropped pairs {dropped}")
+    _require(worst <= MOE_TWIN_TOL and dropped[0] == dropped[1],
+             f"indexed MoE vs dense twin: {worst}, dropped {dropped}")
+    return {"worst": worst, "dropped": dropped[0]}
+
+
+def drive_moe_gpt(device, seed: int) -> dict:
+    """Phase 34 (module docstring)."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.distributed.moe import MoEMLP
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools import train_bench as tb
+    t0 = time.perf_counter()
+    twin = check_moe_twin(device, seed)
+    cfg = dataclasses.replace(tb.bench_config(6), **MOE_GPT)
+    L, B, T = cfg.num_layers, tb.BATCH, cfg.max_seq_len
+    model = GPT(cfg, device=device, seed=seed)
+    opt = AdamW(1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = jit.TrainStep(model, gpt_loss_fn, opt)
+    moe_blocks = [b.mlp for b in model.blocks if isinstance(b.mlp, MoEMLP)]
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).to(device)
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).to(device)
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+    for f in fns:
+        f.launches = 0
+    first = step(x, y).item()
+    aux0 = [m.aux_loss.item() for m in moe_blocks]
+    dropped0 = [int(m.dropped) for m in moe_blocks]
+    warm, timed = MOE_STEPS
+    res = tb._time_steps(step, (x, y), warm - 1, timed, device)
+    counts = [f.launches for f in fns]
+    losses = [first] + res["losses"]
+    n = warm + timed
+    tps = B * T * timed / res["timed_s"]
+    dropped = [int(m.dropped) for m in moe_blocks]
+    prof = tb.profile_steps(step, (x, y), 1, tb._GPT_GROUPS,
+                            ("cross_entropy", "optimizer"))
+    took = time.perf_counter() - t0
+    C = math.ceil(cfg.moe_top_k * B * T / cfg.moe_experts
+                  * cfg.moe_capacity_factor)
+    print(f"[moe gpt] {len(moe_blocks)} MoE blocks of {cfg.moe_experts} "
+          f"experts (capacity {C} a block), B {B} x {T}, O2: losses "
+          f"{[round(v, 5) for v in losses]}; aux at step 1 "
+          f"{[round(a, 4) for a in aux0]}; dropped (token, pass) pairs of "
+          f"{cfg.moe_top_k * B * T} a block: step 1 {dropped0}, step {n} "
+          f"{dropped}")
+    print(f"[moe gpt] step s {[round(t, 4) for t in res['step_s']]}; "
+          f"tokens/s {tps:.1f}; peak memory {res['peak_mem_gb']:.2f} GB; "
+          f"idle share {prof['idle_share']} (one profiled step, busy "
+          f"{prof['busy_s']} s of {prof['wall_s']} s; groups "
+          f"{prof['groups_s']}); K1 fwd/bwd {counts} over {n} steps (want "
+          f"{[L * n, L * n]}); phase 34 took {took:.1f} s")
+    print(f"[moe gpt] the profiled step's kernels with the most device "
+          f"time (name, launches, s): {prof['top'][:8]}")
+    _require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    _require(losses[-1] < losses[0], f"MoE GPT loss did not fall: {losses}")
+    _require(all(math.isfinite(a) and abs(a - 1.0) <= MOE_AUX_START
+                 for a in aux0), f"aux losses at step 1: {aux0}")
+    _require(counts == [L * n, L * n],
+             f"K1 launches {counts} on the MoE GPT, want {[L * n, L * n]}")
+    out = {"counts": counts, "tokens_per_sec": tps,
+           "peak_mem_gb": res["peak_mem_gb"], "idle_share":
+           prof["idle_share"], "dropped": dropped, "aux0": aux0,
+           "twin": twin, "took_s": took}
+    del step, model, opt, x, y, moe_blocks
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 35
+# phases 35-36's losses against phases 13-14's TrainStep runs of the same
+# seed (relative, each step): at world size 1 the bucket path moves the
+# gradients and parameters unchanged and the update runs the same
+# elementwise ops, so the runs are expected bitwise; the limit leaves
+# room for the order of a sharded clip's sums
+FLEET_LOSS_REL = 1e-5
+
+
+def drive_fleet_ernie(device, seed: int, trainstep: dict) -> dict:
+    """Phase 35 (module docstring); `trainstep` is phase 13's result."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.models.bert import (BertForPretraining,
+                                              bert_pretrain_loss_fn,
+                                              make_bert_pretrain_batch)
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels import packed_flash as k2
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools import train_bench as tb
+    t0 = time.perf_counter()
+    strategy = fleet.DistributedStrategy()
+    strategy.amp = True
+    strategy.amp_configs = {"use_pure_fp16": True, "dtype": "bfloat16"}
+    strategy.sharding = True
+    strategy.sharding_configs = {"sharding_degree": 1, "sharding_stage": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = tb.mlm_config("ernie")
+    bs, seq = tb.MLM_GEOMETRY["ernie"]
+    net = BertForPretraining(cfg, device=device, seed=seed)
+    optim = AdamW(1e-4, parameters=net.parameters())
+    step = fleet.distributed_train_step(net, bert_pretrain_loss_fn, optim)
+    args = tuple(torch.from_numpy(a).to(device) for a in
+                 make_bert_pretrain_batch(np.random.RandomState(seed),
+                                          cfg.vocab_size, bs, seq))
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd,
+           k2.packed_flash_fwd, k2.packed_flash_bwd)
+    for f in fns:
+        f.launches = 0
+    collective.reset_collective_calls()
+    warm, timed = 2, len(trainstep["losses"]) - 2
+    res = tb._time_steps(step, args, warm, timed, device)
+    counts = [f.launches for f in fns]
+    calls = collective.collective_calls()
+    n = warm + timed
+    losses, ref = res["losses"], trainstep["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    bitwise = losses == ref
+    tps = bs * seq * timed / res["timed_s"]
+    ref_tps = trainstep["samples_per_sec"] * seq
+    backend = dist.get_backend()
+    took = time.perf_counter() - t0
+    print(f"[fleet ernie] sharding stage {step.sharding_stage}, amp O2 "
+          f"bf16, backend {backend}, mesh {step.mesh.shape}: losses "
+          f"{[round(v, 5) for v in losses]}; against phase 13's TrainStep: "
+          f"worst relative {worst:.3e} (limit {FLEET_LOSS_REL:g}), bitwise "
+          f"{bitwise}; collective calls over {n} steps {calls}")
+    print(f"[fleet ernie] tokens/s {tps:.1f} (TrainStep, phase 13: "
+          f"{ref_tps:.1f}; ratio {tps / ref_tps:.4f}); step s "
+          f"{[round(t, 4) for t in res['step_s']]}; peak memory "
+          f"{res['peak_mem_gb']:.2f} GB (phase 13: "
+          f"{trainstep['peak_mem_gb']:.2f}); K1/K2 fwd/bwd {counts} "
+          f"(phase 13: {trainstep['counts']}); phase 35 took {took:.1f} s")
+    _require(backend == "nccl", f"backend {backend}")
+    _require(worst <= FLEET_LOSS_REL, f"fleet ERNIE losses vs TrainStep: "
+                                      f"{worst}")
+    _require(counts == trainstep["counts"],
+             f"K2 launches {counts} vs TrainStep's {trainstep['counts']}")
+    _require(calls["reduce_scatter"] >= n and calls["all_gather"] >= n,
+             f"collective calls {calls} over {n} steps")
+    out = {"counts": counts, "tokens_per_sec": tps, "trainstep_tps":
+           ref_tps, "peak_mem_gb": res["peak_mem_gb"], "worst": worst,
+           "bitwise": bitwise, "calls": calls, "took_s": took}
+    del step, net, optim, args
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 36
+def drive_dp_bert_syncbn(device, seed: int, bert: dict,
+                         resnet: dict) -> dict:
+    """Phase 36 (module docstring); `bert` and `resnet` are phases 14's
+    and 10's results."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import collective, init_parallel_env
+    from paddle_tpu_torch.models.bert import (BertForPretraining,
+                                              bert_pretrain_loss_fn,
+                                              make_bert_pretrain_batch)
+    from paddle_tpu_torch.nn import SyncBatchNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep, build_mesh
+    from paddle_tpu_torch.tools import train_bench as tb
+    t0 = time.perf_counter()
+    init_parallel_env()
+    cfg = tb.mlm_config("bert")
+    bs, seq = tb.MLM_GEOMETRY["bert"]
+    net = BertForPretraining(cfg, device=device, seed=seed)
+    optim = AdamW(1e-4, parameters=net.parameters())
+    net, optim = amp.decorate(net, optim, level="O2", dtype="bfloat16")
+    step = ShardedTrainStep(net, bert_pretrain_loss_fn, optim,
+                            mesh=build_mesh(dp=1))
+    args = tuple(torch.from_numpy(a).to(device) for a in
+                 make_bert_pretrain_batch(np.random.RandomState(seed),
+                                          cfg.vocab_size, bs, seq))
+    collective.reset_collective_calls()
+    res = tb._time_steps(step, args, 2, 3, device)
+    calls = collective.collective_calls()
+    losses, ref = res["losses"], bert["losses"][:5]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    sps = bs * 3 / res["timed_s"]
+    del step, net, optim, args
+    torch.cuda.empty_cache()
+    print(f"[dp bert] ShardedTrainStep (dp 1 over NCCL) losses "
+          f"{[round(v, 5) for v in losses]}; against phase 14's TrainStep "
+          f"worst relative {worst:.3e} (limit {FLEET_LOSS_REL:g}), bitwise "
+          f"{losses == ref}; samples/s {sps:.2f} (phase 14: "
+          f"{bert['samples_per_sec']:.2f}); all-reduce calls "
+          f"{calls['all_reduce']}")
+    _require(worst <= FLEET_LOSS_REL, f"dp BERT losses vs TrainStep: "
+                                      f"{worst}")
+    _require(calls["all_reduce"] >= 5, f"collective calls {calls}")
+    model, rstep, x, y = tb.build_resnet(seed, device)
+    model = SyncBatchNorm.convert_sync_batchnorm(model)
+    n_sync = sum(isinstance(m, SyncBatchNorm) for m in model.modules())
+    collective.reset_collective_calls()
+    first = rstep(x, y).item()
+    second = rstep(x, y).item()
+    calls = collective.collective_calls()
+    rel = abs(first - resnet["losses"][0]) / abs(resnet["losses"][0])
+    took = time.perf_counter() - t0
+    print(f"[syncbn] ResNet-50 with {n_sync} SyncBatchNorm layers: first "
+          f"loss {first!r} vs phase 10's BatchNorm step "
+          f"{resnet['losses'][0]!r} ({rel:.2e} relative, limit "
+          f"{ROUTE_TOL['loss']:g}); second loss {second!r}; statistics "
+          f"all-gathered {calls['all_gather']} times, gradient sums "
+          f"all-reduced {calls['all_reduce']} times over the two steps; "
+          f"phase 36 took {took:.1f} s")
+    _require(n_sync == 53, f"{n_sync} SyncBatchNorm layers in ResNet-50")
+    _require(rel <= ROUTE_TOL["loss"], f"SyncBatchNorm first loss: {rel}")
+    _require(math.isfinite(second), f"SyncBatchNorm second loss {second}")
+    _require(calls["all_gather"] >= 2 * n_sync
+             and calls["all_reduce"] >= 2 * n_sync,
+             f"collective calls {calls} for {n_sync} layers over 2 steps")
+    del model, rstep, x, y
+    torch.cuda.empty_cache()
+    return {"losses": losses, "worst": worst, "samples_per_sec": sps,
+            "syncbn_rel": rel, "took_s": took}
+
+
+def run_distributed(device, seed: int, ernie: dict, bert: dict,
+                    resnet: dict) -> dict:
+    """Phases 34-36 over one NCCL process group of world size 1, torn
+    down after them."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.parallel import set_global_mesh
+    init_parallel_env()
+    try:
+        return {"moe": drive_moe_gpt(device, seed),
+                "fleet": drive_fleet_ernie(device, seed, ernie),
+                "dp": drive_dp_bert_syncbn(device, seed, bert, resnet)}
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e and the fleet phases 23-27; returns K3's kernel entry
     (its launches from phase 6, 6a-6d's in pass_launches, 23-27's in
@@ -4829,7 +5152,10 @@ def run_serving(device, seed: int) -> dict:
     passes = run_prefix_passes(model, ecfg, device, seed)
     passes["tenant"] = run_tenant_pass(model, ecfg, device, seed)
     run_facade(model, ecfg, device, seed)
+    t_fleet = time.perf_counter()
     fleet = run_fleet(model, ecfg, device, seed)
+    print(f"[time] the fleet, phases 23-27: "
+          f"{time.perf_counter() - t_fleet:.1f} s")
     READINGS.clear()
     del model
     torch.cuda.empty_cache()
@@ -4841,6 +5167,19 @@ def run_serving(device, seed: int) -> dict:
         "launches": launches, "max_abs_err": max_err, **timing,
         "full_context": full, "pass_launches": passes,
         "fleet_launches": fleet}
+
+
+class Laps:
+    """Host seconds between successive calls, by the name given each."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self._t, 1)
+        self._t = now
 
 
 FLASH_SOURCE = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
@@ -4878,35 +5217,46 @@ def main(argv=None) -> int:
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
+    lap = Laps()
     build_kernels()
+    lap("build")
     kernels = [run_serving(device, args.seed)]
+    lap("serving, phases 2-6e and 23-27")
     errs = {k: check_flash(k, device, args.seed) for k in FLASH}
     timing = {k: time_flash(k, c, device, args.seed)
               for k, c in FLASH.items()}
     k1_f16 = time_flash("k1", FLASH["k1"], device, args.seed,
                         torch.float16)
+    lap("flash, phases 7-8")
     train = {6: drive_train(6, 2, 10, device, args.seed),
              12: drive_train(12, 2, 3, device, args.seed)}
+    lap("GPT train, phase 9")
     eager = drive_eager(device, args.seed)
+    lap("eager, phase 9b")
     k4 = check_k4(device, args.seed)
     k4_model = check_k4_on_model(device, args.seed)
+    lap("K4, phases 10-11")
     resnet = drive_resnet(device, args.seed)
+    lap("ResNet-50, phase 12")
     # bench_ernie's 15 timed steps: AdamW(1e-4) without warm-up makes the
     # first steps' loss rise and swing in both packages (tests/
     # test_torch_bert.py holds the port's O2 curve to the JAX package's),
     # and at 5 timed steps the swing had not settled below step 1's loss
     ernie = drive_mlm("ernie", 2, 15, device, args.seed)
-    drive_mlm("bert", 2, 10, device, args.seed)
+    bert = drive_mlm("bert", 2, 10, device, args.seed)
     drive_lenet(device, args.seed)
+    lap("ERNIE, BERT, LeNet, phases 13-15")
     transformer = drive_transformer(device, args.seed)
     check_save_load(transformer.pop("built"), device, args.seed)
     torch.cuda.empty_cache()
     drive_lstm(device, args.seed)
     check_optimizers(device, args.seed)
+    lap("sequence models, phases 16-18")
     drive_mobilenet(device, args.seed)
     drive_resnet_nhwc(device, args.seed, resnet)
     drive_vgg(device, args.seed)
     check_vision_ops(device, args.seed)
+    lap("vision, phases 19-22")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         hapi = drive_hapi_gpt(device, args.seed, tmp)
@@ -4914,11 +5264,18 @@ def main(argv=None) -> int:
         run_mnist_example(device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    lap("training runtime, phases 28-30")
     run_op_corpus(device, args.seed, card)
+    lap("op corpus, phase 31")
     k1_big = (check_k1_1p3b(device, args.seed),
               time_flash("k1", K1_1P3B, device, args.seed))
     gpt13 = drive_gpt_1p3b(device, args.seed)
+    lap("GPT-3 1.3B, phase 32")
     elastic = run_elastic(device, args.seed)
+    lap("elastic, phase 33")
+    dist = run_distributed(device, args.seed, ernie, bert, resnet)
+    lap("parallel paths, phases 34-36")
+    print(f"[time] seconds by phase group: {lap.seconds}")
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
               "k1_d64": transformer["counts"][:2]}
@@ -4943,10 +5300,13 @@ def main(argv=None) -> int:
                 f16_launches=eager["fp16"]["k1"][i],
                 recompute_launches=gpt13["counts"][i],
                 elastic_launches=elastic["launches"][i],
+                moe_launches=dist["moe"]["counts"][i],
                 gpt13_max_abs_err=k1_big[0][("fwd", "bwd")[i]],
                 **{f"gpt13_{key}": k1_big[1][i][key] for key in (
                     "ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")})
+        if kernel == "k2_nc":
+            kernels[-1]["fleet_launches"] = dist["fleet"]["counts"][2 + i]
     total = {key: sum(r[key] for r in k4)
              for key in ("ms", "plain_ms", "bound_ms", "composed_ms",
                          "matmul_ms", "profiler_ms")}

@@ -37,8 +37,12 @@ array ops, with paddle.linalg) at the top level and as the Tensor's
 Paddle methods; activation recompute (distributed.fleet.utils.recompute,
 GPTConfig.use_recompute), the elastic supervisor (distributed.elastic),
 and the data zoo's last sources: text (the text datasets), reader,
-batch and the fluid-era dataset generators. A name of paddle_tpu's top
-level that is not ported is absent here.
+batch and the fluid-era dataset generators; data, ZeRO, tensor and
+expert parallelism over torch.distributed (parallel.ShardedTrainStep
+and the rank mesh, the collectives, spawn and launch, DataParallel, the
+tensor-parallel layers, MoE, SyncBatchNorm and the fleet's collective
+path). A name of paddle_tpu's top level that is not ported is absent
+here.
 """
 from .core import errors
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
@@ -68,6 +72,8 @@ from .batch import batch  # noqa: F401
 from . import reader  # noqa: F401
 from . import dataset  # noqa: F401
 from . import hapi
+from . import parallel  # noqa: F401
+from .distributed.parallel import DataParallel  # noqa: F401
 from .hapi import Model, callbacks, flops, summary
 from .nn.layer.base import ParamAttr
 from .ops.array_ops import TensorArray as LoDTensorArray

@@ -13,18 +13,17 @@ port's distributed collectives wait for slice 9).
 from __future__ import annotations
 
 import math
-import os
 
 import numpy as np
 
 
 def _world():
-    """(world size, rank) of this process."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return (int(os.environ.get("PADDLE_TRAINERS_NUM", 1)),
-            int(os.environ.get("PADDLE_TRAINER_ID", 0)))
+    """(data-parallel world size, this rank's place in it): the
+    distributed package's get_world_size and its rank along the dp axis
+    (the process group's rank without a mesh, else the launcher's
+    env)."""
+    from ..distributed import collective
+    return collective.get_world_size(), collective.axis_index()
 
 
 class Sampler:

@@ -17,10 +17,10 @@ composed attention (BERT-base at T 128 under the default min_seq of 512,
 a mask, dropout in training), as in the JAX package, whose flash route
 has no mask or dropout either.
 
-Not ported: a tensor-parallel mesh. The parallel linears and the vocab
-embedding are plain layers on one device (distributed/tp_layers.py), and
-the JAX package's `shard_batch_activation`, the identity without a mesh,
-is dropped.
+Under a mesh with tp > 1 each attention holds num_heads / tp heads
+(distributed/tp_layers.py, as the GPT does); the JAX package's
+`shard_batch_activation`, a layout constraint, has no torch
+counterpart and is dropped.
 """
 from __future__ import annotations
 
@@ -33,11 +33,13 @@ import torch
 
 from ..core.place import DeviceLike, default_device
 from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
-                                     VocabParallelEmbedding)
+                                     VocabParallelEmbedding, _FusedQKVLinear,
+                                     copy_to_tp, tp_degree)
 from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ..nn.layer.layers import Layer, load_jax_state
 from ..ops.kernels import packed_flash
+from ..parallel.api import local_piece
 from .gpt import sliced_qkv
 
 __all__ = ["BertConfig", "Bert", "BertForPretraining",
@@ -73,11 +75,11 @@ class BertSelfAttention(Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
-        self.num_heads = cfg.num_heads
+        self._tp = tp_degree()
+        self.num_heads = cfg.num_heads // self._tp  # this rank's heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv = ColumnParallelLinear(cfg.hidden_size,
-                                        3 * cfg.hidden_size,
-                                        gather_output=False)
+        self.qkv = _FusedQKVLinear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                   gather_output=False)
         self.out = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                      input_is_parallel=True)
 
@@ -91,8 +93,8 @@ class BertSelfAttention(Layer):
     def forward(self, x, attn_mask=None):
         B, T = x.shape[0], x.shape[1]
         pack = self._pack_gate(T, attn_mask)
-        q, k, v = sliced_qkv(x, self.qkv, self.num_heads, self.head_dim,
-                             pack_pairs=pack)
+        q, k, v = sliced_qkv(copy_to_tp(x, self._tp), self.qkv,
+                             self.num_heads, self.head_dim, pack_pairs=pack)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=False,
             dropout_p=self.cfg.dropout, training=self.training,
@@ -129,15 +131,18 @@ def _draw(module: Layer, seed: int) -> None:
     keep their zeros and ones."""
     g = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
-        # drawn on the CPU whatever device the layers were built on
-        draw = torch.empty(p.shape)
+        # drawn whole on the CPU whatever device the layers were built
+        # on, then cut to this rank's piece (tp)
+        draw = torch.empty(getattr(p, "_whole_shape", p.shape))
         if name.endswith("word_emb.weight"):
-            p.copy_(draw.normal_(0.0, 0.02, generator=g))
+            draw.normal_(0.0, 0.02, generator=g)
         elif name.endswith("_emb.weight"):
-            p.copy_(draw.normal_(0.0, 1.0, generator=g))
+            draw.normal_(0.0, 1.0, generator=g)
         elif p.ndim == 2:
-            p.copy_(draw.normal_(0.0, math.sqrt(2.0 / sum(p.shape)),
-                                 generator=g))
+            draw.normal_(0.0, math.sqrt(2.0 / sum(draw.shape)), generator=g)
+        else:
+            continue
+        p.copy_(local_piece(draw, p))
 
 
 class _JaxParams:

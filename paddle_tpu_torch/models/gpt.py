@@ -21,9 +21,23 @@ of k blocks (1 for "full") in one checkpoint each in GPT.forward;
 "auto" resolves through the committed plan (jaxplan.json, read as data
 by analysis/jaxplan.py). The checkpoint is distributed.fleet.utils.
 recompute, which replays the port's dropout draws and casts, so a
-recomputed forward is bitwise the first. Sequence/context parallelism
-and MoE are not ported yet (ROADMAP Queue 1 item 7): their config
-fields exist so configs read the same, and setting them raises.
+recomputed forward is bitwise the first.
+
+Mixture-of-experts (moe_experts > 0): every moe_every-th block (those
+with layer_idx % moe_every == moe_every - 1) takes a distributed.moe.
+MoEMLP in place of the dense MLP, and GPT.loss adds moe_aux_weight
+times each MoE block's load-balance loss; under recompute the aux
+losses ride the checkpointed function's return and are put back on
+their layers (paddle_tpu/models/gpt.py:221-229, 320-353).
+
+Tensor parallelism: built under a global mesh with tp > 1, each block
+holds num_heads / tp heads (the fused qkv's columns hold each rank's
+heads of q, of k and of v) and the MLP's inner slice; the token
+embedding and the head are split over the vocabulary (the head's
+logits all-gathered). Weights are drawn whole from the seed and cut, so
+every tp degree starts from the same model. Sequence and context
+parallelism wait for slice 9b: their config fields exist so configs
+read the same, and setting them raises.
 """
 from __future__ import annotations
 
@@ -38,12 +52,15 @@ from ..analysis import jaxplan
 from ..core.place import DeviceLike, default_device
 from ..core.tensor import plain
 from ..distributed.fleet.utils import recompute
+from ..distributed.moe import MoEMLP
 from ..distributed.tp_layers import (ColumnParallelLinear, RowParallelLinear,
-                                     VocabParallelEmbedding)
+                                     VocabParallelEmbedding, _FusedQKVLinear,
+                                     copy_to_tp, tp_degree)
 from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerList, LayerNorm
 from ..nn.layer.layers import Layer, load_jax_state
 from ..ops.kernels import packed_flash
+from ..parallel.api import local_piece
 
 __all__ = ["GPTConfig", "GPT", "GPTAttention", "sliced_qkv", "gpt_loss_fn"]
 
@@ -110,11 +127,14 @@ class GPTAttention(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.cfg = cfg
-        self.num_heads = cfg.num_heads
+        tp = self._tp = tp_degree()
+        if cfg.num_heads % tp:
+            raise ValueError(f"num_heads {cfg.num_heads} does not split "
+                             f"over tp={tp}")
+        self.num_heads = cfg.num_heads // tp   # this rank's heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv = ColumnParallelLinear(cfg.hidden_size,
-                                        3 * cfg.hidden_size,
-                                        gather_output=False)
+        self.qkv = _FusedQKVLinear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                      gather_output=False)
         self.out = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                      input_is_parallel=True)
 
@@ -126,7 +146,8 @@ class GPTAttention(Layer):
     def forward(self, x):
         B, T = x.shape[0], x.shape[1]
         pack = self._pack_gate(T)
-        q, k, v = sliced_qkv(x, self.qkv, self.num_heads, self.head_dim,
+        q, k, v = sliced_qkv(copy_to_tp(x, self._tp), self.qkv, self.num_heads,
+                             self.head_dim,
                              pack_pairs=pack)
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.cfg.dropout,
@@ -150,8 +171,8 @@ class GPTMLP(Layer):
 
 
 class GPTBlock(Layer):
-    """layer_idx names the block's place in the stack (the reference's
-    MoE placement reads it; MoE is not ported yet)."""
+    """layer_idx names the block's place in the stack: with moe_experts,
+    the blocks at layer_idx % moe_every == moe_every - 1 are MoE."""
 
     def __init__(self, cfg: GPTConfig, layer_idx: int = 0):
         super().__init__()
@@ -160,7 +181,14 @@ class GPTBlock(Layer):
         self.ln1 = LayerNorm(cfg.hidden_size)
         self.attn = GPTAttention(cfg)
         self.ln2 = LayerNorm(cfg.hidden_size)
-        self.mlp = GPTMLP(cfg)
+        every = max(cfg.moe_every, 1)
+        if cfg.moe_experts > 0 and layer_idx % every == every - 1:
+            self.mlp = MoEMLP(cfg.hidden_size, cfg.moe_experts,
+                              ffn_hidden_size=cfg.ffn_mult * cfg.hidden_size,
+                              top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor)
+        else:
+            self.mlp = GPTMLP(cfg)
 
     def _body(self, x):
         x = x + self.attn(self.ln1(x))
@@ -171,7 +199,7 @@ class GPTBlock(Layer):
         # "group:k", truthy strings) are applied by GPT.forward's block
         # loop; only the boolean recomputes here, one block at a time
         if self.cfg.use_recompute is True:
-            return recompute(self._body, x)
+            return _recompute_blocks([self], x)
         return self._body(x)
 
 
@@ -222,19 +250,22 @@ class GPT(Layer):
     def _init_weights(self, seed: int) -> None:
         g = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
-            # drawn on the CPU whatever device the layers were built on
-            draw = torch.empty(p.shape)
-            if name == "wte.weight":
-                p.copy_(draw.normal_(0.0, 0.02, generator=g))
+            # drawn whole on the CPU whatever device the layers were
+            # built on, then cut to this rank's piece (tp / ep)
+            draw = torch.empty(getattr(p, "_whole_shape", p.shape))
+            last = name.rsplit(".", 1)[-1]
+            if name == "wte.weight" or last in ("router", "w_up", "w_down"):
+                draw.normal_(0.0, 0.02, generator=g)
             elif name == "wpe.weight":
-                p.copy_(draw.normal_(0.0, 1.0, generator=g))
+                draw.normal_(0.0, 1.0, generator=g)
             elif name.endswith(".weight") and p.ndim == 2:
-                lim = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
-                p.copy_(draw.uniform_(-lim, lim, generator=g))
+                lim = math.sqrt(6.0 / (draw.shape[0] + draw.shape[1]))
+                draw.uniform_(-lim, lim, generator=g)
             elif "ln" in name and name.endswith(".weight"):
-                p.fill_(1.0)
+                draw.fill_(1.0)
             else:
-                p.zero_()
+                draw.zero_()
+            p.copy_(local_piece(draw, p))
 
     @property
     def device(self) -> torch.device:
@@ -256,18 +287,25 @@ class GPT(Layer):
         if g:
             blocks = list(self.blocks)
             for s in range(0, len(blocks), g):
-                x = recompute(_run_blocks, blocks[s:s + g], x)
+                x = _recompute_blocks(blocks[s:s + g], x)
         else:
             for blk in self.blocks:
                 x = blk(x)
         return self.lm_head(self.ln_f(x))
 
     def loss(self, input_ids, labels):
-        """Mean hard-label cross-entropy of the next-token logits."""
+        """Mean hard-label cross-entropy of the next-token logits, plus
+        moe_aux_weight times each MoE block's load-balance loss."""
         logits = self(input_ids)
         labels = torch.as_tensor(plain(labels), device=self.device)
-        return F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+        loss = F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
                                labels.reshape(-1))
+        if self.cfg.moe_experts > 0 and self.cfg.moe_aux_weight > 0:
+            for blk in self.blocks:
+                if isinstance(blk.mlp, MoEMLP) and \
+                        blk.mlp.aux_loss is not None:
+                    loss = loss + self.cfg.moe_aux_weight * blk.mlp.aux_loss
+        return loss
 
     @classmethod
     def load_jax_params(cls, cfg: GPTConfig, params: Dict[str, np.ndarray],
@@ -278,11 +316,21 @@ class GPT(Layer):
         return load_jax_state(cls(cfg, device=device), params)
 
 
-def _run_blocks(group, x):
-    """One checkpointed segment: `group`'s blocks in turn."""
-    for b in group:
-        x = b(x)
-    return x
+def _recompute_blocks(group, x):
+    """`group`'s blocks in turn as one checkpointed segment. The MoE
+    blocks' aux losses ride the segment's return and are put back on
+    their layers afterwards (paddle_tpu/models/gpt.py:320-340)."""
+    moe = [b.mlp for b in group if isinstance(b.mlp, MoEMLP)]
+
+    def segment(x_):
+        for b in group:
+            x_ = b._body(x_)
+        return (x_, *[m.aux_loss for m in moe])
+
+    out, *auxes = recompute(segment, x)
+    for m, aux in zip(moe, auxes):
+        m.aux_loss = aux
+    return out
 
 
 def gpt_loss_fn(model, input_ids, labels):
@@ -295,9 +343,9 @@ def _check_supported(cfg: GPTConfig) -> None:
         raise ValueError(f"hidden_size {cfg.hidden_size} is not divisible "
                          f"by num_heads {cfg.num_heads}")
     unported = {"sequence_parallel": cfg.sequence_parallel,
-                "context_parallel": cfg.context_parallel,
-                "moe_experts": cfg.moe_experts > 0}
+                "context_parallel": cfg.context_parallel}
     bad = [k for k, on in unported.items() if on]
     if bad:
         raise NotImplementedError(
-            f"GPTConfig {bad}: not ported yet (later slice)")
+            f"GPTConfig {bad}: not ported yet (slice 9b: sequence and "
+            f"context parallelism)")

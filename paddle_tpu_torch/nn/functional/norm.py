@@ -38,8 +38,18 @@ data_format (the JAX package always uses axis 1), and instance_norm
 with use_input_stats=False normalises with running_mean / running_var.
 local_response_norm keeps the JAX package's x / (k + alpha * sum of
 squares over `size` channels) ** beta (no division of alpha by size).
-sync_batch_norm waits for the distributed slice (ROADMAP Queue 1 item
-9) and raises.
+sync_batch_norm (`_SyncBNCore`) takes the batch statistics over the
+data-parallel ranks: each rank's per-channel count, mean and biased
+variance (batch_norm's own `_bn_stats`) are all-gathered over the mesh
+group of `sync_axes` ("dp") and combined rank by rank (Chan et al.'s
+parallel variance), so with one rank they are batch_norm's bit for bit;
+the backward all-reduces the per-channel sums of gy and gy * x, so dx is
+the gradient of the sum of every rank's loss; dweight and dbias are this rank's own sums, which
+the data-parallel gradient mean completes. With no process group (or a
+group of one in a larger world) it is batch_norm over the local batch;
+in a world of one with a process group it still all-reduces, so a run
+on one GPU goes through NCCL. The running statistics take the global
+batch's mean and biased variance, as the JAX package's do.
 
 Both Functions run inside a `batch_norm` profiler range (forward and
 backward), which tools/train_bench.py --profile reads. Neither is a TPU
@@ -48,10 +58,10 @@ kernel in the JAX package (XLA fused them), so they stay plain torch.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from ...core.dispatch import op
-from ...core.unported import not_ported
 from .pooling import CHANNEL_LAST, from_channel_first, to_channel_first
 
 __all__ = ["layer_norm", "batch_norm", "batch_norm_act", "instance_norm",
@@ -367,9 +377,88 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
     return _lrn(x, size, alpha, beta, k, data_format)
 
 
+class _SyncBNCore(torch.autograd.Function):
+    """bn(x) under the batch statistics of every rank of `pg` ->
+    (out, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, c_axis, pg):
+        from ...distributed import collective as C
+        f = _acc_dtype(x)
+        mean, var = _bn_stats(x, _axes(x, c_axis))
+        n = torch.full_like(mean, x.numel() // x.shape[c_axis], dtype=f)
+        local = torch.stack([n, mean.to(f), var.to(f)])
+        ranks = torch.empty((dist.get_world_size(pg),) + tuple(local.shape),
+                            dtype=f, device=x.device)
+        C._all_gather(ranks, local, pg)
+        # Chan et al.'s combination, rank by rank in group order: with
+        # one rank (weight 1, no spread of means) batch_norm's own stats
+        total = ranks[:, 0].sum(dim=0)
+        mean = sum((r[0] / total) * r[1] for r in ranks.unbind(0))
+        var = sum((r[0] / total) * (r[2] + (r[1] - mean) ** 2)
+                  for r in ranks.unbind(0))
+        out = _apply_scale_shift(x, mean, var, weight, bias, eps, c_axis)
+        ctx.save_for_backward(x, weight, mean, var, total)
+        ctx.eps, ctx.c_axis, ctx.pg = eps, c_axis, pg
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, g_mean, g_var):
+        from ...distributed import collective as C
+        x, weight, mean, var, total = ctx.saved_tensors
+        c_axis, f = ctx.c_axis, _acc_dtype(x)
+        axes = _axes(x, c_axis)
+        shape = _bshape(x, c_axis)
+        inv = torch.rsqrt(var + ctx.eps)
+        gysum = torch.sum(gy, dim=axes, dtype=f)
+        gxsum = torch.sum(gy * x, dim=axes, dtype=f)
+        dgamma = (gxsum - mean * gysum) * inv
+        sums = torch.stack([gysum, gxsum])
+        C._all_reduce(sums, C.ReduceOp.SUM, ctx.pg)
+        g_dbeta = sums[0]
+        g_dgamma = (sums[1] - mean * sums[0]) * inv
+        a = inv if weight is None else weight.to(f) * inv
+        k = -a * g_dgamma * inv / total
+        m = -a * g_dbeta / total - k * mean
+        dx = (gy * a.to(gy.dtype).reshape(shape)
+              + x * k.to(x.dtype).reshape(shape)
+              + m.to(x.dtype).reshape(shape)).to(x.dtype)
+        dw = None if weight is None else dgamma.to(weight.dtype)
+        db = None if ctx.bias_dtype is None else gysum.to(ctx.bias_dtype)
+        return dx, dw, db, None, None, None
+
+
+def _sync_group(sync_axes):
+    """The process group of the mesh axes `sync_axes` (the world with no
+    mesh), or None (local statistics)."""
+    import torch.distributed as dist
+    from ...parallel import mesh as _mesh
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    m = _mesh.get_global_mesh()
+    return m.group(tuple(sync_axes)) if m is not None \
+        else dist.group.WORLD
+
+
 def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
                     training=True, momentum=0.9, epsilon=1e-5,
                     data_format="NCHW", sync_axes=("dp",), name=None):
-    """Cross-replica batch norm: waits for the distributed slice."""
-    not_ported("sync_batch_norm", "ROADMAP Queue 1 item 9, the "
-               "distributed slice")
+    """Cross-replica batch norm (reference: sync_batch_norm_op.cu +
+    nn.SyncBatchNorm): batch statistics over the ranks of the mesh axes
+    `sync_axes` (module docstring)."""
+    pg = _sync_group(sync_axes)
+    if not training or pg is None:
+        return batch_norm(x, running_mean, running_var, weight, bias,
+                          training=training, momentum=momentum,
+                          epsilon=epsilon, data_format=data_format)
+    return _sync_bn_train(x, _Stats(running_mean, running_var), weight,
+                          bias, momentum, epsilon,
+                          _channel_axis(x, data_format), pg)
+
+
+@op("sync_batch_norm")
+def _sync_bn_train(x, stats, weight, bias, momentum, epsilon, c_axis, pg):
+    out, mean, var = _SyncBNCore.apply(x, weight, bias, epsilon, c_axis, pg)
+    _update_running_stats(stats.mean, stats.var, mean, var, momentum)
+    return out

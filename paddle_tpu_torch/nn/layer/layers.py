@@ -46,7 +46,7 @@ from ...core.dtypes import convert_dtype, get_default_dtype
 from ...core.tensor import EagerParamBase, box, plain
 from .base import ParamAttr
 
-__all__ = ["Layer", "HookRemoveHelper", "load_jax_state"]
+__all__ = ["Layer", "HookRemoveHelper", "load_jax_state", "gather_jax_state"]
 
 _layer_name_counters: Dict[str, int] = collections.defaultdict(int)
 
@@ -217,7 +217,10 @@ def load_jax_state(module: nn.Module, state: Dict[str, np.ndarray]):
     buffers), into `module`'s parameters and buffers, each keeping its
     own dtype and device. Names and shapes must match exactly (the port
     keeps the JAX package's names and layouts: no renaming, no
-    transposes). Returns the module."""
+    transposes), but that a parameter split over a mesh axis (tensor or
+    expert parallel) takes the whole JAX array and keeps this rank's
+    piece of it. Returns the module."""
+    from ...parallel.api import local_piece
     own = dict(module.named_parameters())
     own.update(module.named_buffers())
     missing = sorted(set(own) - set(state))
@@ -227,10 +230,31 @@ def load_jax_state(module: nn.Module, state: Dict[str, np.ndarray]):
                          f"unexpected {extra}")
     for name, t in own.items():
         src = np.asarray(state[name])
-        if tuple(src.shape) != tuple(t.shape):
-            raise ValueError(f"{name}: shape {src.shape} != {tuple(t.shape)}")
         # through f32 (f64 kept): torch has no counterpart of the JAX
         # package's numpy bf16; copy_ casts to the tensor's own dtype
         wide = np.float64 if src.dtype == np.float64 else np.float32
-        t.copy_(torch.from_numpy(np.array(src, dtype=wide)))
+        src = torch.from_numpy(np.array(src, dtype=wide))
+        if tuple(src.shape) == getattr(t, "_whole_shape", None):
+            src = local_piece(src, t)
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                             f"{tuple(t.shape)}")
+        t.copy_(src)
     return module
+
+
+@torch.no_grad()
+def gather_jax_state(module: nn.Module) -> Dict[str, np.ndarray]:
+    """load_jax_state's inverse: every parameter and buffer of `module`
+    as a whole numpy array (f32 for low-precision tensors) under its JAX
+    name; a parameter split over a mesh axis is all-gathered (every rank
+    of the axis calls this)."""
+    from ...parallel.api import whole_piece
+    out = {}
+    for name, t in list(module.named_parameters()) + list(
+            module.named_buffers()):
+        whole = whole_piece(t.detach(), t)
+        if whole.dtype in (torch.bfloat16, torch.float16):
+            whole = whole.float()
+        out[name] = whole.cpu().numpy()
+    return out

@@ -7,8 +7,10 @@ Parameter names and defaults are the JAX package's: weight ones and
 bias zeros (InstanceNorm's are `scale` and `bias`), the batch norms'
 buffers `_mean` (zeros) and `_variance` (ones). The fluid BatchNorm
 applies `act` after the norm; its use_global_stats=False follows
-train/eval mode, as the JAX package reads it. SyncBatchNorm waits for
-the distributed slice (ROADMAP Queue 1 item 9) and raises."""
+train/eval mode, as the JAX package reads it. SyncBatchNorm takes its
+training statistics over the data-parallel ranks
+(nn.functional.sync_batch_norm); `convert_sync_batchnorm` swaps every
+batch norm of a layer for one, with its weights and running stats."""
 from __future__ import annotations
 
 import math
@@ -16,10 +18,9 @@ import math
 import torch
 
 from ...core import place as _place
-from ...core.unported import not_ported
 from .. import functional as F
 from .. import initializer as I
-from ..functional.norm import batch_norm, layer_norm
+from ..functional.norm import batch_norm, layer_norm, sync_batch_norm
 from .layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
@@ -124,18 +125,44 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica batch norm: waits for the distributed slice."""
+    """Cross-replica batch norm (reference: operators/sync_batch_norm_op.cu,
+    an NCCL all-reduce of the partial sums): in training, the statistics
+    of the batch over every data-parallel rank."""
 
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
-                 weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, name=None):
-        not_ported("SyncBatchNorm", "ROADMAP Queue 1 item 9, the "
-                   "distributed slice")
+    def forward(self, x):
+        return sync_batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training and not self._use_global_stats,
+            momentum=self._momentum, epsilon=self._epsilon,
+            data_format=self._data_format)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
-        not_ported("SyncBatchNorm.convert_sync_batchnorm", "ROADMAP Queue "
-                   "1 item 9, the distributed slice")
+        """`layer` with every batch norm replaced by a SyncBatchNorm that
+        holds its weights and running statistics (a batch norm passed
+        alone comes back converted)."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(
+                layer, SyncBatchNorm):
+            w = layer.weight
+            new = SyncBatchNorm(layer._num_features, layer._momentum,
+                                layer._epsilon,
+                                weight_attr=None if w is not None else False,
+                                bias_attr=None if layer.bias is not None
+                                else False,
+                                data_format=layer._data_format,
+                                use_global_stats=layer._use_global_stats)
+            with torch.no_grad():
+                for name in ("weight", "bias"):
+                    src = getattr(layer, name)
+                    if src is not None:
+                        getattr(new, name).data = src.detach().clone()
+                new._mean.data = layer._mean.detach().clone()
+                new._variance.data = layer._variance.detach().clone()
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 
 class GroupNorm(Layer):

@@ -130,6 +130,18 @@ PyTorch is installed:
   solves (cuSOLVER against LAPACK) within 1e-4 up to sign or basis;
   every output on the card.
 
+- slice 9a, data/ZeRO/expert parallelism over one card: over an NCCL
+  process group of world size 1 (`nccl_world`), a ZeRO-2
+  ShardedTrainStep of a tiny GPT (K1) against jit.TrainStep on the same
+  weights, losses and parameters bitwise equal over 3 steps (the bucket
+  path's reduce-scatter and all-gather over one rank move the same
+  values, and the update runs the same elementwise ops), with its
+  reduce-scatter and all-gather counters above 0; the indexed MoE
+  routing against its dense twin (outputs, aux and gradients within 1e-5
+  of each tensor's largest entry: sums in other orders); SyncBatchNorm
+  against BatchNorm (outputs, input and weight gradients and running
+  statistics within 1e-5: one-pass against two-pass variance).
+
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
 """
@@ -1596,3 +1608,84 @@ def test_k1_under_recompute_matches_k1_without(cuda, min_seq_128, mode):
         rerun = 0 if policy in (False, "auto") else 2
         assert counts == ([0, 0] if dropout else [2 + rerun, 2]), \
             (policy, counts)
+
+
+# ------------------------------------------------------------ slice 9a
+@pytest.fixture
+def nccl_world(cuda):
+    """An NCCL process group of one rank on the card, torn down after."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.parallel import set_global_mesh
+    init_parallel_env()
+    assert dist.get_backend() == "nccl"
+    yield cuda
+    set_global_mesh(None)
+    dist.destroy_process_group()
+
+
+def test_zero2_step_on_nccl_world_of_one_matches_trainstep(nccl_world):
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.parallel import ShardedTrainStep, ShardingStage
+    cfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randint(0, 256, (4, 128))).to(nccl_world)
+    y = torch.from_numpy(rng.randint(0, 256, (4, 128))).to(nccl_world)
+    runs = {}
+    for name in ("trainstep", "zero2"):
+        model = GPT(cfg, device=nccl_world, seed=5)
+        opt = optimizer.AdamW(1e-3, parameters=model.parameters())
+        step = jit.TrainStep(model, gpt_loss_fn, opt) \
+            if name == "trainstep" else ShardedTrainStep(
+                model, gpt_loss_fn, opt,
+                sharding_stage=ShardingStage.GRADIENT)
+        C.reset_collective_calls()
+        runs[name] = ([step(x, y).item() for _ in range(3)],
+                      [p.detach().clone() for p in model.parameters()],
+                      C.collective_calls())
+    assert runs["zero2"][0] == runs["trainstep"][0]
+    for a, b in zip(runs["zero2"][1], runs["trainstep"][1]):
+        assert torch.equal(a, b)
+    calls = runs["zero2"][2]
+    assert calls["reduce_scatter"] >= 3 and calls["all_gather"] >= 3
+
+
+def test_indexed_moe_matches_dense_twin_on_card(cuda):
+    from paddle_tpu_torch.distributed import moe
+    torch.manual_seed(0)
+    m = moe.MoEMLP(64, 8, ffn_hidden_size=128, top_k=2,
+                   capacity_factor=1.25)
+    m.to(cuda)
+    x = torch.randn(2, 256, 64, device=cuda, requires_grad=True)
+    r = torch.randn(2, 256, 64, device=cuda)
+    args = (m.router, m.w_up, m.b_up, m.w_down, m.b_down, 2, 1.25, 4)
+    got = []
+    for fn in (moe._moe_indexed, moe._moe_dense):
+        out, aux, dropped = fn(x, *args)
+        g = torch.autograd.grad((out * r).sum() + aux,
+                                [x] + list(m.parameters()))
+        got.append([out.detach(), aux.detach(), dropped.float()] + list(g))
+    for a, b in zip(*got):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_sync_batch_norm_matches_batch_norm_on_card(nccl_world):
+    from paddle_tpu_torch.nn import BatchNorm2D, SyncBatchNorm
+    torch.manual_seed(0)
+    x = torch.randn(8, 16, 10, 10, device=nccl_world)
+    w = torch.randn(8, 16, 10, 10, device=nccl_world)
+    outs = []
+    for sync in (False, True):
+        bn = BatchNorm2D(16)
+        if sync:
+            bn = SyncBatchNorm.convert_sync_batchnorm(bn)
+        xi = x.clone().requires_grad_(True)
+        y = bn(xi)
+        (y * w).sum().backward()
+        outs.append([y.detach(), xi.grad, bn.weight.grad, bn.bias.grad,
+                     bn._mean.clone(), bn._variance.clone()])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()

@@ -71,8 +71,12 @@ def test_load_jax_params_refuses_mismatched_names():
 
 
 def test_unported_config_fields_raise():
-    with pytest.raises(NotImplementedError):
-        GPT(GPTConfig(moe_experts=4, **GEOM_KW), device="cpu")
+    """sequence_parallel and context_parallel wait for slice 9b; MoE
+    (slice 9a) builds."""
+    for kw in ("sequence_parallel", "context_parallel"):
+        with pytest.raises(NotImplementedError, match="slice 9b"):
+            GPT(GPTConfig(**{kw: True}, **GEOM_KW), device="cpu")
+    assert GPT(GPTConfig(moe_experts=4, **GEOM_KW), device="cpu")
     assert GPTConfig.tiny().geom == (2, 4, 16, 64)
 
 

@@ -1258,3 +1258,77 @@ def test_slice_8c_packages_export_every_reference_name(package):
     assert not missing, (package, missing)
     for name in ("text", "dataset", "reader", "batch"):
         assert hasattr(paddle_tpu_torch, name), name
+
+
+# ------------------------------------------- slice 9a: every public name
+SLICE_9A = ("parallel.mesh", "parallel.api", "distributed.parallel",
+            "distributed.collective", "distributed.spawn",
+            "distributed.launch", "distributed.tp_layers",
+            "distributed.moe", "distributed.fleet.distributed_strategy",
+            "distributed.fleet.role_maker", "distributed.fleet.fleet_base")
+
+
+@pytest.mark.parametrize("module", SLICE_9A)
+def test_slice_9a_module_has_every_reference_name(module):
+    """Every public function, class and constant of slice 9a's JAX
+    modules (the mesh, the sharded train step, the parallel env, the
+    collectives, spawn and launch, the tensor-parallel layers, MoE and
+    the fleet's collective path) has a counterpart of the same name in
+    the port's module, defined in the reference's order; the walk above
+    holds each callable's positional order."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    names = _reference_order(module)
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+
+
+# the names of the JAX packages that wait for slices 9b (pipeline, ring
+# and Ulysses attention) and 9c (the transpiler, the fleet's data
+# generators and metrics), and parallel/compat.py's shard_map shim
+SLICE_9A_WAITS = {
+    "distributed": {"transpiler", "DistributeTranspiler",
+                    "DistributeTranspilerConfig", "ps"},
+    "distributed.fleet": {"data_generator", "DataGenerator",
+                          "MultiSlotDataGenerator",
+                          "MultiSlotStringDataGenerator", "metrics",
+                          "comm_opt"},
+    "parallel": {"ring_attention", "ulysses_attention", "pipeline",
+                 "compat", "shard_map"},
+}
+
+
+@pytest.mark.parametrize("package", sorted(SLICE_9A_WAITS))
+def test_slice_9a_packages_export_every_reference_name(package):
+    """distributed, distributed.fleet and parallel export every public
+    name of the JAX package but those of slices 9b and 9c, and the top
+    level has paddle.DataParallel and parallel."""
+    ref = importlib.import_module(f"paddle_tpu.{package}")
+    port = importlib.import_module(f"paddle_tpu_torch.{package}")
+    names = {n for n in dir(ref) if not n.startswith("_")} - {
+        "annotations"}
+    missing = sorted(names - SLICE_9A_WAITS[package] - set(dir(port)))
+    assert not missing, (package, missing)
+    for name in ("DataParallel", "parallel", "distributed"):
+        assert hasattr(paddle_tpu_torch, name), name
+
+
+def test_slice_9a_waits_raise_naming_their_slice():
+    """What slice 9a leaves raises NotImplementedError naming the slice
+    that holds it: GPTConfig's sequence and context parallelism (9b), the
+    fleet's LocalSGD / DGC / fp16_allreduce and parameter server (9c)."""
+    from paddle_tpu_torch.distributed import fleet
+    for kw in ("sequence_parallel", "context_parallel"):
+        with pytest.raises(NotImplementedError, match="slice 9b"):
+            GPT(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                          num_heads=2, max_seq_len=8, **{kw: True}),
+                device="cpu")
+    for flag in ("localsgd", "dgc", "fp16_allreduce"):
+        s = fleet.DistributedStrategy()
+        setattr(s, flag, True)
+        with pytest.raises(NotImplementedError, match="slice 9c"):
+            fleet.fleet.distributed_train_step(object(), None, None, s)
+    with pytest.raises(NotImplementedError, match="slice 9c"):
+        fleet.init_server()

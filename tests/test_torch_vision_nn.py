@@ -472,7 +472,14 @@ def test_batch_norm_act_nhwc_matches_jax(with_add):
 
 
 def test_sync_batch_norm_waits_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        F.sync_batch_norm(torch.zeros(2, 3), torch.zeros(3), torch.ones(3))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tnn.SyncBatchNorm(3)
+    """Slice 9a ported it: with no process group (a world of one),
+    sync_batch_norm is batch_norm over the local batch and SyncBatchNorm
+    is BatchNorm (its multi-rank behaviour: test_torch_distributed.py)."""
+    x = torch.randn(4, 3, 2, 2)
+    m1, v1, m2, v2 = (torch.zeros(3), torch.ones(3), torch.zeros(3),
+                      torch.ones(3))
+    torch.testing.assert_close(F.sync_batch_norm(x, m1, v1),
+                               F.batch_norm(x, m2, v2, training=True))
+    torch.testing.assert_close((m1, v1), (m2, v2))
+    sync = tnn.SyncBatchNorm(3)
+    torch.testing.assert_close(sync(x), tnn.BatchNorm2D(3)(x))
