@@ -21,16 +21,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def run_cluster(inputs: dict, nprocs: int, suite: str, timeout=300):
-    """Run this file's ranks on `inputs` (from a test); {rank: results}."""
+    """Run this file's ranks on `inputs` (from a test); {rank: results}.
+    A rendezvous port taken by another process between its choice and
+    its bind (other tests start clusters at the same time) gets one more
+    try on fresh ports; any other failure fails the test."""
     with tempfile.TemporaryDirectory() as out_dir:
         np.savez(os.path.join(out_dir, "inputs.npz"), **inputs)
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
         env.pop("PADDLE_TRAINERS_NUM", None)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), out_dir,
-             str(nprocs), suite],
-            env=env, capture_output=True, text=True, timeout=timeout)
+        for _ in range(2):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), out_dir,
+                 str(nprocs), suite],
+                env=env, capture_output=True, text=True, timeout=timeout)
+            if "Address already in use" not in proc.stderr:
+                break
         assert proc.returncode == 0, \
             proc.stdout[-4000:] + proc.stderr[-8000:]
         out = {}
