@@ -1,6 +1,6 @@
 """The ranks of tests/test_torch_distributed.py and test_torch_moe.py.
 
-    python tests/torch_dist_worker.py OUT_DIR NPROCS SUITE
+    python tests/test_torch_dist_worker.py OUT_DIR NPROCS SUITE
 
 starts NPROCS gloo ranks on the CPU through the port's
 paddle_tpu_torch.distributed.spawn. Each rank reads OUT_DIR/inputs.npz

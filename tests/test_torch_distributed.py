@@ -1,7 +1,7 @@
 """The port's distributed slice on 4 gloo CPU ranks, against the JAX
 package.
 
-One module-scoped cluster: tests/torch_dist_worker.py starts 4 ranks
+One module-scoped cluster: tests/test_torch_dist_worker.py starts 4 ranks
 through paddle_tpu_torch.distributed.spawn (gloo, free local ports,
 torch pinned to one thread in each rank). Each rank reads the weights
 and batches this module wrote from the JAX package, runs every scenario
@@ -48,7 +48,7 @@ from paddle_tpu.parallel import (ShardedTrainStep as JShardedTrainStep,
                                  build_mesh as jbuild_mesh,
                                  set_global_mesh as jset_global_mesh)
 
-from torch_dist_worker import REPO, run_cluster
+from test_torch_dist_worker import REPO, run_cluster
 
 WORLD = 4
 REL = 1e-5

@@ -235,7 +235,7 @@ def test_moe_ep2_on_gloo_matches_one_rank():
     one rank holding every expert on the same tokens: each rank's output,
     aux and input gradient, the router's gradient, and each expert's
     gradient (summed over the two ranks' tokens)."""
-    from torch_dist_worker import run_cluster
+    from test_torch_dist_worker import run_cluster
     rng = np.random.RandomState(5)
     jpaddle.seed(9)
     jm = JMoEMLP(16, 4, ffn_hidden_size=32, top_k=2, capacity_factor=1.0)
