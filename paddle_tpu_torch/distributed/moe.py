@@ -19,21 +19,36 @@ tensors [S, E, C] and contracts them with einsums. At the bench GPT's
 width (S = 32 x 1024 tokens, E = 8, C = 10240) each holds 2.7e9
 elements, 10.7 GB in f32, per MoE layer, so the port computes the same
 routing as slot indices (`_route`): the kept (token, pass) pairs scatter
-their tokens into an [E, C, H] buffer at expert e, slot pos; the
-experts run as torch.bmm over the stacked weights (the JAX package
-computes these products outside any Pallas kernel); the outputs are
-gathered back from the same slots and summed into the tokens with their
-combine weights. The gathers' gradients are index_adds: with top-2
-routing a token's two contributions sum to the same value in either
-order, so the step stays deterministic (top-k > 2 sums in the order the
-atomics land). `moe_dispatch_combine` builds the dense tensors (the
-JAX API's), and `_moe_dense` computes the layer from them: the plain
-twin the tests and chip_smoke.py hold the indexed form to.
+their tokens into an [E, C', H] buffer at expert e, slot c; the experts
+run as torch.bmm over the stacked weights (the JAX package computes
+these products outside any Pallas kernel); the outputs are gathered
+back from the same slots and summed into the tokens with their combine
+weights. The gathers' gradients are index_adds: with top-2 routing a
+token's two contributions sum to the same value in either order, so the
+step stays deterministic (top-k > 2 sums in the order the atomics land).
+`moe_dispatch_combine` builds the dense tensors (the JAX API's), and
+`_moe_dense` computes the layer from them: the plain twin the tests and
+chip_smoke.py hold the indexed form to.
+
+Across ranks the routing is the JAX step's over the GLOBAL batch (GSPMD
+routes the whole batch as one array): S, C, the queue positions and
+the aux means are those of every token of the batch. The ranks that
+hold the batch's other rows are the group of the mesh's `batch_axes`
+(ShardedTrainStep sets them to its batch_spec; rank r holds the r-th
+block of rows). Each pass all-gathers the ranks' counts per expert, so
+a token's position is its place among the earlier ranks' tokens of its
+expert, then its own rank's; the aux means are all-reduced sums, whose
+backward is the same all-reduce, so that the ranks' mean of gradients
+(ShardedTrainStep's) is the gradient of the global aux. A rank buffers
+only its own kept pairs: the pairs of one expert that a rank keeps are
+the first of its pairs in (pass, token) order, so each takes slot c,
+its place among them, in a buffer of C' = min(C, S_local) slots (a
+token picks an expert at most once). `dropped` counts this rank's
+dropped pairs.
 
 With ep > 1 each rank holds E/ep experts (w_up etc. are split on dim 0
-over 'ep'); a rank routes its own tokens over all E experts, and the
-[E, C, H] buffer moves to the experts' ranks and back by
-all_to_all_single (dp -> ep and ep -> dp), whose backward is the
+over 'ep'), and the [E, C', H] buffer moves to the experts' ranks and
+back by all_to_all_single (dp -> ep and ep -> dp), whose backward is the
 reverse all-to-all. ShardedTrainStep divides the experts' gradients by
 the ep size (see parallel/api.py).
 """
@@ -88,15 +103,21 @@ def moe_dispatch_combine(gates, top_k: int, capacity: int):
     return disp, combine, aux
 
 
-def _route(gates, top_k: int, capacity: int):
+def _route(gates, top_k: int, capacity: int, group=None):
     """The routing of moe_dispatch_combine as slot indices over every
-    (token, pass) pair, passes in order: (token [kS], slot e * C + pos
-    [kS], weight [kS], dropped pairs, aux). A dropped pair (pos >= C)
-    gets the spare slot E * C, which no expert reads, and weight 0: the
-    sizes are fixed, so routing never waits on the host."""
+    (token, pass) pair, passes in order: (token [kS], slot e * C' + c
+    [kS], weight [kS], dropped pairs, aux), C' = min(capacity, S). A
+    dropped pair (global position >= capacity) gets the spare slot
+    E * C', which no expert reads, and weight 0: the sizes are fixed, so
+    routing never waits on the host. `group` is (process group, ranks,
+    this rank's index) of the ranks holding the batch's other rows, or
+    None (module docstring)."""
     S, E = gates.shape
+    pg, n, me = group or (None, 1, 0)
+    width = min(capacity, S)
     g = gates
-    offset = gates.new_zeros(E)
+    offset = gates.new_zeros(E)   # every rank's pairs of earlier passes
+    local = gates.new_zeros(E)    # this rank's pairs of earlier passes
     denom = gates.new_zeros(S)
     picks = []
     first = None
@@ -112,24 +133,45 @@ def _route(gates, top_k: int, capacity: int):
         # dim of [E, S] (a scan over the outer dim of [S, E] runs E-wide
         # and took 5 ms a call at S 32768 on the H100)
         count = torch.cumsum(m.t().contiguous(), dim=1)
-        pos = torch.gather(count, 0, idx[None]).squeeze(0) - 1.0 \
-            + offset[idx]
-        picks.append((idx, pos, gate_val))
-        offset = offset + torch.sum(m, dim=0)
+        mine = count[:, -1]
+        before, total = _rank_counts(mine, pg, n, me)
+        within = torch.gather(count, 0, idx[None]).squeeze(0) - 1.0
+        picks.append((idx, within + (offset + before)[idx],
+                      within + local[idx], gate_val))
+        offset = offset + total
+        local = local + mine
         g = g * (1.0 - m)
     slots, weights, kept = [], [], []
-    for idx, pos, gate_val in picks:
+    for idx, pos, lpos, gate_val in picks:
         keep = pos < capacity
         w = gate_val / torch.clamp(denom, min=1e-9) if top_k > 1 \
             else gate_val
-        slots.append(torch.where(keep, idx * capacity + pos.long(),
-                                 E * capacity))
+        slots.append(torch.where(keep, idx * width + lpos.long(),
+                                 E * width))
         weights.append(w * keep.to(w.dtype))
         kept.append(keep)
     tokens = torch.arange(S, device=gates.device).repeat(top_k)
     dropped = top_k * S - torch.count_nonzero(torch.cat(kept))
-    aux = E * torch.sum(torch.mean(first, dim=0) * torch.mean(gates, dim=0))
+    frac, mean_gate = first.sum(0), gates.sum(0)
+    if pg is not None:
+        from . import collective as C
+        C._all_reduce(frac, C.ReduceOp.SUM, pg)
+        # summed forward and backward: each rank's aux reads every
+        # rank's gates, so each rank's gradient sums every rank's
+        from .tp_layers import _CopyToTP, _ReduceFromTP
+        mean_gate = _ReduceFromTP.apply(_CopyToTP.apply(mean_gate, pg), pg)
+    aux = E * torch.sum((frac / (n * S)) * (mean_gate / (n * S)))
     return tokens, torch.cat(slots), torch.cat(weights), dropped, aux
+
+
+def _rank_counts(mine, pg, n, me):
+    """(pairs per expert on the ranks before this one, on every rank)
+    from each rank's `mine` [E]: one all-gather over `pg`."""
+    if pg is None:
+        return torch.zeros_like(mine), mine
+    from . import collective as C
+    every = C._all_gather(mine.new_empty(n, mine.shape[0]), mine, pg)
+    return every[:me].sum(0), every.sum(0)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -168,17 +210,19 @@ def _gates(x2, wr):
 
 @plain_dispatch
 def _moe_indexed(x, wr, wu, bu, wd, bd, top_k, capacity_factor,
-                 min_capacity, ep_group=None, ep=1):
+                 min_capacity, ep_group=None, ep=1, group=None):
     """x [B, T, H] -> (out [B, T, H], aux, dropped pairs): the layer over
     slot indices (module docstring); wu..bd hold this rank's E / ep
-    experts."""
+    experts; `group` as _route's."""
     B, T, H = x.shape
     S = B * T
     E = wr.shape[1]
     x2 = x.reshape(S, H)
     gates = _gates(x2, wr)
-    C = _capacity(S, E, top_k, capacity_factor, min_capacity)
-    tok, slot, w, dropped, aux = _route(gates, top_k, C)
+    n = group[1] if group else 1
+    C = _capacity(n * S, E, top_k, capacity_factor, min_capacity)
+    tok, slot, w, dropped, aux = _route(gates, top_k, C, group)
+    C = min(C, S)   # the slots of this rank's buffer (_route's C')
     # index_select (not x2[tok]): its backward is an index_add, where
     # advanced indexing's sorts the indices first
     buf = x2.new_zeros(E * C + 1, H).index_copy(
@@ -215,6 +259,18 @@ def _moe_dense(x, wr, wu, bu, wd, bd, top_k, capacity_factor,
     out = torch.einsum("sec,ech->sh", combine.to(out_e.dtype), out_e)
     dropped = top_k * S - torch.count_nonzero(disp)
     return out.reshape(B, T, H).to(x.dtype), aux.float(), dropped
+
+
+def _batch_group(mesh):
+    """(process group, ranks, this rank's index) of the ranks holding the
+    batch's other rows under `mesh`, or None (no process group, or this
+    rank holds the whole batch)."""
+    if mesh is None:
+        return None
+    pg = mesh.group(mesh.batch_axes)
+    if pg is None:
+        return None
+    return pg, mesh.axis_size(mesh.batch_axes), mesh.coord(mesh.batch_axes)
 
 
 class MoEMLP(Layer):
@@ -268,6 +324,6 @@ class MoEMLP(Layer):
         out, aux, self.dropped = _moe_indexed(
             x, self.router, self.w_up, self.b_up, self.w_down, self.b_down,
             self.top_k, self.capacity_factor, self.min_capacity, pg,
-            self._ep)
+            self._ep, _batch_group(m))
         self.aux_loss = aux
         return out.squeeze(0) if squeeze else out

@@ -419,8 +419,12 @@ class _SyncBNCore(torch.autograd.Function):
         g_dbeta = sums[0]
         g_dgamma = (sums[1] - mean * sums[0]) * inv
         a = inv if weight is None else weight.to(f) * inv
-        k = -a * g_dgamma * inv / total
-        m = -a * g_dbeta / total - k * mean
+        # times the count's reciprocal, as _bn_core_bwd's division by a
+        # host integer runs on CUDA, so that one rank is bitwise
+        # BatchNorm's backward too
+        inv_n = 1.0 / total
+        k = -a * g_dgamma * inv * inv_n
+        m = -a * g_dbeta * inv_n - k * mean
         dx = (gy * a.to(gy.dtype).reshape(shape)
               + x * k.to(x.dtype).reshape(shape)
               + m.to(x.dtype).reshape(shape)).to(x.dtype)

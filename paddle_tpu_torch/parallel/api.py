@@ -16,8 +16,9 @@ batch_spec, donate, grad_accum_steps)` is called with the GLOBAL batch,
 as the JAX step is, and gives its loss and parameters:
 
 - each rank trains on its rows of the batch (`shard_batch` over the
-  batch_spec axes, ("dp", "sharding") by default) and the returned loss
-  is the mean of the ranks' losses;
+  batch_spec axes, ("dp", "sharding") by default, which the step also
+  sets as the mesh's `batch_axes`: MoE layers route the batch whole
+  across them) and the returned loss is the mean of the ranks' losses;
 - data parallel: a parameter's gradient is the mean over the batch axes
   (and over "ep" when experts are split; a parameter split over an axis,
   tp or ep, by its mark_sharding spec is not averaged over it, and an
@@ -29,7 +30,9 @@ as the JAX step is, and gives its loss and parameters:
   on that dimension over "sharding"; its optimizer state holds only this
   rank's chunk; the gradient bucket is all-reduced over the sharding
   group, each rank updates its chunks, and one all-gather of the
-  updated chunks rebuilds the parameters;
+  updated chunks rebuilds the parameters (the chunks stay the truth
+  between steps: a parameter written since the last gather, by
+  set_value or a loaded state dict, is cut into its chunk again);
 - ZeRO-2 reduce-scatters the gradient bucket instead (each rank
   receives only the mean of its chunks), then all-reduces those over
   the rest of the batch axes;
@@ -243,6 +246,11 @@ class _Bucket:
         self.width += size
 
 
+def _versions(params) -> list:
+    """The in-place write counters of `params`."""
+    return [p._version for p in params]
+
+
 def _blocks(t, d, n):
     """t, a parameter or its gradient, as [n, shape[d] / n, *the other
     dims] (a view): block r is rank r's ZeRO chunk."""
@@ -282,6 +290,8 @@ class ShardedTrainStep:
             not_ported(f"{type(optimizer).__name__} over sharded "
                        f"parameters (it needs each whole parameter's "
                        f"norm)", "slice 9c")
+        self.mesh.batch_axes = tuple(a for a in self._batch_spec
+                                     if a in _mesh.AXES)
         self._avg_axes = tuple(a for a in _mesh.AXES if a in set(
             self._batch_spec) | ({"ep"} if shape["ep"] > 1 else set()))
         # every group this step reduces over, made now: new_group is a
@@ -362,6 +372,7 @@ class ShardedTrainStep:
             [c.view(cs) for c, cs in zip(b.chunks, b.chunk_shapes)],
             [_blocks(p.detach(), d, b.n)[me]
              for p, d in zip(b.params, b.dims)])
+        b.versions = _versions(b.params)
 
     @torch.no_grad()
     def _gather(self, b):
@@ -381,6 +392,7 @@ class ShardedTrainStep:
             [_blocks(p.detach(), d, b.n) for p, d in zip(b.params, b.dims)],
             [rows[:, o:o + s].unflatten(1, cs) for o, s, cs in
              zip(b.offs, b.sizes, b.chunk_shapes)])
+        b.versions = _versions(b.params)
 
     def unshard(self):
         """ZeRO-3: put the whole parameters back into the model (every
@@ -499,7 +511,11 @@ class ShardedTrainStep:
         flat_params, states = {}, {}
         for b in self._plan:
             if b.kind == "zero":
-                if self.sharding_stage < ShardingStage.PARAMETER:
+                # the chunks hold the parameters since the last gather,
+                # unless the caller wrote a parameter (set_value, a
+                # loaded state dict) since then
+                if self.sharding_stage < ShardingStage.PARAMETER and \
+                        _versions(b.params) != b.versions:
                     self._load_chunks(b)
                 views = b.chunks
             else:

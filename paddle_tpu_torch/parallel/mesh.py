@@ -60,13 +60,17 @@ def world_rank() -> int:
 class RankMesh:
     """A grid of ranks over AXES. `shape` maps each axis to its size,
     `devices` is the rank grid, `coord(axis)` this rank's place along an
-    axis, `group(axes)` its process group along them."""
+    axis, `group(axes)` its process group along them. `batch_axes` are
+    the axes the batch's rows are split over (the JAX package's
+    canonical batch layout, ("dp", "sharding"), until a ShardedTrainStep
+    sets its batch_spec): MoE routing reads the batch whole across them."""
 
     axis_names = AXES
 
     def __init__(self, ranks: np.ndarray):
         self.devices = np.asarray(ranks)
         self.shape: Dict[str, int] = dict(zip(AXES, self.devices.shape))
+        self.batch_axes: Tuple[str, ...] = ("dp", "sharding")
         self._groups: Dict[Tuple[str, ...], object] = {}
 
     @property

@@ -137,10 +137,12 @@ PyTorch is installed:
   path's reduce-scatter and all-gather over one rank move the same
   values, and the update runs the same elementwise ops), with its
   reduce-scatter and all-gather counters above 0; the indexed MoE
-  routing against its dense twin (outputs, aux and gradients within 1e-5
-  of each tensor's largest entry: sums in other orders); SyncBatchNorm
+  routing against its dense twin at a capacity factor that drops pairs
+  (outputs, aux, the dropped count and gradients within 1e-5 of each
+  tensor's largest entry: sums in other orders); SyncBatchNorm
   against BatchNorm (outputs, input and weight gradients and running
-  statistics within 1e-5: one-pass against two-pass variance).
+  statistics within 1e-5: one-pass against two-pass variance; the
+  gradients bitwise, one rank's backward being BatchNorm's arithmetic).
 
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
@@ -1654,20 +1656,24 @@ def test_zero2_step_on_nccl_world_of_one_matches_trainstep(nccl_world):
 
 
 def test_indexed_moe_matches_dense_twin_on_card(cuda):
+    """At capacity factor 0.5 half the pairs drop, so the spare slot and
+    the zero weights run on the card; outputs, aux, the dropped count
+    and every gradient within 1e-5 of the dense twin's largest entry."""
     from paddle_tpu_torch.distributed import moe
     torch.manual_seed(0)
     m = moe.MoEMLP(64, 8, ffn_hidden_size=128, top_k=2,
-                   capacity_factor=1.25)
+                   capacity_factor=0.5)
     m.to(cuda)
     x = torch.randn(2, 256, 64, device=cuda, requires_grad=True)
     r = torch.randn(2, 256, 64, device=cuda)
-    args = (m.router, m.w_up, m.b_up, m.w_down, m.b_down, 2, 1.25, 4)
+    args = (m.router, m.w_up, m.b_up, m.w_down, m.b_down, 2, 0.5, 4)
     got = []
     for fn in (moe._moe_indexed, moe._moe_dense):
         out, aux, dropped = fn(x, *args)
         g = torch.autograd.grad((out * r).sum() + aux,
                                 [x] + list(m.parameters()))
         got.append([out.detach(), aux.detach(), dropped.float()] + list(g))
+    assert int(got[0][2]) == int(got[1][2]) > 0
     for a, b in zip(*got):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
 
@@ -1689,3 +1695,6 @@ def test_sync_batch_norm_matches_batch_norm_on_card(nccl_world):
                      bn._mean.clone(), bn._variance.clone()])
     for a, b in zip(*outs):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    # one rank's backward runs BatchNorm's arithmetic: bitwise
+    for a, b in zip(outs[0][1:4], outs[1][1:4]):
+        assert torch.equal(a, b)

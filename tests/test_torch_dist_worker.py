@@ -5,7 +5,9 @@
 starts NPROCS gloo ranks on the CPU through the port's
 paddle_tpu_torch.distributed.spawn. Each rank reads OUT_DIR/inputs.npz
 (weights and batches the test wrote from the JAX package), runs the
-scenarios of SUITE ("distributed" or "moe") and writes
+scenarios of SUITE ("distributed": collectives, the training runs
+under Adam and SGD, TP layers, SyncBatchNorm, the fleet; "moe": MoEMLP
+and the MoE GPT at dp 2 x ep 2) and writes
 OUT_DIR/rank{r}.npz. This file imports torch and the port only: the
 JAX references are computed in the pytest process.
 """
@@ -52,29 +54,45 @@ def _cfg(**kw):
                      num_heads=2, max_seq_len=16, **kw)
 
 
-def _gpt(inp, mesh, cfg_kw=None):
+# the MoE GPT of test_torch_moe.py: every block MoE, 4 experts, top-2,
+# capacity factor 1.0 (its 8 x 16 batch drops pairs)
+MOE_GPT = dict(moe_experts=4, moe_top_k=2, moe_every=1,
+               moe_capacity_factor=1.0)
+SGD_LR = 0.1
+
+
+def _gpt(inp, mesh, cfg_kw=None, prefix="gpt/"):
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.parallel import set_global_mesh
     set_global_mesh(mesh)
-    state = {k[4:]: inp[k] for k in inp.files if k.startswith("gpt/")}
+    state = {k[len(prefix):]: inp[k] for k in inp.files
+             if k.startswith(prefix)}
     return GPT.load_jax_params(_cfg(**(cfg_kw or {})), state, device="cpu")
 
 
-def _train(inp, out, name, mesh_kw, stage=0, k=1, steps=5):
-    """5 Adam steps of the tiny GPT under ShardedTrainStep; the losses
-    and the gathered final parameters under `name`."""
+def _train(inp, out, name, mesh_kw, stage=0, k=1, steps=5, sgd=False,
+           moe=False, batch_spec=("dp", "sharding")):
+    """5 Adam (or SGD) steps of the tiny GPT (or the MoE GPT) under
+    ShardedTrainStep; the losses and the gathered final parameters under
+    `name`, and for the MoE GPT the pairs its blocks dropped at step 1."""
     import torch
     from paddle_tpu_torch import optimizer as opt
     from paddle_tpu_torch.models.gpt import gpt_loss_fn
     from paddle_tpu_torch.nn.layer.layers import gather_jax_state
     from paddle_tpu_torch.parallel import ShardedTrainStep, build_mesh
-    model = _gpt(inp, build_mesh(**mesh_kw))
-    o = opt.Adam(1e-3, epsilon=1e-6, parameters=model.parameters())
+    model = _gpt(inp, build_mesh(**mesh_kw), MOE_GPT if moe else None,
+                 "moegpt/" if moe else "gpt/")
+    o = opt.SGD(SGD_LR, parameters=model.parameters()) if sgd else \
+        opt.Adam(1e-3, epsilon=1e-6, parameters=model.parameters())
     step = ShardedTrainStep(model, gpt_loss_fn, o, sharding_stage=stage,
-                            grad_accum_steps=k)
+                            batch_spec=batch_spec, grad_accum_steps=k)
     x, y = torch.from_numpy(inp["x"]), torch.from_numpy(inp["y"])
-    out[f"{name}/losses"] = np.array([float(step(x, y)) for _ in
-                                      range(steps)])
+    losses = [float(step(x, y))]
+    if moe:
+        out[f"{name}/dropped"] = np.array(
+            [int(b.mlp.dropped) for b in model.blocks])
+    losses += [float(step(x, y)) for _ in range(steps - 1)]
+    out[f"{name}/losses"] = np.array(losses)
     step.unshard()
     for key, v in gather_jax_state(model).items():
         out[f"{name}/{key}"] = v
@@ -253,26 +271,34 @@ def _fleet(inp, out, rank):
     out["sampler/nranks"] = np.array([s.nranks, s.local_rank])
 
 
-def _moe(inp, out, rank):
-    """MoEMLP at ep 2: this rank's tokens, its experts."""
+def _moe(inp, out, name, batch_axes):
+    """MoEMLP at dp 2 x ep 2 with the batch's rows split over
+    `batch_axes`: this rank's block of rows (its index along them), its
+    experts; loss sum(y * r) + 0.5 aux on each rank."""
     import torch
     from paddle_tpu_torch.distributed.moe import MoEMLP
     from paddle_tpu_torch.nn.layer.layers import load_jax_state
     from paddle_tpu_torch.parallel import api, build_mesh, set_global_mesh
-    set_global_mesh(build_mesh(ep=2))
+    mesh = build_mesh(dp=2, ep=2)
+    mesh.batch_axes = batch_axes
+    set_global_mesh(mesh)
     m = MoEMLP(16, 4, ffn_hidden_size=32, top_k=2, capacity_factor=1.0)
     load_jax_state(m, {k[4:]: inp[k] for k in inp.files
                        if k.startswith("moe/")})
-    x = torch.from_numpy(inp["x"][rank]).requires_grad_(True)
+    n, c = mesh.axis_size(batch_axes), mesh.coord(batch_axes)
+    rows = len(inp["moe_x"]) // n
+    x = torch.from_numpy(inp["moe_x"][c * rows:(c + 1) * rows])
+    x.requires_grad_(True)
     y = m(x)
-    ((y * torch.from_numpy(inp["r"][rank])).sum()
+    ((y * torch.from_numpy(inp["moe_r"][c * rows:(c + 1) * rows])).sum()
      + 0.5 * m.aux_loss).backward()
-    out["out"] = y.detach().numpy()
-    out["aux"] = m.aux_loss.detach().numpy()
-    out["dx"] = x.grad.numpy()
+    out[f"{name}/out"] = y.detach().numpy()
+    out[f"{name}/aux"] = m.aux_loss.detach().numpy()
+    out[f"{name}/dx"] = x.grad.numpy()
+    out[f"{name}/dropped"] = np.array(int(m.dropped))
     for k, p in m.named_parameters():
-        out[f"d{k}"] = api.whole_piece(p.grad, p).numpy()
-        out[f"local/{k}"] = np.array(p.shape)
+        out[f"{name}/d{k}"] = api.whole_piece(p.grad, p).numpy()
+        out[f"{name}/local/{k}"] = np.array(p.shape)
 
 
 def _rank_main(out_dir, suite):
@@ -286,14 +312,23 @@ def _rank_main(out_dir, suite):
     inp = np.load(os.path.join(out_dir, "inputs.npz"))
     out = {}
     if suite == "moe":
-        _moe(inp, out, rank)
+        _moe(inp, out, "dp", ("dp", "sharding"))
+        _moe(inp, out, "dpep", ("dp", "ep"))
+        for name, spec in (("gpt_dp", ("dp", "sharding")),
+                           ("gpt_dpep", ("dp", "ep"))):
+            _train(inp, out, name, dict(dp=2, ep=2), sgd=True, moe=True,
+                   batch_spec=spec)
     else:
         _collectives(out, rank, world)
-        _train(inp, out, "dp4", dict(dp=4))
-        for stage in (1, 2, 3):
-            _train(inp, out, f"zero{stage}", dict(sharding=4), stage)
-        _train(inp, out, "tp2zero2", dict(sharding=2, tp=2), 2)
-        _train(inp, out, "merge2", dict(dp=4), 0, k=2)
+        for sgd in (False, True):
+            tag = "_sgd" if sgd else ""
+            _train(inp, out, "dp4" + tag, dict(dp=4), sgd=sgd)
+            for stage in (1, 2, 3):
+                _train(inp, out, f"zero{stage}{tag}", dict(sharding=4),
+                       stage, sgd=sgd)
+            _train(inp, out, "tp2zero2" + tag, dict(sharding=2, tp=2), 2,
+                   sgd=sgd)
+            _train(inp, out, "merge2" + tag, dict(dp=4), 0, k=2, sgd=sgd)
         from paddle_tpu_torch.nn.layer.layers import gather_jax_state
         from paddle_tpu_torch.parallel import build_mesh
         model = _gpt(inp, build_mesh(dp=2, tp=2))

@@ -13,7 +13,9 @@ parameters.
 Training runs are 5 Adam steps of test_distributed.py's tiny GPT
 (dropout 0) on its 8 x 16 batch: dp 4, ZeRO stages 1/2/3 at sharding 4,
 sharding 2 x tp 2 under ZeRO-2 and gradient merge (k 2) at dp 4, each
-against the JAX ShardedTrainStep on one device. Losses agree within
+against the JAX ShardedTrainStep on one device, and the same runs under
+SGD (Adam's update is blind to a gradient's scale; SGD's is not, and
+its parameters agree within 1e-5, measured 3.4e-7). Losses agree within
 1e-5 relative (measured 2e-7: the ranks' mean of local means and the
 sharded sums reorder additions). Final parameters agree within 5e-5 of
 each array's largest magnitude (measured 1.5e-5, sharding 2 x tp 2's
@@ -48,7 +50,7 @@ from paddle_tpu.parallel import (ShardedTrainStep as JShardedTrainStep,
                                  build_mesh as jbuild_mesh,
                                  set_global_mesh as jset_global_mesh)
 
-from test_torch_dist_worker import REPO, run_cluster
+from test_torch_dist_worker import REPO, SGD_LR, run_cluster
 
 WORLD = 4
 REL = 1e-5
@@ -123,25 +125,26 @@ def cluster():
 _REF = {}
 
 
-def _jax_run(steps=5, k=1):
+def _jax_run(steps=5, k=1, sgd=False):
     """Losses and final parameters of the JAX ShardedTrainStep on one
-    device (Adam 1e-3, epsilon 1e-6)."""
-    if (steps, k) not in _REF:
+    device (Adam 1e-3, epsilon 1e-6, or SGD at the worker's SGD_LR)."""
+    if (steps, k, sgd) not in _REF:
         mesh = jbuild_mesh(dp=1, devices=jax.devices()[:1])
         jset_global_mesh(mesh)
         try:
             model = _jax_gpt()
-            optim = jopt.Adam(1e-3, epsilon=1e-6,
-                              parameters=model.parameters())
+            optim = jopt.SGD(SGD_LR, parameters=model.parameters()) \
+                if sgd else jopt.Adam(1e-3, epsilon=1e-6,
+                                      parameters=model.parameters())
             step = JShardedTrainStep(model, jgpt_loss_fn, optim, mesh=mesh,
                                      grad_accum_steps=k)
             x, y = _batch()
             xs, ys = jpaddle.to_tensor(x), jpaddle.to_tensor(y)
             losses = [float(step(xs, ys).numpy()) for _ in range(steps)]
-            _REF[steps, k] = (np.array(losses), _params(model))
+            _REF[steps, k, sgd] = (np.array(losses), _params(model))
         finally:
             jset_global_mesh(None)
-    return _REF[steps, k]
+    return _REF[steps, k, sgd]
 
 
 def _close(got, want, what, rel=REL):
@@ -161,9 +164,28 @@ def test_training_matches_jax_single_device(cluster, run, k):
     gradient merge (k 2): losses and final parameters equal the JAX
     ShardedTrainStep's on one device, and every rank's losses equal
     rank 0's."""
-    ranks = cluster["ranks"]
-    losses, params = _jax_run(5, k)
-    for r in range(WORLD):
+    _check_run(cluster["ranks"], run, *_jax_run(5, k), PARAM_REL)
+
+
+@pytest.mark.parametrize("run,k", [("dp4", 1), ("zero1", 1), ("zero2", 1),
+                                   ("zero3", 1), ("tp2zero2", 1),
+                                   ("merge2", 2)])
+def test_sgd_training_matches_jax_single_device(cluster, run, k):
+    """The same runs under SGD (lr SGD_LR): its update is the gradient
+    times lr, so a reduction at the wrong scale (a sum for the mean, a
+    merge without its 1/k) moves the parameters by whole updates, where
+    Adam's normalisation hides it. Parameters within REL (measured
+    3.4e-7: with no normalisation the reordered sums' error stays at
+    f32's scale)."""
+    _check_run(cluster["ranks"], f"{run}_sgd", *_jax_run(5, k, sgd=True),
+               REL)
+
+
+def _check_run(ranks, run, losses, params, param_rel):
+    """Every rank's losses equal rank 0's; rank 0's losses within REL of
+    the JAX run's and falling; its gathered final parameters within
+    param_rel of the JAX run's (the key bias within KEY_BIAS_ABS)."""
+    for r in range(len(ranks)):
         np.testing.assert_array_equal(ranks[r][f"{run}/losses"],
                                       ranks[0][f"{run}/losses"])
     _close(ranks[0][f"{run}/losses"], losses, f"{run} losses")
@@ -174,10 +196,10 @@ def test_training_matches_jax_single_device(cluster, run, k):
             q, k_bias, v = np.split(got, 3)
             wq, wk, wv = np.split(want, 3)
             _close(np.concatenate([q, v]), np.concatenate([wq, wv]),
-                   f"{run} {name} q, v", PARAM_REL)
+                   f"{run} {name} q, v", param_rel)
             assert np.abs(k_bias - wk).max() <= KEY_BIAS_ABS, (run, name)
             continue
-        _close(got, want, f"{run} {name}", PARAM_REL)
+        _close(got, want, f"{run} {name}", param_rel)
 
 
 def test_collectives_on_four_ranks(cluster):
@@ -330,6 +352,48 @@ def test_fleet_strategy_matches_jax(cluster):
         np.testing.assert_array_equal(got["sampler/nranks"], [WORLD, r])
         seen += list(got["sampler"])
     assert sorted(seen) == list(range(20))
+
+
+def test_zero2_step_reads_parameters_written_between_steps():
+    """ZeRO-2 keeps each parameter's chunk between steps and reloads it
+    only when the parameter was written since its last gather: a
+    set_value between steps reaches the next update. One process, no
+    process group (sharding 1): the losses and parameters equal
+    jit.TrainStep's with the same write."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit, optimizer as topt
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+    from paddle_tpu_torch.parallel import (ShardedTrainStep, build_mesh,
+                                           set_global_mesh)
+    from paddle_tpu_torch.core import place
+    prev = place._default
+    paddle.set_device("cpu")
+    x, y = (torch.from_numpy(a) for a in _batch())
+    runs = []
+    try:
+        for sharded in (False, True):
+            mesh = build_mesh(dp=1)
+            set_global_mesh(mesh)
+            model = GPT(GPTConfig(vocab_size=64, hidden_size=32,
+                                  num_layers=2, num_heads=2,
+                                  max_seq_len=16), device="cpu", seed=3)
+            o = topt.Adam(1e-3, parameters=model.parameters())
+            step = ShardedTrainStep(model, gpt_loss_fn, o, mesh=mesh,
+                                    sharding_stage=2) if sharded else \
+                jit.TrainStep(model, gpt_loss_fn, o)
+            losses = [float(step(x, y)) for _ in range(2)]
+            w = model.blocks[0].mlp.up.weight
+            w.set_value(np.full(tuple(w.shape), 0.01, np.float32))
+            losses += [float(step(x, y)) for _ in range(2)]
+            runs.append((losses, [p.detach().clone()
+                                  for p in model.parameters()]))
+    finally:
+        set_global_mesh(None)
+        place._default = prev
+    assert runs[1][0] == runs[0][0]
+    for a, b in zip(runs[1][1], runs[0][1]):
+        assert torch.equal(a, b)
 
 
 def _free_port():

@@ -7,9 +7,11 @@ the top-2 renormalisation, capacity overflow, the slot positions of
 moe_dispatch_combine and gradients to every expert. The port's indexed
 routing is held to its dense twin (the JAX package's one-hot form), the
 MoE GPT of test_moe.py:133 to the JAX GPT in loss and gradients with and
-without recompute, and MoEMLP at ep 2 on 2 gloo ranks to one rank
-holding every expert. f32 throughout; the tolerance of each case says
-why.
+without recompute. On 4 gloo ranks at dp 2 x ep 2, MoEMLP and 5 SGD
+steps of an MoE GPT under ShardedTrainStep are held to the JAX layer
+and step on one device over the whole batch, with pairs dropped: the
+routing is the global batch's. f32 throughout; the tolerance of each
+case says why.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -229,39 +231,158 @@ def test_moe_gpt_trains_under_trainstep():
     assert losses[-1] < losses[0], losses
 
 
-def test_moe_ep2_on_gloo_matches_one_rank():
-    """MoEMLP at ep 2 on 2 gloo ranks (experts 0-1 on rank 0, 2-3 on rank
-    1; tokens to their experts and back by all_to_all_single) against
-    one rank holding every expert on the same tokens: each rank's output,
-    aux and input gradient, the router's gradient, and each expert's
-    gradient (summed over the two ranks' tokens)."""
-    from test_torch_dist_worker import run_cluster
+@pytest.fixture(scope="module")
+def ep_cluster():
+    """4 gloo ranks at dp 2 x ep 2 (tests/test_torch_dist_worker.py's
+    "moe" suite) on the JAX package's weights and batches: MoEMLP with
+    the batch's rows split over dp (the ep ranks of a dp rank hold the
+    same rows) and over dp and ep, and 5 SGD steps of the MoE GPT under
+    ShardedTrainStep with each of those batch specs."""
+    from test_torch_dist_worker import MOE_GPT, run_cluster
     rng = np.random.RandomState(5)
     jpaddle.seed(9)
     jm = JMoEMLP(16, 4, ffn_hidden_size=32, top_k=2, capacity_factor=1.0)
     state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
-    x = rng.randn(2, 2, 8, 16).astype(np.float32)
-    r = rng.randn(2, 2, 8, 16).astype(np.float32)
-    inputs = {"x": x, "r": r}
+    inputs = {"moe_x": rng.randn(4, 8, 16).astype(np.float32),
+              "moe_r": rng.randn(4, 8, 16).astype(np.float32)}
     inputs.update({f"moe/{k}": v for k, v in state.items()})
-    ranks = run_cluster(inputs, 2, "moe", timeout=120)
-    grads = {}
-    for rank in range(2):
-        one = moe.MoEMLP(16, 4, ffn_hidden_size=32, top_k=2,
-                         capacity_factor=1.0)
-        load_jax_state(one, state)
-        xt = torch.from_numpy(x[rank]).requires_grad_(True)
-        y = one(xt)
-        ((y * torch.from_numpy(r[rank])).sum()
-         + 0.5 * one.aux_loss).backward()
-        got = ranks[rank]
-        _close(got["out"], y.detach().numpy(), f"rank {rank} out")
-        _close(got["aux"], one.aux_loss.detach().numpy(), f"rank {rank} aux")
-        _close(got["dx"], xt.grad.numpy(), f"rank {rank} dx")
-        _close(got["drouter"], one.router.grad.numpy(), "router")
-        np.testing.assert_array_equal(got["local/w_up"], [2, 16, 32])
-        for k, p in one.named_parameters():
-            grads[k] = grads.get(k, 0) + p.grad.numpy()
+    x, y = _gpt_batch()
+    inputs.update({"x": x, "y": y})
+    jpaddle.seed(0)
+    jg = JGPT(JGPTConfig(**_TINY, **MOE_GPT))
+    inputs.update({f"moegpt/{k}": np.asarray(v.numpy())
+                   for k, v in jg.state_dict().items()})
+    return {"inputs": inputs, "state": state,
+            "ranks": run_cluster(inputs, 4, "moe", timeout=180)}
+
+
+_TINY = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+             max_seq_len=16)
+
+
+def _gpt_batch():
+    rng = np.random.RandomState(0)
+    return (rng.randint(0, 64, (8, 16)).astype(np.int64),
+            rng.randint(0, 64, (8, 16)).astype(np.int64))
+
+
+def _jax_moe_layer(state, x, r, n):
+    """(out, aux, dx, {param: grad}) of the JAX MoEMLP on the whole batch
+    for loss sum(out * r) / n + 0.5 aux: the mean over n ranks of the
+    ranks' losses sum(their out * their r) + 0.5 aux."""
+    jm = JMoEMLP(16, 4, ffn_hidden_size=32, top_k=2, capacity_factor=1.0)
+    for k, p in jm.named_parameters():
+        p._value = jnp.asarray(state[k])
+    xt = jpaddle.to_tensor(x)
+    xt.stop_gradient = False
+    y = jm(xt)
+    ((y * jpaddle.to_tensor(r)).sum() / n + 0.5 * jm.aux_loss).backward()
+    return (np.asarray(y.numpy()), float(jm.aux_loss.numpy()),
+            np.asarray(xt.grad.numpy()),
+            {k: np.asarray(p.grad.numpy()) for k, p in jm.named_parameters()})
+
+
+def _check_ep_layer(ep_cluster, name, n, coord):
+    """The ranks' MoEMLP against the JAX layer on the whole batch; rank r
+    holds block coord(r) of n. Each rank's output and aux are the JAX
+    layer's (its rows); its input gradient is n times the JAX one (the
+    aux's all-reduce sums every rank's gradient into each); the router's
+    gradient averaged over the 4 ranks, and each expert's gathered over
+    ep, divided by ep and averaged over dp (ShardedTrainStep's
+    reduction), are the JAX gradients. Pairs are dropped (capacity
+    factor 1.0)."""
+    inputs, ranks = ep_cluster["inputs"], ep_cluster["ranks"]
+    x, r = inputs["moe_x"], inputs["moe_r"]
+    out, aux, dx, grads = _jax_moe_layer(ep_cluster["state"], x, r, n)
+    rows = len(x) // n
+    dropped = {}
+    for rank in range(4):
+        got, c = ranks[rank], coord(rank)
+        part = slice(c * rows, (c + 1) * rows)
+        _close(got[f"{name}/out"], out[part], f"rank {rank} out")
+        assert abs(float(got[f"{name}/aux"]) - aux) <= TOL * aux, rank
+        _close(got[f"{name}/dx"] / n, dx[part], f"rank {rank} dx")
+        np.testing.assert_array_equal(got[f"{name}/local/w_up"],
+                                      [2, 16, 32])
+        dropped[c] = int(got[f"{name}/dropped"])
+    assert sum(dropped.values()) > 0, dropped
+    _close(np.mean([ranks[k][f"{name}/drouter"] for k in range(4)], 0),
+           grads["router"], "router")
     for k in ("w_up", "b_up", "w_down", "b_down"):
-        for rank in range(2):
-            _close(ranks[rank][f"d{k}"], grads[k], f"d{k}")
+        # ranks 0 and 2 are ep coordinate 0 of dp 0 and 1
+        mean = np.mean([ranks[q][f"{name}/d{k}"] for q in (0, 2)], 0) / 2
+        _close(mean, grads[k], f"d{k}")
+
+
+def test_moe_ep2_on_gloo_matches_one_rank(ep_cluster):
+    """MoEMLP at dp 2 x ep 2 on 4 gloo ranks (experts 0-1 on ep rank 0,
+    2-3 on ep rank 1; tokens to their experts and back by
+    all_to_all_single), the batch's rows split over dp, against the JAX
+    layer on one device over the whole batch (_check_ep_layer): routing,
+    capacity and aux are the global batch's."""
+    _check_ep_layer(ep_cluster, "dp", 2, lambda rank: rank // 2)
+
+
+def test_moe_ep2_batch_split_over_ep_matches_jax(ep_cluster):
+    """The same with the rows split over dp and ep (mesh.batch_axes
+    ("dp", "ep")): four blocks, rank r holding block r."""
+    _check_ep_layer(ep_cluster, "dpep", 4, lambda rank: rank)
+
+
+_MOE_REF = {}
+
+
+def _jax_moe_gpt_run(steps=5):
+    """Losses and final parameters of the JAX ShardedTrainStep on one
+    device: the worker's MoE GPT, SGD at its SGD_LR, the whole batch."""
+    from paddle_tpu.parallel import (ShardedTrainStep, build_mesh,
+                                     set_global_mesh)
+    import paddle_tpu.optimizer as jopt
+    import jax
+    from test_torch_dist_worker import MOE_GPT, SGD_LR
+    if steps not in _MOE_REF:
+        mesh = build_mesh(dp=1, devices=jax.devices()[:1])
+        set_global_mesh(mesh)
+        try:
+            jpaddle.seed(0)
+            jg = JGPT(JGPTConfig(**_TINY, **MOE_GPT))
+            step = ShardedTrainStep(jg, jgpt_loss_fn, jopt.SGD(
+                SGD_LR, parameters=jg.parameters()), mesh=mesh)
+            x, y = (jpaddle.to_tensor(a) for a in _gpt_batch())
+            losses = [float(step(x, y).numpy()) for _ in range(steps)]
+            _MOE_REF[steps] = (np.array(losses), {
+                k: np.asarray(v.numpy())
+                for k, v in jg.state_dict().items()})
+        finally:
+            set_global_mesh(None)
+    return _MOE_REF[steps]
+
+
+@pytest.mark.parametrize("run", ["gpt_dp", "gpt_dpep"])
+def test_moe_gpt_dp2_ep2_sharded_step_matches_jax(ep_cluster, run):
+    """5 SGD steps of the MoE GPT (every block MoE, 4 experts, capacity
+    factor 1.0) under ShardedTrainStep at dp 2 x ep 2, the batch split
+    over dp ("gpt_dp") or over dp and ep ("gpt_dpep"), against the JAX
+    ShardedTrainStep on one device over the whole batch: every rank's
+    losses equal, within 1e-5 relative of the JAX losses, and the
+    gathered final parameters within 1e-5 of each array's largest
+    magnitude (SGD: the ep division and the dp mean show at full scale),
+    the key bias within 1e-6 absolute (its gradient is zero in exact
+    arithmetic); the step drops pairs."""
+    ranks = ep_cluster["ranks"]
+    losses, params = _jax_moe_gpt_run()
+    for rank in range(4):
+        np.testing.assert_array_equal(ranks[rank][f"{run}/losses"],
+                                      ranks[0][f"{run}/losses"])
+    _close(ranks[0][f"{run}/losses"], losses, f"{run} losses")
+    assert losses[-1] < losses[0]
+    assert sum(int(ranks[q][f"{run}/dropped"].sum()) for q in range(4)) > 0
+    for k, want in params.items():
+        got = ranks[0][f"{run}/{k}"]
+        if k.endswith("attn.qkv.bias"):
+            q, kb, v = np.split(got, 3)
+            wq, wk, wv = np.split(want, 3)
+            _close(np.concatenate([q, v]), np.concatenate([wq, wv]), k)
+            assert np.abs(kb - wk).max() <= 1e-6, k
+            continue
+        _close(got, want, f"{run} {k}")
