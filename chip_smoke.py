@@ -41,7 +41,7 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    shows here first);
 6a. the same model and engine with the prefix cache on shared-prefix
    traffic (serving_traffic.prefix_traffic: 4 templates of 512 tokens,
-   4 leaders then 28 followers in bursts of 7, suffixes 16-64 tokens,
+   4 leaders then 21 followers in bursts of 7, suffixes 16-64 tokens,
    64-128 new tokens): tokens by phase 6's rule, the audit clean, a
    prefix-cache hit, K3 launched layers x k x chunks times; then the
    same traffic with the cache off (tokens by the same rule; both TTFT
@@ -231,7 +231,7 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 23. the serving fleet (run right after 6e, on phase 6's model and
    engine, chunked prefill over 128 tokens included; every fleet pass
    but 25 decodes 2 tokens a chunk, FLEET_ENGINE): replica failover
-   (load_suite's replica_kill): 3 replicas, free-block balancing, 24
+   (load_suite's replica_kill): 3 replicas, free-block balancing, 12
    greedy requests (prompts 64-256, 32-64 new tokens, one arrival every
    2 router steps), run with no fault, with kill_replica@6:1 and with
    wedge_replica@8:2 under a heartbeat of twice the no-fault pass's
@@ -246,13 +246,13 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    failed replica bitwise equal to the no-fault pass; router TTFT
    p50/p99 and the recovery seconds printed;
 24. disaggregated serving (load_suite's disagg): 4 replicas, roles
-   prefill, prefill, decode, decode, on a decode floor of 12 requests
+   prefill, prefill, decode, decode, on a decode floor of 6 requests
    (64-token prompts, 128-192 new tokens, every other one sampled at
-   temperature 0.8, top_k 50) and 6 prompts of 512-768 tokens (16-32
+   temperature 0.8, top_k 50) and 3 prompts of 512-768 tokens (16-32
    new): every request 'length', handoffs committed, none aborted or
    rolled back, the audits and the causality checker clean, greedy
    tokens by phase 6's rule; then the controlled migration A/B
-   (serving_traffic.migration_ab: 8 live requests, greedy and sampled,
+   (serving_traffic.migration_ab: 4 live requests, greedy and sampled,
    moved to an empty replica by drain(0, recompute=False), 16 router
    steps there) bitwise equal to the same steps in place, in f32 and in
    int8 pools, and a rebalance with the watermark at half the loaded
@@ -348,9 +348,9 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
    uninterrupted job's, K1 2 x 12
    forward and 12 backward a step in every worker; the time to detect
    and to resume and the snapshots' seconds and bytes printed.
-Phases 34-36 run over one NCCL process group of world size 1
+Phases 34-40 run over one NCCL process group of world size 1
 (init_parallel_env on a free local port), set up after phase 33's
-workers have ended and torn down after phase 36:
+workers have ended and torn down after phase 40:
 34. the MoE GPT: bench_gpt's widths (vocab 32768, hidden 768, 12
    layers, 6 heads of 128, T 1024) with 8 experts in every second block
    (6 MoE blocks), top-2, capacity 1.25, aux weight 0.01; B 32, AdamW +
@@ -379,7 +379,49 @@ workers have ended and torn down after phase 36:
    statistics all-gathered in the forward and its gradient sums
    all-reduced in the backward, and a second step's loss within
    ROUTE_TOL["grad"] of phase 10's first loss change (plus
-   ROUTE_TOL["loss"]) of phase 10's second.
+   ROUTE_TOL["loss"]) of phase 10's second;
+37. BASELINE config 5's whole recipe: phase 32's GPT-3 1.3B (its bf16
+   weights after phase 32's steps) stacked into a
+   parallel.pipeline.PipelinedGPT (PipelinedGPT.from_gpt), trained
+   through fleet.init with a DistributedStrategy of pipeline (4
+   microbatches), recompute (each layer under recompute in the
+   schedule) and amp O2, hybrid pp_degree 1, AdamW 1e-4 + global-norm
+   clip, on phase 32's check batch (8 x 2048), 1 + 3 steps: the
+   pipelined logits within PIPE_LOGIT_L2 (relative L2) and the first
+   loss within PIPE_LOSS_REL (relative) of phase 32's GPT on the same
+   weights and batch, losses finite and falling, K1 launching 24 layers
+   x 4 microbatches x 2 (forward and rerun) forward and 24 x 4 backward
+   a step; tokens/s, MFU, peak memory and a profiled step's idle share
+   printed beside phase 32's;
+38. the ring and Ulysses at long context on K1: one sequence of 16384
+   at 1.3B's attention shape (B 1, 16 heads of 128, causal, bf16) cut
+   into 4 chunks in one process, the ring's hops and merge
+   (ring_attention.ring_chunks and ring_chunks_bwd) forward and
+   backward against K1 over the whole sequence (out, lse, dq, dk, dv
+   within twice FLASH_TOL's k1 limits: each is within them of the plain
+   version), both on the last 512 query rows against the plain version
+   (within FLASH_TOL's k1), K1 launching 10 forward and 10 backward
+   (the hops on earlier chunks and the diagonals; later chunks skipped);
+   ulysses_attention over the group of one bitwise K1 over the whole
+   sequence; the ring's, K1's, Ulysses' and SDPA's times printed beside
+   the bound;
+39. the fleet's comm-opt steps on bench_gpt's GPT (32 x 1024, O2,
+   Momentum 0.1 + global-norm clip), 6 steps each: the plain
+   ShardedTrainStep, localsgd (k 4), dgc (dense for 2 steps, then
+   sparsity 0.99 and 0.999) and fp16_allreduce: each builds its step,
+   losses finite and falling, fp16_allreduce's within COMM_FP16_REL of
+   the plain step's, DGC's kept count on every tensor (wte's 25.2 M
+   elements included) within COMM_DENSITY_BAND of (1 - sparsity) x its
+   size; collective calls and step time printed;
+40. the parameter server with the device cache (its host-only
+   reference runs in a process of its own beside phases 37-39): a PS on
+   localhost,
+   DeviceEmbeddingCache of 2^20 rows x 64 f32 on the card, 20 batches
+   of 65536 Zipf(1.2) ids (a part of them past the cached rows, on the
+   PS), for sgd and adagrad: every pulled row, the cached table, and
+   after flush() every touched row of the PS (cold rows included)
+   bitwise equal to a host-only PS run of the same ids; ids/s, the RPCs
+   saved and the rows they carried printed.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -399,7 +441,11 @@ entries also carry `eager_launches`, phase 9b's counts, and
 `transformer_launches`, phase 16's, `hapi_launches`, phase 28's
 fit, `recompute_launches`, phase 32's timed steps under "full",
 `elastic_launches`, phase 33's workers', `moe_launches`, phase 34's,
-and phase 32's check and times of K1 at the 1.3B shape (`gpt13_*`);
+`pipeline_launches`, phase 37's, `ring_launches`, phase 38's ring
+with its max |err| against K1 whole, its times (`ring_ms`, K1 whole's
+`ring_k1_whole_ms`, SDPA's `ring_library_ms`) and bound
+(`ring_bound_ms`), and phase 32's check and times of K1 at the 1.3B
+shape (`gpt13_*`);
 K2 non-causal's entries carry `fleet_launches`, phase 35's; K3's carries `pass_launches`,
 6a-6d's, and `fleet_launches`, 23-27's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -836,8 +882,12 @@ def tracing_off(model, ecfg, specs, device, on_tps: float) -> None:
 # the prefix cache (a), then int8 KV blocks (b), then the host tier (c)
 # (traffic arguments beyond the defaults of serving_traffic's
 # prefix_traffic and tiered_traffic, and the tiered pass's engine
-# changes; a CPU rehearsal shrinks them)
-PREFIX_TRAFFIC: dict = {}
+# changes; a CPU rehearsal shrinks them). The prefix traffic runs 3
+# bursts of followers, not load_suite's 4, to keep the run within its
+# time since phases 37-40 joined it (the tiered traffic keeps its 3
+# visits a template: at 2 the revisit burst found no demoted prefix to
+# promote on an H100)
+PREFIX_TRAFFIC: dict = dict(n_followers=21)
 TIERED_TRAFFIC: dict = {}
 TIERED_ENGINE = dict(num_blocks=192, host_tier_blocks=256, max_num_seqs=8)
 # the tenant pass's traffic arguments beyond tenant_traffic's defaults,
@@ -1300,13 +1350,17 @@ def run_facade(model, ecfg, device, seed: int) -> None:
 # 2 tokens a trip, so the prefill tier of phase 24 spends up to 384
 # trips on a 768-token prompt. Traffic arguments beyond the defaults of
 # serving_traffic's generators, and the A/B's request count, lengths and
-# steps (a CPU rehearsal shrinks them).
+# steps (a CPU rehearsal shrinks them). The failover's, the disagg
+# floor's and the A/B's request counts are half the generators'
+# defaults, to keep the run within its time since phases 37-40 joined
+# it; the autoscaler's burst and the deploys keep theirs (at a burst of
+# 16 an evacuating drain met a full pool and aborted on an H100).
 FLEET_ENGINE = dict(decode_chunk_size=2)
-FLEET_TRAFFIC: dict = {}
-DISAGG_TRAFFIC: dict = {}
+FLEET_TRAFFIC: dict = dict(n=12)
+DISAGG_TRAFFIC: dict = dict(n_floor=6, n_long=3)
 DIURNAL_TRAFFIC: dict = {}
 DEPLOY_TRAFFIC = dict(n=16)
-AB = dict(n=8, p_lo=64, p_hi=256, max_tokens=96, warm=6, k=16)
+AB = dict(n=4, p_lo=64, p_hi=256, max_tokens=96, warm=6, k=16)
 # readings one phase leaves for a later one: phase 6a's single-engine
 # prefix hit rate and the dense references of 6a's and 6c's traffic
 READINGS: dict = {}
@@ -1524,7 +1578,7 @@ def _fleet_pass(name, model, ecfg, arrivals, device, spec="", **rkw):
 
 def run_replica_failover(model, ecfg, device, seed: int) -> int:
     """Phase 23 (load_suite replica_kill): 3 replicas, free-block
-    balancing, 24 greedy requests (prompts 64-256, 32-64 new tokens, one
+    balancing, 12 greedy requests (prompts 64-256, 32-64 new tokens, one
     arrival every 2 router steps), run with no fault, with
     kill_replica@6:1, and with wedge_replica@8:2 under a heartbeat of
     twice the no-fault pass's longest router step. After each pass the
@@ -2287,8 +2341,8 @@ def flash_readings(kernel, dtype, device, seed: int):
 
 def _over(stats: dict, tol: dict) -> list:
     return [f"{name} {m} {stats[name][m]:.3e} > {lim:g}"
-            for name in FLASH_NAMES for m, lim in tol[name].items()
-            if stats[name][m] > lim]
+            for name in FLASH_NAMES if name in tol
+            for m, lim in tol[name].items() if stats[name][m] > lim]
 
 
 def _line(stats: dict) -> str:
@@ -4632,9 +4686,12 @@ def drive_gpt_1p3b(device, seed: int) -> dict:
     _require(losses[n - 1] < losses[0], f"loss did not fall: {losses}")
     _require(counts == [2 * L * n, L * n],
              f"K1 launches {counts} under full, want {[2 * L * n, L * n]}")
+    # the model (its bf16 weights after these steps) and the check batch
+    # go on to phase 37
     out = {"counts": counts, "tokens_per_sec": tps, "mfu": mfu,
            "peak_mem_gb": res["peak_mem_gb"], "group4_peak_gb":
-           group_peak / 1e9, "idle_share": prof["idle_share"]}
+           group_peak / 1e9, "idle_share": prof["idle_share"],
+           "model": model, "check": (x[:b].clone(), y[:b].clone())}
     del step, model, opt, x, y
     torch.cuda.empty_cache()
     return out
@@ -5120,19 +5177,562 @@ def drive_dp_bert_syncbn(device, seed: int, bert: dict,
             "syncbn_rel": rel, "took_s": took}
 
 
+# the time phases 37-40 are meant to take together, printed beside
+# their lap (the run's limit is 1200 s, build included)
+SLICE_9B_BUDGET_S = 90
+
+
+# ------------------------------------------------------------ phase 37
+# BASELINE config 5's recipe: pipeline (4 microbatches) + recompute + O2
+# through the fleet, on phase 32's model stacked into a PipelinedGPT
+PIPE_MICRO = 4
+PIPE_STEPS = (1, 3)
+# PipelinedGPT against phase 32's GPT on the same bf16 weights and check
+# batch: both run bf16 GEMMs (cuBLAS, f32 accumulation) and K1, on other
+# shapes (4 microbatches of 2 rows against 8, one qkv product against
+# three), so their bf16 roundings differ and the difference grows
+# through 24 layers. The logits' relative L2 within PIPE_LOGIT_L2 (a
+# few bf16 units, 2^-8 each) and the first loss, a mean over 16384
+# tokens, within PIPE_LOSS_REL relative (half a bf16 unit)
+PIPE_LOGIT_L2 = 2e-2
+PIPE_LOSS_REL = 2e-3
+
+
+def drive_pipelined_1p3b(device, seed: int, gpt13: dict) -> dict:
+    """Phase 37 (module docstring): `gpt13` is phase 32's result, which
+    hands over its model and check batch."""
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep, get_global_mesh
+    from paddle_tpu_torch.parallel.pipeline import (PipelinedGPT,
+                                                    pipelined_gpt_loss_fn)
+    from paddle_tpu_torch.tools import train_bench as tb
+    t0 = time.perf_counter()
+    gpt = gpt13.pop("model")
+    x, y = gpt13.pop("check")
+    cfg = gpt.cfg
+    L, T, B, V = cfg.num_layers, cfg.max_seq_len, x.shape[0], cfg.vocab_size
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline = True
+    strategy.pipeline_configs = {"accumulate_steps": PIPE_MICRO}
+    strategy.recompute = True
+    strategy.amp = True
+    strategy.amp_configs = {"use_pure_fp16": True, "dtype": "bfloat16"}
+    strategy.hybrid_configs = {"pp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    gpt.cfg.use_recompute = False
+    with torch.no_grad():
+        want = gpt(x)
+        want_loss = F.cross_entropy(want.reshape(-1, V), y.reshape(-1))
+        model = PipelinedGPT.from_gpt(gpt, mesh=get_global_mesh())
+        del gpt
+        torch.cuda.empty_cache()
+        got = model.logits(x, PIPE_MICRO)
+        l2 = _rel_l2(got, want)
+        del got, want
+    want_loss = want_loss.item()
+    t1 = time.perf_counter()
+    opt = AdamW(1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = fleet.distributed_train_step(model, pipelined_gpt_loss_fn, opt)
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+    for f in fns:
+        f.launches = 0
+    warm, timed = PIPE_STEPS
+    res = tb._time_steps(step, (x, y), warm, timed, device)
+    counts = [f.launches for f in fns]
+    n = warm + timed
+    losses = res["losses"]
+    rel = abs(losses[0] - want_loss) / abs(want_loss)
+    tps = B * T * timed / res["timed_s"]
+    mfu = tps * tb.flops_per_token(cfg) / tb.H100_BF16_FLOPS
+    prof = tb.profile_steps(step, (x, y), 1, tb._GPT_GROUPS,
+                            ("cross_entropy", "optimizer"))
+    M = PIPE_MICRO
+    want_counts = [2 * L * M * n, L * M * n]
+    print(f"[pipeline 1.3b] PipelinedGPT from phase 32's weights, "
+          f"{type(step).__name__} over {step.mesh.shape}, {model.num_micro} "
+          f"microbatches of {B // M} x {T}, remat_stages "
+          f"{model.remat_stages}, amp O2: logits against phase 32's GPT "
+          f"relative L2 {l2:.3e} (limit {PIPE_LOGIT_L2:g}); first loss "
+          f"{losses[0]!r} vs the GPT's {want_loss!r}, relative {rel:.3e} "
+          f"(limit {PIPE_LOSS_REL:g})")
+    print(f"[pipeline 1.3b] losses {[round(v, 5) for v in losses]}; step s "
+          f"{[round(t, 4) for t in res['step_s']]}; tokens/s {tps:.1f} "
+          f"(phase 32 under full at B {GPT13_BATCH['timed']}: "
+          f"{gpt13['tokens_per_sec']:.1f}), MFU {mfu} (phase 32: "
+          f"{gpt13['mfu']}); peak memory {res['peak_mem_gb']} GB "
+          f"(phase 32: {gpt13['peak_mem_gb']}); idle share "
+          f"{prof['idle_share']} (phase 32: {gpt13['idle_share']}; busy "
+          f"{prof['busy_s']} s of {prof['wall_s']} s, groups "
+          f"{prof['groups_s']}); K1 fwd/bwd {counts} over {n} steps (want "
+          f"{want_counts}: {L} layers x {M} microbatches, forward and "
+          f"rerun, backward); phase 37 took "
+          f"{time.perf_counter() - t0:.1f} s (the stacking and checks "
+          f"{t1 - t0:.1f})")
+    _require(isinstance(step, ShardedTrainStep) and model.num_micro == M,
+             f"fleet's pipeline route: {type(step).__name__}, "
+             f"{model.num_micro} microbatches")
+    _require(l2 <= PIPE_LOGIT_L2, f"pipelined logits: relative L2 {l2}")
+    _require(rel <= PIPE_LOSS_REL, f"pipelined first loss {losses[0]} vs "
+                                   f"{want_loss}")
+    _require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    _require(counts == want_counts, f"K1 launches {counts}, want "
+                                    f"{want_counts}")
+    out = {"counts": counts, "tokens_per_sec": tps, "mfu": mfu,
+           "peak_mem_gb": res["peak_mem_gb"],
+           "idle_share": prof["idle_share"], "logit_l2": l2,
+           "loss_rel": rel}
+    del step, model, opt, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 38
+# one long sequence at 1.3B's attention shape, cut into RING["chunks"]
+# chunks in one process; the plain version held on its last RING["rows"]
+# query rows (its f32 scores over the whole sequence take 17 GB)
+RING = dict(batch=1, heads=16, seq=16384, head_dim=128, chunks=4, rows=512)
+
+
+def _ring_tol():
+    """The ring and K1 over the whole sequence are each within
+    FLASH_TOL["bfloat16"]["k1"] of the plain version, so the two are
+    within twice its limits of each other."""
+    return {n: {m: 2 * v for m, v in lims.items()}
+            for n, lims in FLASH_TOL["bfloat16"]["k1"].items()}
+
+
+def drive_ring_long(device, seed: int) -> dict:
+    """Phase 38 (module docstring): returns the ring's K1 launches and
+    times."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.parallel import ulysses_attention
+    from paddle_tpu_torch.tools.measure import agreement, cold_ms
+    R = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    t0 = time.perf_counter()
+    B, H, T, D, n = (RING[k] for k in ("batch", "heads", "seq", "head_dim",
+                                        "chunks"))
+    sc = D ** -0.5
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, T, D, generator=g).to(
+        device, torch.bfloat16) for _ in range(4))
+    fwd, bwd = k1.flash_attention_fwd, k1.flash_attention_bwd
+    o, lse = fwd(q, k, v, True, sc)
+    whole = (o, lse, *bwd(q, k, v, o, lse, do, True, sc))
+    qs, ks, vs, dos = (list(t.chunk(n, 2)) for t in (q, k, v, do))
+    fwd.launches = bwd.launches = 0
+    outs, lses = R.ring_chunks(qs, ks, vs, True, sc)
+    grads = R.ring_chunks_bwd(qs, ks, vs, outs, lses, dos, True, sc)
+    launches = [fwd.launches, bwd.launches]
+    ring = (torch.cat(outs, 2), torch.cat(lses, 2),
+            *(torch.cat(t, 2) for t in grads))
+    stats = {m: agreement(a, w) for m, a, w in zip(FLASH_NAMES, ring, whole)}
+    tol = _ring_tol()
+    # the plain version on the last rows: f32 scores, the causal mask at
+    # the rows' global positions
+    r = RING["rows"]
+    qr = q[:, :, T - r:].float().requires_grad_(True)
+    s = qr @ k.float().transpose(-1, -2) * sc
+    keep = (torch.arange(T, device=device)[None, :]
+            <= torch.arange(T - r, T, device=device)[:, None])
+    s = s.masked_fill(~keep, -1e30)
+    po = torch.softmax(s, -1) @ v.float()
+    plse = torch.logsumexp(s, -1)
+    pdq, = torch.autograd.grad(po, qr, do[:, :, T - r:].float())
+    plain = (po.detach(), plse.detach(), pdq)
+    del s, po, keep, qr
+    rows = {}
+    for who, res in (("ring", ring), ("whole", whole)):
+        rows[who] = {m: agreement(a, w) for m, a, w in zip(
+            ("out", "lse", "dq"),
+            (res[0][:, :, T - r:], res[1][:, :, T - r:],
+             res[2][:, :, T - r:]), plain)}
+    row_tol = {m: FLASH_TOL["bfloat16"]["k1"][m] for m in ("out", "lse",
+                                                          "dq")}
+    # Ulysses over the group of one: its all-to-alls are copies, so it
+    # is K1 over the whole sequence, bitwise
+    qu, ku, vu = (t.detach().requires_grad_(True) for t in (q, k, v))
+    uo = ulysses_attention(qu, ku, vu, "sp", causal=True, scale=sc)
+    ug = torch.autograd.grad(uo, (qu, ku, vu), do)
+    ulysses_bitwise = all(torch.equal(a, w) for a, w in zip(
+        (uo.detach(), *ug), (whole[0], *whole[2:])))
+    del uo, ug
+    ms = {"ring_fwd": cold_ms(lambda: R.ring_chunks(qs, ks, vs, True, sc),
+                              3),
+          "ring_bwd": cold_ms(lambda: R.ring_chunks_bwd(
+              qs, ks, vs, outs, lses, dos, True, sc), 3),
+          "k1_fwd": cold_ms(lambda: fwd(q, k, v, True, sc), 3),
+          "k1_bwd": cold_ms(lambda: bwd(q, k, v, o, lse, do, True, sc), 3),
+          "ulysses_fwd": cold_ms(lambda: ulysses_attention(
+              q, k, v, "sp", causal=True, scale=sc), 3),
+          "sdpa_fwd": cold_ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, is_causal=True), 3)}
+    qs_, ks_, vs_ = (t.detach().requires_grad_(True) for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs_, ks_, vs_, is_causal=True)
+    ms["sdpa_bwd"] = cold_ms(lambda: torch.autograd.grad(
+        so, (qs_, ks_, vs_), do, retain_graph=True), 3)
+    del so
+    pairs = T * (T + 1) // 2
+    eq = B * H * T * D
+    bounds = {"fwd": max(4 * eq * 2 / HBM_BYTES_PER_S,
+                         4 * B * H * D * pairs / BF16_FLOPS) * 1e3,
+              "bwd": max(8 * eq * 2 / HBM_BYTES_PER_S,
+                         10 * B * H * D * pairs / BF16_FLOPS) * 1e3}
+    want_launches = [n * (n + 1) // 2] * 2
+    print(f"[ring] B {B} H {H} T {T} D {D} bf16 causal, {n} chunks of "
+          f"{T // n} in one process (ring_chunks / ring_chunks_bwd, the "
+          f"hops and merge of ring_attention): against K1 over the whole "
+          f"sequence {_line(stats)} (limits twice FLASH_TOL's k1); K1 "
+          f"fwd/bwd launches {launches} (want {want_launches}: hops on "
+          f"earlier chunks and the diagonal, later ones skipped)")
+    print(f"[ring] last {r} rows against the plain version: ring "
+          f"{_line(rows['ring'])}; K1 whole {_line(rows['whole'])} "
+          f"(limits FLASH_TOL's k1)")
+    print(f"[ring] ulysses_attention over the group of one bitwise K1 "
+          f"whole (out, dq, dk, dv): {ulysses_bitwise}")
+    print(f"[ring] ms (cold L2, mean): ring fwd {ms['ring_fwd']:.4f}, bwd "
+          f"{ms['ring_bwd']:.4f}; K1 whole fwd {ms['k1_fwd']:.4f}, bwd "
+          f"{ms['k1_bwd']:.4f}; Ulysses fwd {ms['ulysses_fwd']:.4f}; SDPA "
+          f"fwd {ms['sdpa_fwd']:.4f}, bwd {ms['sdpa_bwd']:.4f}; bound fwd "
+          f"{bounds['fwd']:.4f}, bwd {bounds['bwd']:.4f}; phase 38 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(not _over(stats, tol), f"ring vs K1 whole: {_over(stats, tol)}")
+    for who in rows:
+        _require(not _over(rows[who], row_tol),
+                 f"{who} vs plain rows: {_over(rows[who], row_tol)}")
+    _require(launches == want_launches, f"ring K1 launches {launches}")
+    _require(ulysses_bitwise, "ulysses over the group of one differs from "
+                              "K1 whole")
+    out = {"launches": launches, "ms": ms, "bounds": bounds,
+           "max_abs_err": {"fwd": max(stats[m]["abs"] for m in ("out",
+                                                                "lse")),
+                           "bwd": max(stats[m]["abs"] for m in
+                                      ("dq", "dk", "dv"))}}
+    del q, k, v, do, o, lse, whole, ring, outs, lses, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 39
+COMM_STEPS = 6
+COMM_LR = 0.1
+COMM_DGC = {"rampup_begin_step": 2, "rampup_step": 2,
+            "sparsity": [0.99, 0.999]}
+# fp16_allreduce against the plain ShardedTrainStep: under O2 the
+# gradients are bf16 already and the all-reduce over a group of one
+# returns them, so only the clip's arithmetic differs (the per-rank
+# step's clip_arrays against the sharded clip's sums): each loss within
+# one bf16 unit, relative
+COMM_FP16_REL = 2.0 ** -8
+# DGC's kept count on each tensor against (1 - sparsity) x its size: the
+# quantile interpolates between two order statistics, and |v| can tie at
+# the threshold, so within 10 % of the expected count plus 2 elements
+COMM_DENSITY_BAND = (0.1, 2)
+
+
+def drive_comm_opt(device, seed: int) -> dict:
+    """Phase 39 (module docstring)."""
+    import copy
+    import torch
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.tools import train_bench as tb
+    t0 = time.perf_counter()
+    cfg = tb.bench_config(6)
+    base = GPT(cfg, device=device, seed=seed)
+    rng = np.random.RandomState(seed)
+    x, y = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                         (tb.BATCH, tb.SEQ))).to(device)
+            for _ in range(2))
+    runs = {}
+    for name in ("plain", "localsgd", "dgc", "fp16_allreduce"):
+        model = copy.deepcopy(base)
+        s = fleet.DistributedStrategy()
+        s.amp = True
+        s.amp_configs = {"use_pure_fp16": True, "dtype": "bfloat16"}
+        if name != "plain":
+            setattr(s, name, True)
+        s.localsgd_configs = {"k_steps": 4, "begin_step": 1}
+        s.dgc_configs = COMM_DGC
+        fleet.init(is_collective=True, strategy=s)
+        opt = Momentum(COMM_LR, momentum=0.9, parameters=model.parameters(),
+                       grad_clip=ClipGradByGlobalNorm(1.0))
+        step = fleet.distributed_train_step(model, gpt_loss_fn, opt)
+        collective.reset_collective_calls()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = [step(x, y).item() for _ in range(COMM_STEPS)]
+        torch.cuda.synchronize()
+        runs[name] = {"type": type(step).__name__, "losses": losses,
+                      "step_s": (time.perf_counter() - t1) / COMM_STEPS,
+                      "calls": collective.collective_calls()}
+        if name == "dgc":
+            q = COMM_DGC["sparsity"][-1]
+            sizes = {k: p.numel() for k, p in model.named_parameters()}
+            dens = step.last_densities
+            off = {k: d for k, d in dens.items()
+                   if abs(d * sizes[k] - (1 - q) * sizes[k])
+                   > COMM_DENSITY_BAND[0] * (1 - q) * sizes[k]
+                   + COMM_DENSITY_BAND[1]}
+            runs[name].update(density=step.last_density, off_band=off,
+                              wte=dens.get("wte.weight"),
+                              span=(min(dens.values()), max(dens.values())),
+                              tensors=len(dens))
+        del step, model, opt
+    del base
+    torch.cuda.empty_cache()
+    fp16 = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["fp16_allreduce"]["losses"], runs["plain"]["losses"]))
+    for name, r in runs.items():
+        calls = {k: v for k, v in r["calls"].items() if v}
+        print(f"[comm_opt] {name}: {r['type']}, losses "
+              f"{[round(v, 5) for v in r['losses']]}, step s "
+              f"{r['step_s']:.4f}, collective calls over {COMM_STEPS} "
+              f"steps {calls}")
+    d = runs["dgc"]
+    print(f"[comm_opt] dgc after the ramp (sparsity {COMM_DGC['sparsity']}):"
+          f" kept {d['density']:.6f} overall, wte {d['wte']:.6f}, per "
+          f"tensor {d['span'][0]:.6f}-{d['span'][1]:.6f} over "
+          f"{d['tensors']} tensors; outside the band: {d['off_band']}")
+    print(f"[comm_opt] fp16_allreduce against the plain step: worst "
+          f"relative {fp16:.3e} (limit {COMM_FP16_REL:g}); phase 39 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    want = {"plain": "ShardedTrainStep", "localsgd": "LocalSGDStep",
+            "dgc": "DGCStep", "fp16_allreduce": "Fp16AllReduceStep"}
+    for name, r in runs.items():
+        _require(r["type"] == want[name], f"{name} built {r['type']}")
+        _require(all(math.isfinite(v) for v in r["losses"])
+                 and r["losses"][-1] < r["losses"][0],
+                 f"{name} losses {r['losses']}")
+    _require(fp16 <= COMM_FP16_REL, f"fp16_allreduce vs plain: {fp16}")
+    _require(not d["off_band"], f"dgc densities off band: {d['off_band']}")
+    _require(d["wte"] is not None, "no density for wte")
+    return runs
+
+
+# ------------------------------------------------------------ phase 40
+PS_CACHE = dict(rows=2 ** 20, dim=64, batches=20, ids=65536, cold=2 ** 18,
+                zipf=1.2, lr=0.05)
+
+
+def _ps_batches(seed: int) -> list:
+    """PS_CACHE["batches"] batches of Zipf-skewed ids: the draws below
+    `rows` are hot, the rest fold into a cold range past them."""
+    c = PS_CACHE
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(c["batches"]):
+        d = rng.zipf(c["zipf"], c["ids"]) - 1
+        out.append(np.where(d < c["rows"], d,
+                            c["rows"] + (d - c["rows"]) % c["cold"]))
+    return out
+
+
+def _ps_server(optimizer: str, rows: np.ndarray):
+    """A PS on localhost whose sparse table creates each row it first
+    touches as the next row of its own copy of `rows` (the JAX package's
+    test rule: two servers touched in one order hold one table; drawn in
+    bulk, as a row-by-row draw of 2^20 rows takes seconds)."""
+    from paddle_tpu_torch.distributed.ps import ParameterServer, PsClient
+    c = PS_CACHE
+    stream = iter(rows.copy())
+    srv = ParameterServer(port=0)
+    srv.add_sparse_table(0, dim=c["dim"], optimizer=optimizer, lr=c["lr"],
+                         initializer=lambda: next(stream))
+    srv.start()
+    return srv, PsClient([srv.endpoint])
+
+
+def _ps_setup(seed: int):
+    """(batches, every id they touch, the rows the servers create, in
+    order: the cached rows [0, rows), then the cold ones as first
+    touched)."""
+    c = PS_CACHE
+    batches = _ps_batches(seed)
+    everything = np.unique(np.concatenate(batches))
+    n_cold = int((everything >= c["rows"]).sum())
+    init = np.random.RandomState(seed + 1).normal(
+        0, 0.01, (c["rows"] + n_cold, c["dim"])).astype(np.float32)
+    return batches, everything, init
+
+
+def _ps_host_run(seed: int, path: str) -> None:
+    """Phase 40's reference, the host-only PS runs for sgd and adagrad
+    (`python -c` in a process of its own, beside phases 37-39: it needs
+    no card): each pulls the cached rows [0, rows) first, as the cache's
+    build does, so its server creates every row in the device run's
+    order; every batch's pulled rows and, at the end, every touched row
+    are written to `path`."""
+    c = PS_CACHE
+    batches, everything, init = _ps_setup(seed)
+    out = {}
+    for optimizer in ("sgd", "adagrad"):
+        srv, host = _ps_server(optimizer, init)
+        try:
+            host.pull_sparse(0, np.arange(c["rows"], dtype=np.int64))
+            pulled = []
+            t = time.perf_counter()
+            for ids in batches:
+                uniq, counts = np.unique(ids, return_counts=True)
+                rows = host.pull_sparse(0, uniq)
+                pulled.append(rows)
+                scale = (2.0 * counts / ids.size).astype(np.float32)
+                host.push_sparse(0, uniq, rows * scale[:, None])
+            out[f"{optimizer}/seconds"] = np.array(time.perf_counter() - t)
+            out[f"{optimizer}/pulled"] = np.concatenate(pulled)
+            out[f"{optimizer}/final"] = host.pull_sparse(0, everything)
+        finally:
+            srv.stop()
+    np.savez(path, **out)
+
+
+def start_ps_host_run(seed: int, tmp: str):
+    """Start _ps_host_run in a process of its own: (process, its result's
+    path)."""
+    path = os.path.join(tmp, "ps_host.npz")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; "
+         f"chip_smoke._ps_host_run({seed}, {path!r})"],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, path
+
+
+def drive_ps_cache(device, seed: int, host_run) -> dict:
+    """Phase 40 (module docstring): `host_run` is start_ps_host_run's
+    (process, path), the host-only reference running since phase 37."""
+    import torch
+    from paddle_tpu_torch.distributed.ps import DeviceEmbeddingCache
+    t0 = time.perf_counter()
+    c = PS_CACHE
+    batches, everything, init = _ps_setup(seed)
+    cold_ids = everything[everything >= c["rows"]]
+    proc, path = host_run
+    _require(proc.wait(timeout=900) == 0,
+             f"the host-only PS run exited {proc.returncode}")
+    with np.load(path) as f:
+        ref = {k: f[k] for k in f.files}
+    waited = time.perf_counter() - t0
+    out = {}
+    for optimizer in ("sgd", "adagrad"):
+        dev_srv, dev = _ps_server(optimizer, init)
+        try:
+            cache = DeviceEmbeddingCache(dev, 0, c["rows"], c["dim"],
+                                         optimizer=optimizer, lr=c["lr"],
+                                         device=device)
+            same_start = np.array_equal(cache.table.cpu().numpy(),
+                                        init[:c["rows"]])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got, cold_pushes, n_ids = [], 0, 0
+            rpc_rows = host_rows = 0
+            for ids in batches:
+                uniq, counts = np.unique(ids, return_counts=True)
+                rows = cache.pull(uniq)
+                scale = torch.from_numpy(
+                    (2.0 * counts / ids.size).astype(np.float32)).to(device)
+                cache.push(uniq, rows * scale[:, None])
+                cold = int((uniq >= c["rows"]).sum())
+                cold_pushes += int(cold > 0)
+                rpc_rows += 2 * cold
+                host_rows += 2 * uniq.size
+                n_ids += ids.size
+                got.append(rows)
+            torch.cuda.synchronize()
+            dev_s = time.perf_counter() - t2
+            got = torch.cat(got).cpu().numpy()
+            want = ref[f"{optimizer}/pulled"]
+            bitwise = np.array_equal(got, want)
+            worst = float(np.abs(got - want).max())
+            # both began from one table (same_start) and only the touched
+            # rows moved: the cached table against the host run's final
+            # rows on those; after flush, the device run's PS against the
+            # host run's on every touched row
+            final = ref[f"{optimizer}/final"]
+            hot = everything < c["rows"]
+            table_worst = float(np.abs(
+                cache.table[torch.from_numpy(everything[hot]).to(device)]
+                .cpu().numpy() - final[hot]).max())
+            cache.flush()
+            flushed_eq = np.array_equal(dev.pull_sparse(0, everything), final)
+            host_s = float(ref[f"{optimizer}/seconds"])
+            rpcs_host = 2 * len(batches)
+            rpcs_dev = cache.host_pulls + cold_pushes
+            out[optimizer] = {"bitwise": bitwise and table_worst == 0.0
+                              and flushed_eq and same_start, "worst": worst,
+                              "table_worst": table_worst,
+                              "rows_per_s": n_ids / dev_s,
+                              "host_rows_per_s": n_ids / host_s,
+                              "rpcs_saved": rpcs_host - rpcs_dev,
+                              "rpc_rows": rpc_rows, "host_rows": host_rows}
+            print(f"[ps] {optimizer}: {len(batches)} batches of "
+                  f"{c['ids']} Zipf({c['zipf']}) ids, {len(everything)} "
+                  f"distinct ({len(cold_ids)} cold, past the "
+                  f"{c['rows']} x {c['dim']} f32 rows on the card): pulled "
+                  f"rows against the host-only PS run worst |err| "
+                  f"{worst:.3e}, bitwise {bitwise}; the tables equal at "
+                  f"the start {same_start}, on the touched rows at the end "
+                  f"worst |err| {table_worst:.3e}; after "
+                  f"flush every touched row (cold ones included) equal "
+                  f"{flushed_eq}; ids/s through the cache "
+                  f"{n_ids / dev_s:.1f} (host-only {n_ids / host_s:.1f}); "
+                  f"RPCs {rpcs_dev} against {rpcs_host} "
+                  f"(saved {rpcs_host - rpcs_dev}), rows they carried "
+                  f"{rpc_rows} against {host_rows}; device pulls "
+                  f"{cache.device_pulls}, host pulls {cache.host_pulls}")
+            _require(out[optimizer]["bitwise"],
+                     f"device cache ({optimizer}) vs host PS: rows "
+                     f"{worst}, start {same_start}, table {table_worst}, "
+                     f"flushed {flushed_eq}")
+            del cache
+        finally:
+            dev_srv.stop()
+    torch.cuda.empty_cache()
+    print(f"[ps] phase 40 took {time.perf_counter() - t0:.1f} s (waiting "
+          f"{waited:.1f} s for the host-only run, which ran beside phases "
+          f"37-39)")
+    return out
+
+
 def run_distributed(device, seed: int, ernie: dict, bert: dict,
-                    resnet: dict) -> dict:
-    """Phases 34-36 over one NCCL process group of world size 1, torn
+                    resnet: dict, gpt13: dict, lap) -> dict:
+    """Phases 34-40 over one NCCL process group of world size 1, torn
     down after them."""
     import torch.distributed as dist
     from paddle_tpu_torch.distributed import init_parallel_env
     from paddle_tpu_torch.parallel import set_global_mesh
     init_parallel_env()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    host_run = None
     try:
-        return {"moe": drive_moe_gpt(device, seed),
-                "fleet": drive_fleet_ernie(device, seed, ernie),
-                "dp": drive_dp_bert_syncbn(device, seed, bert, resnet)}
+        out = {"moe": drive_moe_gpt(device, seed),
+               "fleet": drive_fleet_ernie(device, seed, ernie),
+               "dp": drive_dp_bert_syncbn(device, seed, bert, resnet)}
+        lap("parallel paths, phases 34-36")
+        host_run = start_ps_host_run(seed, tmp)
+        out["pipeline"] = drive_pipelined_1p3b(device, seed, gpt13)
+        out["ring"] = drive_ring_long(device, seed)
+        out["comm_opt"] = drive_comm_opt(device, seed)
+        out["ps"] = drive_ps_cache(device, seed, host_run)
+        lap("slice 9b, phases 37-40")
+        print(f"[time] phases 37-40: {lap.seconds['slice 9b, phases 37-40']}"
+              f" s (budget {SLICE_9B_BUDGET_S} s; not gated)")
+        return out
     finally:
+        if host_run is not None and host_run[0].poll() is None:
+            host_run[0].kill()
+            host_run[0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
         set_global_mesh(None)
         dist.destroy_process_group()
 
@@ -5317,13 +5917,14 @@ def main(argv=None) -> int:
     lap("GPT-3 1.3B, phase 32")
     elastic = run_elastic(device, args.seed)
     lap("elastic, phase 33")
-    dist = run_distributed(device, args.seed, ernie, bert, resnet)
-    lap("parallel paths, phases 34-36")
+    dist = run_distributed(device, args.seed, ernie, bert, resnet, gpt13,
+                           lap)
     print(f"[time] seconds by phase group: {lap.seconds}")
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
               "k1_d64": transformer["counts"][:2]}
     for name, kernel, i, replaces in FLASH_ENTRIES:
+        d = ("fwd", "bwd")[i]
         kernels.append({"name": name, "route": "cuda",
                         "source": FLASH_SOURCE, "replaces": replaces,
                         "launches": counts[kernel][i],
@@ -5345,6 +5946,13 @@ def main(argv=None) -> int:
                 recompute_launches=gpt13["counts"][i],
                 elastic_launches=elastic["launches"][i],
                 moe_launches=dist["moe"]["counts"][i],
+                pipeline_launches=dist["pipeline"]["counts"][i],
+                ring_launches=dist["ring"]["launches"][i],
+                ring_max_abs_err=dist["ring"]["max_abs_err"][d],
+                ring_ms=dist["ring"]["ms"][f"ring_{d}"],
+                ring_k1_whole_ms=dist["ring"]["ms"][f"k1_{d}"],
+                ring_library_ms=dist["ring"]["ms"][f"sdpa_{d}"],
+                ring_bound_ms=dist["ring"]["bounds"][d],
                 gpt13_max_abs_err=k1_big[0][("fwd", "bwd")[i]],
                 **{f"gpt13_{key}": k1_big[1][i][key] for key in (
                     "ms", "plain_ms", "library_ms", "bound_ms",

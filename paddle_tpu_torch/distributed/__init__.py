@@ -29,6 +29,11 @@ from . import elastic  # noqa: F401
 from .elastic import (  # noqa: F401
     ElasticSupervisor, ElasticJobError, WorkerSpec, elastic_spawn,
 )
+from . import ps  # noqa: F401
+from . import transpiler  # noqa: F401
+from .transpiler import (  # noqa: F401
+    DistributeTranspiler, DistributeTranspilerConfig,
+)
 
 
 class meta_parallel:
@@ -50,4 +55,5 @@ __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "RowParallelLinear", "VocabParallelEmbedding",
            "ParallelCrossEntropy", "MoEMLP", "fleet", "spawn", "launch",
            "elastic", "ElasticSupervisor", "ElasticJobError", "WorkerSpec",
-           "elastic_spawn", "meta_parallel"]
+           "elastic_spawn", "meta_parallel", "ps", "transpiler",
+           "DistributeTranspiler", "DistributeTranspilerConfig"]

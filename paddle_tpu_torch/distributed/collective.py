@@ -241,8 +241,23 @@ def _recv(t, src, pg):
     return t
 
 
+@_counted
+def _send_recv(sends, dst, recvs, src, pg):
+    """Send each tensor of `sends` to group position `dst` while
+    receiving `recvs` from `src`, in one batch of point-to-point ops
+    (a ring's rotation: every rank sends and receives at once)."""
+    _send_recv.calls += 1
+    ops = [dist.P2POp(dist.isend, t.contiguous(), _global(pg, dst), pg)
+           for t in sends]
+    ops += [dist.P2POp(dist.irecv, t, _global(pg, src), pg) for t in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recvs
+
+
 _PRIMITIVES = (_all_reduce, _all_gather, _reduce_scatter, _broadcast,
-               _all_to_all, _scatter, _gather_object, _barrier, _send, _recv)
+               _all_to_all, _scatter, _gather_object, _barrier, _send, _recv,
+               _send_recv)
 
 
 def collective_calls() -> dict:

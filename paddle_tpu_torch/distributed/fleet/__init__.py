@@ -1,10 +1,8 @@
 """paddle.distributed.fleet (port of paddle_tpu/distributed/fleet/):
-the `fleet` singleton and its module-level methods (fleet_base.py), the
-DistributedStrategy, the role makers and `utils` (recompute).
-
-Waiting for slice 9c: `comm_opt` (LocalSGD, DGC, fp16_allreduce),
-`data_generator`, `metrics` and the parameter-server methods (they
-raise).
+the `fleet` singleton and its module-level methods (fleet_base.py, the
+parameter-server methods included), the DistributedStrategy, the role
+makers, `utils` (recompute), `comm_opt` (LocalSGD, adaptive LocalSGD,
+DGC, fp16_allreduce), `data_generator` and `metrics`.
 """
 from .fleet_base import Fleet, _FleetOptimizer  # noqa: F401
 from .distributed_strategy import DistributedStrategy  # noqa: F401
@@ -31,6 +29,12 @@ init_server = fleet.init_server
 run_server = fleet.run_server
 stop_worker = fleet.stop_worker
 save_persistables = fleet.save_persistables
+from . import comm_opt  # noqa: F401
+from . import data_generator  # noqa: F401
+from .data_generator import (  # noqa: F401
+    DataGenerator, MultiSlotDataGenerator, MultiSlotStringDataGenerator,
+)
+from . import metrics  # noqa: F401
 
 __all__ = ["Fleet", "DistributedStrategy", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker", "RoleMakerBase", "Role", "utils",
@@ -38,4 +42,6 @@ __all__ = ["Fleet", "DistributedStrategy", "PaddleCloudRoleMaker",
            "distributed_optimizer", "distributed_train_step",
            "worker_index", "worker_num", "is_first_worker", "is_worker",
            "is_server", "barrier_worker", "init_worker", "init_server",
-           "run_server", "stop_worker", "save_persistables"]
+           "run_server", "stop_worker", "save_persistables", "comm_opt",
+           "data_generator", "DataGenerator", "MultiSlotDataGenerator",
+           "MultiSlotStringDataGenerator", "metrics"]

@@ -23,25 +23,32 @@ meta-optimizer pipeline composes one program:
 - sharding becomes the ZeRO stage, hybrid degrees the mesh;
 - gradient_merge becomes the step's grad_accum_steps: k calls apply one
   update from the mean of their gradients (the JAX package's
-  _GradientMergeStep applies an update every call).
-LocalSGD, DGC and fp16_allreduce (fleet/comm_opt.py) and the parameter
-server methods wait for slice 9c and raise.
+  _GradientMergeStep applies an update every call);
+- pipeline, on a pipeline container (parallel/pipeline.py's
+  PipelinedGPT or PipelineLayer), sets its microbatch count from
+  pipeline_configs' accumulate_steps (when above 1; the JAX package
+  leaves the count at the pp degree) and takes recompute as the
+  container's own per-layer remat rather than a checkpoint around the
+  whole loss; hybrid_configs' pp_degree and sp_degree reach the mesh;
+- localsgd / adaptive_localsgd, dgc and fp16_allreduce build
+  fleet/comm_opt.py's steps instead of ShardedTrainStep, over a pure dp
+  mesh; their conflicts (with each other, and with tp, pp, sp or
+  sharding degrees above 1) raise as in the JAX package.
+The parameter-server methods (`init_server`, `run_server`,
+`init_worker`, `stop_worker`) drive distributed/ps, as the JAX
+package's do (fleet_base.py:207-245).
 """
 from __future__ import annotations
 
 import warnings
 from typing import Optional
 
-from ...core.unported import not_ported
 from ...parallel import mesh as _mesh
 from ...parallel.api import ShardedTrainStep
 from .distributed_strategy import DistributedStrategy
 from .role_maker import PaddleCloudRoleMaker, RoleMakerBase
 
 __all__ = ["Fleet"]
-
-_SLICE_9C = "slice 9c: the fleet's communication meta-optimizers and " \
-            "the parameter server"
 
 
 class Fleet:
@@ -139,13 +146,6 @@ class Fleet:
         strategy = strategy or self._user_defined_strategy
         optimizer = optimizer or self._origin_optimizer
         _check_unsupported(strategy)
-        for flag, what in (("localsgd", "LocalSGD"),
-                           ("adaptive_localsgd", "adaptive LocalSGD"),
-                           ("dgc", "DGC"),
-                           ("fp16_allreduce", "fp16_allreduce")):
-            if getattr(strategy, flag):
-                not_ported(f"DistributedStrategy.{flag} ({what})",
-                           _SLICE_9C)
         real_model = model._layers if hasattr(model, "_layers") else model
         opt = _apply_optimizer_strategies(optimizer, strategy)
         cfg = strategy.amp_configs
@@ -153,12 +153,64 @@ class Fleet:
             from ... import amp
             amp.decorate(real_model, opt, level="O2",
                          dtype=cfg.get("dtype", "bfloat16"))
+        pipelined = strategy.pipeline and hasattr(real_model, "num_micro")
+        if pipelined:
+            micro = int(strategy.pipeline_configs.get("accumulate_steps", 1))
+            if micro > 1:
+                real_model.num_micro = micro
+        inner_loss_fn = _apply_loss_strategies(loss_fn, strategy,
+                                               pipelined=pipelined)
+        if strategy.localsgd or strategy.adaptive_localsgd:
+            from .comm_opt import AdaptiveLocalSGDStep, LocalSGDStep
+            if strategy.fp16_allreduce:
+                raise NotImplementedError(
+                    "localsgd + fp16_allreduce cannot compose: LocalSGD "
+                    "does not allreduce gradients at all (it syncs params "
+                    "every k steps); pick one.")
+            self._pure_dp("localsgd runs per-rank parameter copies over a "
+                          "pure dp mesh; combining it with tp/pp/sp/sharding "
+                          "degrees is not supported (the reference's "
+                          "localsgd_optimizer is DP-only too).")
+            cfg = strategy.localsgd_configs
+            if strategy.adaptive_localsgd:
+                acfg = strategy.adaptive_localsgd_configs
+                return AdaptiveLocalSGDStep(
+                    real_model, inner_loss_fn, opt,
+                    init_k_steps=int(acfg.get("init_k_steps", 1)),
+                    begin_step=int(acfg.get("begin_step", 1)))
+            return LocalSGDStep(real_model, inner_loss_fn, opt,
+                                k_steps=int(cfg.get("k_steps", 1)),
+                                begin_step=int(cfg.get("begin_step", 1)))
+        if strategy.dgc:
+            from .comm_opt import DGCStep
+            self._pure_dp("dgc runs per-rank gradient state over a pure dp "
+                          "mesh; tp/pp/sp/sharding degrees do not compose "
+                          "(the reference's dgc_optimizer is "
+                          "DP-collective-only too).")
+            cfg = strategy.dgc_configs
+            return DGCStep(
+                real_model, inner_loss_fn, opt,
+                rampup_begin_step=int(cfg.get("rampup_begin_step", 0)),
+                rampup_step=int(cfg.get("rampup_step", 1)),
+                sparsity=cfg.get("sparsity", [0.999]))
+        if strategy.fp16_allreduce:
+            from .comm_opt import Fp16AllReduceStep
+            self._pure_dp("fp16_allreduce's reduced-precision gradient sync "
+                          "runs over a pure dp mesh; with tp/pp/sp/sharding "
+                          "degrees use ShardedTrainStep instead.")
+            return Fp16AllReduceStep(real_model, inner_loss_fn, opt)
         k = int(strategy.gradient_merge_configs["k_steps"]) \
             if strategy.gradient_merge else 1
         return ShardedTrainStep(
-            real_model, _apply_loss_strategies(loss_fn, strategy), opt,
+            real_model, inner_loss_fn, opt,
             mesh=self._hybrid_mesh, sharding_stage=strategy.sharding_stage(),
             grad_accum_steps=k)
+
+    def _pure_dp(self, message: str) -> None:
+        if self._hybrid_mesh is not None and any(
+                self._hybrid_mesh.shape.get(ax, 1) > 1
+                for ax in ("tp", "pp", "sp", "sharding")):
+            raise NotImplementedError(message)
 
     # --------------------------------------------------------------- state
     def state_dict(self):
@@ -172,18 +224,55 @@ class Fleet:
             framework_io.save(self.state_dict(), dirname + "/fleet.pdopt")
 
     # -------------------------------------------------- parameter server
+    # reference: fleet_base.py init_server/run_server/init_worker/
+    # stop_worker driving the_one_ps.py; here distributed/ps
     def init_server(self, *args, dense_tables=None, sparse_tables=None,
                     host="127.0.0.1", port=0, **kwargs):
-        not_ported("fleet.init_server", _SLICE_9C)
+        """Create the server and its tables. dense_tables:
+        {table_id: dict(shape=..., optimizer='sgd', lr=...)};
+        sparse_tables: {table_id: dict(dim=..., optimizer=..., lr=...)}."""
+        from ..ps import ParameterServer
+        self._ps_server = ParameterServer(host, port)
+        for tid, spec in (dense_tables or {}).items():
+            self._ps_server.add_dense_table(tid, **spec)
+        for tid, spec in (sparse_tables or {}).items():
+            self._ps_server.add_sparse_table(tid, **spec)
+        return self._ps_server
 
     def run_server(self, block: bool = False):
-        not_ported("fleet.run_server", _SLICE_9C)
+        if getattr(self, "_ps_server", None) is None:
+            raise RuntimeError("call fleet.init_server(...) first")
+        self._ps_server.start()
+        if block:
+            self._ps_server.join()
+        return self._ps_server.endpoint
 
     def init_worker(self, endpoints=None):
-        not_ported("fleet.init_worker", _SLICE_9C)
+        from ..ps import PsClient
+        eps = endpoints
+        if not eps and self._role_maker is not None:
+            eps = self._role_maker.get_pserver_endpoints()
+        if not eps:
+            raise RuntimeError(
+                "no pserver endpoints: pass init_worker(endpoints=[...]) "
+                "or set PADDLE_PSERVERS_IP_PORT_LIST")
+        self._ps_client = PsClient(list(eps))
+        return self._ps_client
 
     def stop_worker(self):
-        not_ported("fleet.stop_worker", _SLICE_9C)
+        """reference: the_one_ps stop_worker: the workers meet at a
+        barrier, then only the first one stops the servers (a shutdown
+        by any worker would kill the PS under peers still training)."""
+        client = getattr(self, "_ps_client", None)
+        if client is not None:
+            rm = self._role_maker
+            world = rm.worker_num() if rm is not None else 1
+            if world > 1:
+                client.barrier(world)
+            if rm is None or rm.is_first_worker():
+                client.stop_server()
+            client.close()
+            self._ps_client = None
 
 
 class _FleetOptimizer:
@@ -264,12 +353,14 @@ def _apply_optimizer_strategies(optimizer, strategy: DistributedStrategy):
     return optimizer
 
 
-def _apply_loss_strategies(loss_fn, strategy: DistributedStrategy):
+def _apply_loss_strategies(loss_fn, strategy: DistributedStrategy,
+                           pipelined: bool = False):
     """recompute and amp O1 wrap the loss computation (reference:
     recompute_optimizer.py, amp_optimizer.py); O2 is the decorated
-    model's (distributed_train_step)."""
+    model's (distributed_train_step), and a pipeline container's
+    recompute its own per-layer remat."""
     fn = loss_fn
-    if strategy.recompute:
+    if strategy.recompute and not pipelined:
         from .utils import recompute
 
         def recompute_fn(model, *args, _fn=fn):

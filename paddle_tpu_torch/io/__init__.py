@@ -24,7 +24,8 @@ class InMemoryDataset:
 
     def __init__(self):
         _not_ported("paddle.io.InMemoryDataset (the native datafeed)",
-                    "ROADMAP Queue 1 item 8, native/")
+                    "slice 10, ROADMAP Queue 1 item 8: "
+                    "io/dataset_native.py and native/")
 
 
 class QueueDataset:
@@ -32,4 +33,5 @@ class QueueDataset:
 
     def __init__(self, queue_capacity: int = 4096):
         _not_ported("paddle.io.QueueDataset (the native datafeed)",
-                    "ROADMAP Queue 1 item 8, native/")
+                    "slice 10, ROADMAP Queue 1 item 8: "
+                    "io/dataset_native.py and native/")

@@ -35,9 +35,24 @@ holds num_heads / tp heads (the fused qkv's columns hold each rank's
 heads of q, of k and of v) and the MLP's inner slice; the token
 embedding and the head are split over the vocabulary (the head's
 logits all-gathered). Weights are drawn whole from the seed and cut, so
-every tp degree starts from the same model. Sequence and context
-parallelism wait for slice 9b: their config fields exist so configs
-read the same, and setting them raises.
+every tp degree starts from the same model.
+
+Sequence parallelism: under a global mesh with sp > 1 each sequence is
+split over the sp group (ShardedTrainStep's shard_batch gives rank i
+positions [i T/sp, (i+1) T/sp) of every row, and the model takes wpe at
+those positions). Attention then needs the keys before the chunk:
+- with context_parallel, attention is parallel/ring_attention.py's ring
+  over the sp group (paddle_tpu/models/gpt.py:155-198), and attention
+  dropout under it raises, as in the JAX package;
+- without it, each rank all-gathers K and V over sp and attends, under
+  the causal mask, to keys [0, (i+1) T/sp): one full block over the
+  earlier chunks and one causal block over its own (two launches of K1
+  on the card, merged by their logsumexps as the ring's hops are, so K1
+  only ever sees Tq = Tk on its diagonal); the all-gather's backward
+  reduce-scatters the K and V gradients.
+`sequence_parallel` alone names a layout in the JAX package and changes
+no result; the port accepts it. Each rank's loss is the mean over its
+tokens, so the mean over the ranks is the sequence's.
 """
 from __future__ import annotations
 
@@ -60,7 +75,10 @@ from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerList, LayerNorm
 from ..nn.layer.layers import Layer, load_jax_state
 from ..ops.kernels import packed_flash
+from ..ops.kernels.flash_attention import (flash_attention_bwd,
+                                           flash_attention_fwd)
 from ..parallel.api import local_piece
+from ..parallel.ring_attention import merge, ring_attention
 
 __all__ = ["GPTConfig", "GPT", "GPTAttention", "sliced_qkv", "gpt_loss_fn"]
 
@@ -145,6 +163,11 @@ class GPTAttention(Layer):
 
     def forward(self, x):
         B, T = x.shape[0], x.shape[1]
+        if _sp_size() > 1:
+            q, k, v = sliced_qkv(copy_to_tp(x, self._tp), self.qkv,
+                                 self.num_heads, self.head_dim)
+            out = self._sequence_parallel(q, k, v)
+            return self.out(out.transpose(1, 2).reshape(B, T, -1))
         pack = self._pack_gate(T)
         q, k, v = sliced_qkv(copy_to_tp(x, self._tp), self.qkv, self.num_heads,
                              self.head_dim,
@@ -155,6 +178,82 @@ class GPTAttention(Layer):
         # [B, H, T, D] or packed [B, H/2, T, 2D] -> [B, T, C], heads in
         # natural order either way
         return self.out(out.transpose(1, 2).reshape(B, T, -1))
+
+
+    def _sequence_parallel(self, q, k, v):
+        """Attention of this rank's chunk of the sequence (module
+        docstring): the ring with context_parallel, else the all-gathered
+        keys."""
+        if self.cfg.dropout > 0.0 and self.training:
+            raise NotImplementedError(
+                "attention dropout under sequence or context parallelism "
+                "is not implemented (per-chunk RNG across the sp ranks); "
+                "set dropout=0.0 or run with sp=1")
+        if self.cfg.context_parallel:
+            return ring_attention(q, k, v, "sp", causal=True)
+        from ..parallel.mesh import get_global_mesh
+        mesh = get_global_mesh()
+        return _GatheredAttention.apply(
+            q, k, v, mesh.group("sp"), mesh.shape["sp"], mesh.coord("sp"),
+            1.0 / math.sqrt(q.shape[-1]))
+
+
+class _GatheredAttention(torch.autograd.Function):
+    """Causal attention of rank i's sequence chunk over the keys of the
+    sp group, all-gathered (module docstring); the backward
+    reduce-scatters the keys' gradients home."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pg, n, i, scale):
+        from ..distributed import collective as C
+        B, H, tl, D = k.shape
+        kv = torch.stack([k, v])
+        parts = torch.empty((n,) + tuple(kv.shape), dtype=kv.dtype,
+                            device=kv.device)
+        C._all_gather(parts, kv, pg)
+        prefix = parts[:i].permute(1, 2, 3, 0, 4, 5).reshape(
+            2, B, H, i * tl, D)
+        acc = None
+        if i:
+            acc = merge(acc, *flash_attention_fwd(q, prefix[0], prefix[1],
+                                                  False, scale))
+        acc = merge(acc, *flash_attention_fwd(q, k, v, True, scale))
+        o, lse = acc[0].to(q.dtype), acc[1].contiguous()
+        ctx.save_for_backward(q, k, v, prefix, o, lse)
+        ctx.sp = (pg, n, i, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from ..distributed import collective as C
+        q, k, v, prefix, o, lse = ctx.saved_tensors
+        pg, n, i, scale = ctx.sp
+        B, H, tl, D = k.shape
+        do = do.contiguous()
+        # [chunk, k|v, B, H, T/sp, D]: chunk c's gradients go to rank c
+        dkv = torch.zeros((n, 2, B, H, tl, D), dtype=torch.float32,
+                          device=q.device)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+        dq = dq.float()
+        dkv[i, 0] += dk.float()
+        dkv[i, 1] += dv.float()
+        if i:
+            gq, gk, gv = flash_attention_bwd(q, prefix[0], prefix[1], o, lse,
+                                             do, False, scale)
+            dq += gq.float()
+            dkv[:i, 0] += gk.float().reshape(B, H, i, tl, D).movedim(2, 0)
+            dkv[:i, 1] += gv.float().reshape(B, H, i, tl, D).movedim(2, 0)
+        mine = torch.empty(dkv.shape[1:], dtype=torch.float32,
+                           device=q.device)
+        C._reduce_scatter(mine, dkv, C.ReduceOp.SUM, pg)
+        return (dq.to(q.dtype), mine[0].to(k.dtype), mine[1].to(v.dtype),
+                None, None, None, None)
+
+
+def _sp_size() -> int:
+    from ..parallel.mesh import get_global_mesh
+    mesh = get_global_mesh()
+    return 1 if mesh is None else mesh.shape["sp"]
 
 
 class GPTMLP(Layer):
@@ -281,7 +380,13 @@ class GPT(Layer):
     def forward(self, input_ids):
         ids = torch.as_tensor(input_ids, device=self.device).long()
         T = ids.shape[1]
-        pos = torch.arange(T, device=self.device)
+        # under sequence parallelism this rank holds chunk sp-coord of
+        # every row
+        start = 0
+        if _sp_size() > 1:
+            from ..parallel.mesh import get_global_mesh
+            start = get_global_mesh().coord("sp") * T
+        pos = torch.arange(start, start + T, device=self.device)
         x = self.drop(self.wte(ids) + self.wpe(pos)[None])
         g = self._remat_group
         if g:
@@ -342,10 +447,3 @@ def _check_supported(cfg: GPTConfig) -> None:
     if cfg.hidden_size % cfg.num_heads:
         raise ValueError(f"hidden_size {cfg.hidden_size} is not divisible "
                          f"by num_heads {cfg.num_heads}")
-    unported = {"sequence_parallel": cfg.sequence_parallel,
-                "context_parallel": cfg.context_parallel}
-    bad = [k for k, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"GPTConfig {bad}: not ported yet (slice 9b: sequence and "
-            f"context parallelism)")

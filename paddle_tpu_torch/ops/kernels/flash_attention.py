@@ -18,8 +18,9 @@ layout, is kernel K2 (packed_flash.py).
 
 `flash_attention_reference` is the plain PyTorch version: composed f32
 softmax attention with masked scores at -1e30 (the JAX package's `_sdpa`
-convention), differentiable by autograd. The wrappers run it for tensors
-on the CPU; for CUDA tensors they launch the kernels or raise, never
+convention), differentiable by autograd; `flash_attention_bwd_reference`
+is the backward's, from the o and lse it is given, as the kernel's
+backward takes them. The wrappers run them for tensors on the CPU; for CUDA tensors they launch the kernels or raise, never
 falling back. `flash_attention_fwd.launches` and
 `flash_attention_bwd.launches` count the calls that launched the
 forward and the backward kernels.
@@ -39,7 +40,8 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_attention_reference", "supported"]
+           "flash_attention_reference", "flash_attention_bwd_reference",
+           "supported"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -71,6 +73,32 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
+                                  scale: Optional[float] = None):
+    """Plain version of the backward kernel, from the given o and lse
+    (the kernel's contract): delta = rowsum(do * o), P = exp(scale q k^T
+    - lse) under the same mask, then FA2's products, in f64; (dq,
+    dk, dv) in the inputs' dtype. With a block's keys and the o and lse
+    of a longer row (a ring hop's), P is the block's share of that row
+    and the result is the block's part of the row's gradients."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (t.double() for t in (q, k, v, o, do))
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale
+    if causal:
+        t, n = s.shape[-2], s.shape[-1]
+        keep = torch.ones(t, n, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.exp(s - lse.double()[..., None])
+    delta = (dof * of).sum(-1, keepdim=True)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _reference_bwd(q, k, v, do, causal, scale,
@@ -217,12 +245,14 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                         scale: Optional[float] = None):
     """Backward from the forward's out and lse: (dq, dk, dv). CPU
-    tensors recompute through the plain version's autograd; CUDA tensors
-    launch the kernels."""
+    tensors run the plain version from the same o and lse
+    (flash_attention_bwd_reference); CUDA tensors launch the kernels."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, o, lse, do):
-        return _reference_bwd(q, k, v, do, causal, scale)
+        with torch.no_grad():
+            return flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                 causal, scale)
     out = launch_bwd(q, k, v, o, lse, do, causal, scale)
     flash_attention_bwd.launches += 1
     return out

@@ -62,6 +62,10 @@ class Optimizer:
         self._current_param_name = None
         # AMP O2 master weights (amp.decorate turns this on)
         self._multi_precision = False
+        # {parameter name: process group} for the parameters a sharded
+        # train step updates in pieces split over the group's ranks:
+        # Lamb's and Lars's norms are of the whole parameter
+        self._norm_groups: Dict[str, object] = {}
 
     # --------------------------------------------------------------- lr
     def get_lr(self) -> float:
@@ -95,6 +99,18 @@ class Optimizer:
             st["master"] = master
             return st
         return self._init_state(t)
+
+    def _whole_norm(self, t):
+        """The L2 norm of the parameter being updated whose piece (or
+        whole) is `t`: the square root of its pieces' sums of squares,
+        all-reduced over the group in _norm_groups (none: `t` is
+        whole)."""
+        sq = t.square().sum()
+        pg = self._norm_groups.get(self._current_param_name)
+        if pg is not None:
+            from ..distributed import collective as C
+            C._all_reduce(sq, C.ReduceOp.SUM, pg)
+        return sq.sqrt()
 
     def _apply_one(self, p, g, state, lr):
         if "master" in state:

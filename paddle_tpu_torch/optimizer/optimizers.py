@@ -259,10 +259,6 @@ class RMSProp(Optimizer):
         return p, state
 
 
-def _norm(t):
-    return t.square().sum().sqrt()
-
-
 class Lamb(Optimizer):
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
@@ -292,7 +288,7 @@ class Lamb(Optimizer):
         b2p = state["beta2_pow"].mul_(b2)
         r = (m / (1 - b1p)) / (torch.sqrt(v / (1 - b2p)) + self._epsilon) \
             + wd * p
-        w_norm, r_norm = _norm(p), _norm(r)
+        w_norm, r_norm = self._whole_norm(p), self._whole_norm(r)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
         p.sub_(lr * trust * r)
@@ -319,7 +315,7 @@ class Lars(Optimizer):
         name = self._current_param_name or ""
         if any(e in name for e in self._exclude):
             wd = 0.0
-        p_norm, g_norm = _norm(p), _norm(g)
+        p_norm, g_norm = self._whole_norm(p), self._whole_norm(g)
         local_lr = torch.where(
             (p_norm > 0) & (g_norm > 0),
             lr * self._lars_coeff * p_norm

@@ -42,11 +42,27 @@ as the JAX step is, and gives its loss and parameters:
   backward; `unshard()` (every rank calls it) puts the whole parameters
   back into the model, for a checkpoint or an evaluation, and the next
   step shards them again;
+- sequence parallelism (sp > 1): each rank also takes its chunk of
+  every row's positions (`shard_batch` splits dim 1 over "sp", the JAX
+  package's activation layout), sp joins the averaged axes (each sp
+  rank's gradient is that of its share of the mean: the attention's
+  collectives carry the cross-chunk terms home) and the returned loss is
+  the mean over sp too;
+- pipeline parallelism (pp > 1): the pipeline containers
+  (parallel/pipeline.py) own their pp collectives; a parameter marked
+  ("pp", ...) is a stage's slab, split over pp and never averaged over
+  it, and the replicated ones come out of the pipeline with equal
+  gradients on every stage;
 - clipping: ClipGradByGlobalNorm (and ClipGradByNorm) sum the squares of
   the pieces each rank holds and all-reduce them over the group the
-  pieces are split over (sharding for ZeRO chunks, tp or ep for split
-  parameters), so every rank clips with the norm of the whole gradient;
-  ClipGradByValue clamps the pieces;
+  pieces are split over (sharding for ZeRO chunks, pp, tp or ep for
+  split parameters), so every rank clips with the norm of the whole
+  gradient; ClipGradByValue clamps the pieces; any other clip runs its
+  `clip_arrays` on the whole gradients, as the JAX step does (pieces
+  are all-gathered first and cut again after);
+- Lamb and Lars take each parameter's norm whole: over ZeRO chunks and
+  pp / tp / ep slices the optimizer's `_whole_norm` all-reduces the
+  pieces' sums of squares over the same group;
 - gradient merge (grad_accum_steps k > 1): the local gradients of k
   calls accumulate as sum(g / k); the k-th call reduces and applies
   them (the JAX step's accumulator and lax.cond), so the merge costs
@@ -57,10 +73,7 @@ as the JAX step is, and gives its loss and parameters:
 At sharding degree 1 (one GPU) the ZeRO stages still go through the
 bucket path (a reduce-scatter and an all-gather over a group of one),
 so a run on one card exercises NCCL; the updates are then those of
-jit.TrainStep. Lamb and Lars need the norm of the whole parameter in
-each update and are refused over ZeRO chunks or tensor-parallel
-slices (slice 9c). Pipeline and sequence axes (pp, sp > 1) wait for
-slice 9b.
+jit.TrainStep.
 
 `shard_activation` and `shard_batch_activation` keep their names and
 return their input: torch has no layout constraint to attach.
@@ -74,7 +87,6 @@ import numpy as np
 import torch
 
 from ..core.tensor import box, plain, plain_dispatch
-from ..core.unported import not_ported
 from . import mesh as _mesh
 
 __all__ = ["P", "shard_activation", "shard_batch_activation",
@@ -100,22 +112,30 @@ def shard_batch_activation(x):
 
 
 def shard_batch(data, mesh=None, spec=("dp",)):
-    """This rank's rows of the global batch `data`: dim 0 split evenly
+    """This rank's piece of the global batch `data`: dim 0 split evenly
     over the mesh axes in `spec` (the rank's index along them, row-major
-    in the mesh's axis order)."""
+    in the mesh's axis order) and, on a mesh with sp > 1, dim 1 (the
+    sequence) over "sp"."""
     mesh = mesh or _mesh.ensure_global_mesh()
     t = torch.from_numpy(np.asarray(data)) if isinstance(
         data, np.ndarray) else plain(data)
-    axes = tuple(a for a in spec if mesh.shape.get(a, 1) > 1)
-    if not axes or not torch.is_tensor(t) or t.ndim == 0:
+    if not torch.is_tensor(t) or t.ndim == 0:
         return box(t)
-    n = mesh.axis_size(axes)
-    if t.shape[0] % n:
-        raise ValueError(f"batch of {t.shape[0]} rows does not split over "
+    axes = tuple(a for a in spec if mesh.shape.get(a, 1) > 1)
+    if axes:
+        t = _chunk(t, 0, mesh.axis_size(axes), mesh.coord(axes), axes)
+    sp = mesh.shape.get("sp", 1)
+    if sp > 1 and t.ndim >= 2:
+        t = _chunk(t, 1, sp, mesh.coord("sp"), ("sp",))
+    return box(t)
+
+
+def _chunk(t, dim: int, n: int, i: int, axes):
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {t.shape[dim]} does not split over "
                          f"{axes} ({n} ranks)")
-    rows = t.shape[0] // n
-    i = mesh.coord(axes)
-    return box(t[i * rows:(i + 1) * rows])
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
 
 
 def mark_sharding(param, *spec):
@@ -278,26 +298,16 @@ class ShardedTrainStep:
         self._acc = None
         self._plan = None
         shape = self.mesh.shape
-        for a in ("pp", "sp"):
-            if shape[a] > 1:
-                not_ported(f"ShardedTrainStep over a mesh with {a}="
-                           f"{shape[a]}", "slice 9b: pipeline and "
-                           "sequence parallelism")
         self._n_shard = shape["sharding"] if self.sharding_stage else 1
-        from ..optimizer import Lamb, Lars
-        if isinstance(optimizer, (Lamb, Lars)) and (
-                shape["tp"] > 1 or shape["ep"] > 1 or self._n_shard > 1):
-            not_ported(f"{type(optimizer).__name__} over sharded "
-                       f"parameters (it needs each whole parameter's "
-                       f"norm)", "slice 9c")
         self.mesh.batch_axes = tuple(a for a in self._batch_spec
                                      if a in _mesh.AXES)
+        sp = {"sp"} if shape["sp"] > 1 else set()
         self._avg_axes = tuple(a for a in _mesh.AXES if a in set(
-            self._batch_spec) | ({"ep"} if shape["ep"] > 1 else set()))
+            self._batch_spec) | ({"ep"} if shape["ep"] > 1 else set()) | sp)
         # every group this step reduces over, made now: new_group is a
         # collective every rank calls in the same order
         self._batch_pg = self.mesh.group(
-            [a for a in self._batch_spec if a in _mesh.AXES])
+            [a for a in self._batch_spec if a in _mesh.AXES] + list(sp))
         for axes in self._groups_needed():
             self.mesh.group(axes)
 
@@ -305,7 +315,7 @@ class ShardedTrainStep:
     def _groups_needed(self):
         shard = ("sharding",) if self.sharding_stage else ()
         rest = tuple(a for a in self._avg_axes if a not in shard)
-        out = [self._avg_axes, rest, ("tp",), ("ep",)]
+        out = [self._avg_axes, rest, ("pp",), ("tp",), ("ep",)]
         if shard:
             out.append(shard)
         for a in ("tp", "ep"):
@@ -448,10 +458,8 @@ class ShardedTrainStep:
         b = self._shards[name]
         if b.kind == "zero":
             return b.shard_pg
-        for a in ("tp", "ep"):
-            if a in b.split:
-                return self.mesh.group(a)
-        return None
+        split = [a for a in ("pp", "tp", "ep") if a in b.split]
+        return self.mesh.group(split) if split else None
 
     @torch.no_grad()
     def _clip(self, grads):
@@ -469,8 +477,7 @@ class ShardedTrainStep:
                 grads[k] = grads[k].clamp(clip.min, clip.max)
             return grads
         if not isinstance(clip, (ClipGradByGlobalNorm, ClipGradByNorm)):
-            not_ported(f"{type(clip).__name__} in ShardedTrainStep",
-                       "slice 9c")
+            return self._clip_whole(clip, grads)
         sq = {k: grads[k].float().square().sum() for k in names}
         groups = {}
         for k in names:
@@ -494,6 +501,40 @@ class ShardedTrainStep:
                 sq[k].sqrt(), min=1e-12), max=1.0)
             grads[k] = grads[k] * scale.to(grads[k].dtype)
         return grads
+
+    def _clip_whole(self, clip, grads):
+        """Any other clip: its clip_arrays over the whole gradients in
+        name order (the JAX step's call), every piece gathered whole
+        first and cut back to this rank's after."""
+        names = sorted(grads)
+        whole = [self._whole_grad(k, grads[k]) for k in names]
+        clipped = clip.clip_arrays(whole)
+        for k, g in zip(names, clipped):
+            grads[k] = self._local_grad(k, g)
+        return grads
+
+    def _whole_grad(self, name, g):
+        from ..distributed import collective as C
+        b = self._shards[name]
+        if b.kind == "full":
+            return whole_piece(g, b.params[b.names.index(name)], self.mesh)
+        i = b.names.index(name)
+        rows = torch.empty((b.n,) + tuple(g.shape), dtype=g.dtype,
+                           device=g.device)
+        if b.shard_pg is None:
+            rows[0].copy_(g)
+        else:
+            C._all_gather(rows, g, b.shard_pg)
+        blocks = rows.unflatten(1, b.chunk_shapes[i])
+        return blocks.flatten(0, 1).movedim(0, b.dims[i])
+
+    def _local_grad(self, name, whole):
+        b = self._shards[name]
+        if b.kind == "full":
+            return local_piece(whole, b.params[b.names.index(name)],
+                               self.mesh)
+        i = b.names.index(name)
+        return _blocks(whole, b.dims[i], b.n)[self._me(b)].reshape(-1)
 
     # ----------------------------------------------------------- apply
     def _state(self, p, chunk):
@@ -523,6 +564,9 @@ class ShardedTrainStep:
             for k, p, v in zip(b.names, b.params, views):
                 flat_params[k] = v
                 states[k] = self._state(p, v)
+        self.optimizer._norm_groups = {
+            k: self._piece_group(k) for k in flat_params
+            if self._piece_group(k) is not None}
         self.optimizer.apply_updates(flat_params, grads, states)
         for b in self._plan:
             if b.kind == "zero" and \

@@ -144,6 +144,13 @@ PyTorch is installed:
   statistics within 1e-5: one-pass against two-pass variance; the
   gradients bitwise, one rank's backward being BatchNorm's arithmetic).
 
+- slice 9b: one ring hop on K1 (a block's forward merged by lse with
+  the diagonal's; the block's backward given the merged o and the whole
+  row's lse) against the plain versions on the CPU, bf16 within 2e-2;
+  DeviceEmbeddingCache on the card against the same cache on the CPU,
+  sgd and adagrad with cold and negative ids: pulled rows and the
+  flushed table bitwise.
+
 float32 matmuls and convolutions run in full float32 (TF32 off for
 cuBLAS and cuDNN, set by the fixture).
 """
@@ -1698,3 +1705,87 @@ def test_sync_batch_norm_matches_batch_norm_on_card(nccl_world):
     # one rank's backward runs BatchNorm's arithmetic: bitwise
     for a, b in zip(outs[0][1:4], outs[1][1:4]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------- slice 9b
+def test_ring_hop_k1_with_a_longer_rows_lse_matches_plain(cuda):
+    """One ring hop on the card: K1's forward on a block of the keys
+    gives the block's (o, lse), which merge into the whole row's; K1's
+    backward on that block, given the merged o and the row's lse, gives
+    the block's share of the row's gradients. Held against the plain
+    versions (the forward's and the backward's, which read the same o
+    and lse) on the CPU: bf16 within 2e-2 (each rounds f32 results to
+    bf16, 2**-8 relative, and the gradients' products take those)."""
+    import importlib
+    R = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    g = torch.Generator().manual_seed(9)
+    q, k, v, do = (torch.randn(1, 2, 256, 128, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    halves = (slice(0, 128), slice(128, 256))
+
+    def run(dev):
+        qd, kd, vd, dod = (t.to(dev) for t in (q, k, v, do))
+        acc = None
+        for s in halves:   # query rows 128-255 see keys 0-127 in full,
+            acc = R.merge(acc, *k1.flash_attention_fwd(   # 128-255 causally
+                qd[:, :, 128:], kd[:, :, s], vd[:, :, s], s.start == 128))
+        o, lse = acc[0].to(torch.bfloat16), acc[1].contiguous()
+        grads = [k1.flash_attention_bwd(qd[:, :, 128:], kd[:, :, s],
+                                        vd[:, :, s], o, lse,
+                                        dod[:, :, 128:], s.start == 128)
+                 for s in halves]
+        return [o, lse] + [t for gr in grads for t in gr]
+
+    before = (k1.flash_attention_fwd.launches,
+              k1.flash_attention_bwd.launches)
+    got = run(cuda)
+    assert (k1.flash_attention_fwd.launches - before[0],
+            k1.flash_attention_bwd.launches - before[1]) == (2, 2)
+    want = run(torch.device("cpu"))
+    for a, b in zip(got, want):
+        a, b = a.float().cpu(), b.float()
+        assert (a - b).abs().max() <= 2e-2 * b.abs().max(), \
+            float((a - b).abs().max())
+
+
+def test_device_cache_on_card_matches_cpu_cache(cuda):
+    """DeviceEmbeddingCache on the card against the same cache on the CPU
+    over two PS servers with the same table, for sgd and adagrad, with
+    cold ids: every pulled row and the flushed table bitwise equal (the
+    indexed updates are IEEE single operations on both; the square root
+    goes through f64 on both)."""
+    from paddle_tpu_torch.distributed.ps import (DeviceEmbeddingCache,
+                                                 ParameterServer, PsClient)
+    for optimizer in ("sgd", "adagrad"):
+        clients, servers, caches = [], [], []
+        for dev in (cuda, torch.device("cpu")):
+            rng = np.random.RandomState(5)
+            srv = ParameterServer(port=0)
+            srv.add_sparse_table(0, dim=16, optimizer=optimizer, lr=0.1,
+                                 initializer=lambda r=rng: r.normal(
+                                     0, 0.01, 16).astype(np.float32))
+            srv.start()
+            c = PsClient([srv.endpoint])
+            c.pull_sparse(0, np.arange(256, dtype=np.int64))
+            servers.append(srv)
+            clients.append(c)
+            caches.append(DeviceEmbeddingCache(c, 0, 192, 16, optimizer,
+                                               0.1, device=dev))
+        try:
+            rng = np.random.RandomState(1)
+            for _ in range(8):
+                ids = rng.randint(-4, 256, 512)
+                uniq, counts = np.unique(ids, return_counts=True)
+                rows = [cache.pull(uniq) for cache in caches]
+                assert torch.equal(rows[0].cpu(), rows[1])
+                scale = torch.from_numpy((counts / 512.0).astype(np.float32))
+                for cache, r in zip(caches, rows):
+                    cache.push(uniq, r * scale.to(r.device)[:, None])
+            for cache in caches:
+                cache.flush()
+            ids = np.arange(-4, 256, dtype=np.int64)
+            np.testing.assert_array_equal(clients[0].pull_sparse(0, ids),
+                                          clients[1].pull_sparse(0, ids))
+        finally:
+            for srv in servers:
+                srv.stop()

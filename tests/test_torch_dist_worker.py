@@ -1,4 +1,6 @@
-"""The ranks of tests/test_torch_distributed.py and test_torch_moe.py.
+"""The ranks of tests/test_torch_distributed.py, test_torch_moe.py,
+test_torch_ring_attention.py, test_torch_pipeline.py,
+test_torch_comm_opt.py and test_torch_ps.py.
 
     python tests/test_torch_dist_worker.py OUT_DIR NPROCS SUITE
 
@@ -7,9 +9,14 @@ paddle_tpu_torch.distributed.spawn. Each rank reads OUT_DIR/inputs.npz
 (weights and batches the test wrote from the JAX package), runs the
 scenarios of SUITE ("distributed": collectives, the training runs
 under Adam and SGD, TP layers, SyncBatchNorm, the fleet; "moe": MoEMLP
-and the MoE GPT at dp 2 x ep 2) and writes
-OUT_DIR/rank{r}.npz. This file imports torch and the port only: the
-JAX references are computed in the pytest process.
+and the MoE GPT at dp 2 x ep 2; "ring": ring and Ulysses attention at
+sp 4 and the sequence- and context-parallel GPT; "pipeline":
+PipelinedGPT at pp 2 x dp 2, PipelineLayer at pp 4, Lamb / Lars and a
+clip of no built-in class over sharded parameters; "comm_opt":
+LocalSGD, adaptive LocalSGD, DGC and the fp16 allreduce at dp 4;
+"ps": fleet.metrics) and writes OUT_DIR/rank{r}.npz. This file imports
+torch and the port only: the JAX references are computed in the pytest
+process.
 """
 import json
 import os
@@ -71,18 +78,24 @@ def _gpt(inp, mesh, cfg_kw=None, prefix="gpt/"):
 
 
 def _train(inp, out, name, mesh_kw, stage=0, k=1, steps=5, sgd=False,
-           moe=False, batch_spec=("dp", "sharding")):
-    """5 Adam (or SGD) steps of the tiny GPT (or the MoE GPT) under
+           moe=False, batch_spec=("dp", "sharding"), cfg_kw=None,
+           adamw=False, make_opt=None):
+    """5 Adam (or SGD, or AdamW, or make_opt(parameters)'s) steps of the
+    tiny GPT (or the MoE GPT, or the GPT with `cfg_kw`) under
     ShardedTrainStep; the losses and the gathered final parameters under
-    `name`, and for the MoE GPT the pairs its blocks dropped at step 1."""
+    `name`, and for the MoE GPT the pairs its blocks dropped at step
+    1."""
     import torch
     from paddle_tpu_torch import optimizer as opt
     from paddle_tpu_torch.models.gpt import gpt_loss_fn
     from paddle_tpu_torch.nn.layer.layers import gather_jax_state
     from paddle_tpu_torch.parallel import ShardedTrainStep, build_mesh
-    model = _gpt(inp, build_mesh(**mesh_kw), MOE_GPT if moe else None,
-                 "moegpt/" if moe else "gpt/")
-    o = opt.SGD(SGD_LR, parameters=model.parameters()) if sgd else \
+    model = _gpt(inp, build_mesh(**mesh_kw),
+                 MOE_GPT if moe else cfg_kw, "moegpt/" if moe else "gpt/")
+    o = make_opt(model.parameters()) if make_opt else \
+        opt.SGD(SGD_LR, parameters=model.parameters()) if sgd else \
+        opt.AdamW(1e-3, epsilon=1e-6, parameters=model.parameters()) \
+        if adamw else \
         opt.Adam(1e-3, epsilon=1e-6, parameters=model.parameters())
     step = ShardedTrainStep(model, gpt_loss_fn, o, sharding_stage=stage,
                             batch_spec=batch_spec, grad_accum_steps=k)
@@ -301,6 +314,269 @@ def _moe(inp, out, name, batch_axes):
         out[f"{name}/local/{k}"] = np.array(p.shape)
 
 
+def _ring(inp, out):
+    """Ring and Ulysses attention at sp 4, causal and full: this rank's
+    chunk of the output and of dq, dk, dv under the loss sum(out * w);
+    then the GPT with context_parallel at sp 4 and dp 2 x sp 2 and the
+    all-gathered keys (sequence_parallel) at dp 2 x sp 2, 3 AdamW and 3
+    SGD steps each."""
+    import torch
+    from paddle_tpu_torch.parallel import (build_mesh, ring_attention,
+                                           set_global_mesh,
+                                           ulysses_attention)
+    mesh = build_mesh(sp=4)
+    set_global_mesh(mesh)
+    i = mesh.coord("sp")
+    for name, fn in (("ring", ring_attention), ("ulysses",
+                                                ulysses_attention)):
+        for causal in (True, False):
+            whole = [torch.from_numpy(inp[f"attn/{t}"]) for t in "qkvw"]
+            tl = whole[0].shape[2] // 4
+            q, k, v, w = (t[:, :, i * tl:(i + 1) * tl].clone()
+                          for t in whole)
+            loc = [t.requires_grad_(True) for t in (q, k, v)]
+            o = fn(*loc, "sp", causal=causal)
+            grads = torch.autograd.grad((o * w).sum(), loc)
+            tag = f"{name}/{'causal' if causal else 'full'}"
+            out[f"{tag}/out"] = o.detach().numpy()
+            for g, t in zip(grads, ("dq", "dk", "dv")):
+                out[f"{tag}/{t}"] = g.numpy()
+    for sgd in (False, True):
+        tag = "_sgd" if sgd else ""
+        _train(inp, out, "cp_sp4" + tag, dict(sp=4), steps=3, sgd=sgd,
+               adamw=not sgd, cfg_kw=dict(context_parallel=True))
+        _train(inp, out, "cp_dp2sp2" + tag, dict(dp=2, sp=2), steps=3,
+               sgd=sgd, adamw=not sgd, cfg_kw=dict(context_parallel=True))
+        _train(inp, out, "ag_dp2sp2" + tag, dict(dp=2, sp=2), steps=3,
+               sgd=sgd, adamw=not sgd, cfg_kw=dict(sequence_parallel=True))
+
+
+class _Block:
+    """test_distributed.py's PipelineLayer block, built on first use (the
+    port's nn needs the CPU set as the device first)."""
+
+    @staticmethod
+    def make():
+        import torch
+        from paddle_tpu_torch import nn
+
+        class Block(nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.fc1 = nn.Linear(16, 32)
+                self.fc2 = nn.Linear(32, 16)
+                self.ln = nn.LayerNorm(16)
+
+            def forward(self, x):
+                return self.ln(x + self.fc2(torch.tanh(self.fc1(x))))
+        return Block()
+
+
+class _ScaleByGlobalNorm:
+    """A clip of no built-in class: every gradient times 1 / (1 + the
+    global norm), so each rank needs the whole gradients (the tests'
+    JAX twin is the same formula)."""
+
+    @staticmethod
+    def make():
+        import torch
+        from paddle_tpu_torch.nn.clip import ClipGradBase
+
+        class ScaleByGlobalNorm(ClipGradBase):
+            def clip_arrays(self, grads, need_clip=None):
+                norm = torch.sqrt(sum(g.float().square().sum()
+                                      for g in grads))
+                return [g / (1.0 + norm) for g in grads]
+        return ScaleByGlobalNorm()
+
+
+SHARDED_OPT = {
+    # Lamb and Lars over ZeRO chunks and tp slices, and an SGD whose clip
+    # is no built-in class: each needs whole parameters or gradients
+    "lamb": (dict(sharding=2, tp=2), 2),
+    "lars": (dict(sharding=4), 1),
+    "clip": (dict(sharding=2, tp=2), 2),
+}
+
+
+def _sharded_opts(inp, out):
+    from paddle_tpu_torch import optimizer as opt
+    makers = {
+        "lamb": lambda ps: opt.Lamb(1e-3, parameters=ps),
+        "lars": lambda ps: opt.Lars(0.1, momentum=0.9, parameters=ps),
+        "clip": lambda ps: opt.SGD(SGD_LR, parameters=ps,
+                                   grad_clip=_ScaleByGlobalNorm.make())}
+    for name, (mesh_kw, stage) in SHARDED_OPT.items():
+        _train(inp, out, f"opt_{name}", mesh_kw, stage, steps=3,
+               make_opt=makers[name])
+
+
+def _pipeline(inp, out):
+    """PipelinedGPT at pp 2 x dp 2 (5 Adam and 5 SGD steps: losses and
+    the gathered state) and PipelineLayer at pp 4 with 16 microbatches
+    (its output, then 3 AdamW steps); then the sharded optimizer runs
+    (SHARDED_OPT)."""
+    import torch
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.nn.layer.layers import load_jax_state
+    from paddle_tpu_torch.parallel import (ShardedTrainStep, build_mesh,
+                                           set_global_mesh)
+    from paddle_tpu_torch.parallel.pipeline import (PipelinedGPT,
+                                                    PipelineLayer,
+                                                    pipelined_gpt_loss_fn)
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=4,
+                    num_heads=2, max_seq_len=16)
+    state = {k[5:]: inp[k] for k in inp.files if k.startswith("pgpt/")}
+    x, y = torch.from_numpy(inp["x"]), torch.from_numpy(inp["y"])
+    for sgd in (False, True):
+        mesh = build_mesh(dp=2, pp=2)
+        set_global_mesh(mesh)
+        model = PipelinedGPT.load_jax_params(cfg, state, device="cpu",
+                                             mesh=mesh)
+        o = opt.SGD(SGD_LR, parameters=model.parameters()) if sgd else \
+            opt.Adam(1e-3, epsilon=1e-6, parameters=model.parameters())
+        step = ShardedTrainStep(model, pipelined_gpt_loss_fn, o, mesh=mesh)
+        name = "pgpt" + ("_sgd" if sgd else "")
+        out[f"{name}/losses"] = np.array([float(step(x, y))
+                                          for _ in range(5)])
+        for k, v in model.state_dict().items():
+            out[f"{name}/{k}"] = v.numpy()
+        out[f"{name}/local_qkv"] = np.array(
+            model.param("blk.qkv_w").shape)
+    mesh = build_mesh(pp=4)
+    set_global_mesh(mesh)
+    blocks = []
+    for b in range(4):
+        blk = _Block.make()
+        load_jax_state(blk, {k[len(f"blk{b}/"):]: inp[k] for k in inp.files
+                             if k.startswith(f"blk{b}/")})
+        blocks.append(blk)
+    pipe = PipelineLayer(blocks, mesh=mesh, num_micro=16)
+    bx = torch.from_numpy(inp["blk_x"])
+    out["pipe/out"] = pipe(bx).detach().numpy()
+    o = opt.AdamW(1e-2, parameters=pipe.parameters())
+    step = ShardedTrainStep(pipe, lambda m, a, b: ((m(a) - b) ** 2).mean(),
+                            o, mesh=mesh)
+    by = torch.from_numpy(inp["blk_y"])
+    out["pipe/losses"] = np.array([float(step(bx, by)) for _ in range(3)])
+    _sharded_opts(inp, out)
+
+
+def _toy(inp):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn.layer.layers import load_jax_state
+    return load_jax_state(nn.Linear(4, 2), {"weight": inp["toy/weight"],
+                                            "bias": inp["toy/bias"]})
+
+
+def _toy_loss(m, x, y):
+    return ((m(x) - y) ** 2).mean()
+
+
+def _comm_opt(inp, out, rank):
+    """test_strategies.py's cases at dp 4 on its toy Linear(4, 2)."""
+    import torch
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.distributed.fleet.comm_opt import (
+        AdaptiveLocalSGDStep, DGCStep, Fp16AllReduceStep, LocalSGDStep)
+    from paddle_tpu_torch.parallel import build_mesh, set_global_mesh
+    set_global_mesh(build_mesh(dp=4))
+    X, Y = torch.from_numpy(inp["toy/X"]), torch.from_numpy(inp["toy/Y"])
+
+    def weights(tag, model):
+        out[f"{tag}/weight"] = model.weight.detach().numpy().copy()
+        out[f"{tag}/bias"] = model.bias.detach().numpy().copy()
+
+    m = _toy(inp)
+    step = LocalSGDStep(m, _toy_loss, opt.SGD(0.1, parameters=m.parameters()),
+                        k_steps=1)
+    out["localsgd_k1/losses"] = np.array([float(step(X, Y))
+                                          for _ in range(3)])
+    weights("localsgd_k1", m)
+
+    m = _toy(inp)
+    step = LocalSGDStep(m, _toy_loss, opt.SGD(0.1, parameters=m.parameters()),
+                        k_steps=3)
+    for i in range(3):
+        step(X, Y)
+        for r in (0, 1):
+            out[f"localsgd_k3/{i}/rank{r}"] = \
+                step.rank_params(r)["weight"].numpy()
+    weights("localsgd_k3", m)
+
+    for dt in ("bfloat16", "float16"):
+        m = _toy(inp)
+        step = Fp16AllReduceStep(m, _toy_loss,
+                                 opt.SGD(0.1, parameters=m.parameters()),
+                                 dtype=dt)
+        out[f"fp16_{dt}/losses"] = np.array([float(step(X, Y))
+                                             for _ in range(3)])
+        weights(f"fp16_{dt}", m)
+
+    m = _toy(inp)
+    mom = opt.Momentum(0.05, momentum=0.9, parameters=m.parameters())
+    step = DGCStep(m, _toy_loss, mom, rampup_begin_step=2, rampup_step=4,
+                   sparsity=[0.75, 0.9])
+    out["dgc/losses"] = np.array([float(step(X, Y)) for _ in range(20)])
+    out["dgc/density"] = np.array(step.last_density)
+    weights("dgc", m)
+
+    m = _toy(inp)
+    step = AdaptiveLocalSGDStep(m, _toy_loss,
+                                opt.SGD(0.1, parameters=m.parameters()),
+                                init_k_steps=2)
+    losses, ks = [], []
+    for _ in range(6):
+        losses.append(float(step(X, Y)))
+        ks.append(step._k)
+    out["adaptive/losses"] = np.array(losses)
+    out["adaptive/k"] = np.array(ks)
+    weights("adaptive", m)
+
+    for flag, cfg in (("dgc", {"rampup_begin_step": 1, "rampup_step": 2,
+                               "sparsity": [0.8]}),
+                      ("localsgd", {"k_steps": 2, "begin_step": 1})):
+        strat = fleet.DistributedStrategy()
+        setattr(strat, flag, True)
+        setattr(strat, f"{flag}_configs", cfg)
+        fleet.init(is_collective=True, strategy=strat)
+        m = _toy(inp)
+        o = opt.Momentum(0.05, momentum=0.9, parameters=m.parameters()) \
+            if flag == "dgc" else opt.SGD(0.1, parameters=m.parameters())
+        step = fleet.distributed_train_step(m, _toy_loss, o, strategy=strat)
+        out[f"fleet_{flag}/type"] = np.array(type(step).__name__)
+        out[f"fleet_{flag}/losses"] = np.array([float(step(X, Y))
+                                                for _ in range(8)])
+        if flag == "dgc":
+            out["fleet_dgc/density"] = np.array(step.last_density)
+    from paddle_tpu_torch.distributed import collective
+    collective.reset_collective_calls()
+    m = _toy(inp)
+    step = LocalSGDStep(m, _toy_loss, opt.SGD(0.1, parameters=m.parameters()),
+                        k_steps=4)
+    for _ in range(4):
+        step(X, Y)
+    out["localsgd_k4/calls"] = np.array(json.dumps(
+        collective.collective_calls()))
+
+
+def _metrics(inp, out, rank):
+    """fleet.metrics over this rank's statistics."""
+    from paddle_tpu_torch.distributed.fleet import metrics as M
+    st = {k: inp[f"metrics/{k}"][rank] for k in
+          ("stat", "correct", "total", "abserr", "sqrerr", "pos", "neg")}
+    out["metrics/sum"] = M.sum(st["stat"])
+    out["metrics/max"] = M.max(st["stat"])
+    out["metrics/min"] = M.min(st["stat"])
+    out["metrics/acc"] = np.array(M.acc(st["correct"], st["total"]))
+    out["metrics/mae"] = np.array(M.mae(st["abserr"], st["total"]))
+    out["metrics/mse"] = np.array(M.mse(st["sqrerr"], st["total"]))
+    out["metrics/rmse"] = np.array(M.rmse(st["sqrerr"], st["total"]))
+    out["metrics/auc"] = np.array(M.auc(st["pos"], st["neg"]))
+
+
 def _rank_main(out_dir, suite):
     import torch
     import paddle_tpu_torch as paddle
@@ -311,7 +587,15 @@ def _rank_main(out_dir, suite):
     rank, world = env.rank, env.world_size
     inp = np.load(os.path.join(out_dir, "inputs.npz"))
     out = {}
-    if suite == "moe":
+    if suite == "ring":
+        _ring(inp, out)
+    elif suite == "pipeline":
+        _pipeline(inp, out)
+    elif suite == "comm_opt":
+        _comm_opt(inp, out, rank)
+    elif suite == "ps":
+        _metrics(inp, out, rank)
+    elif suite == "moe":
         _moe(inp, out, "dp", ("dp", "sharding"))
         _moe(inp, out, "dpep", ("dp", "ep"))
         for name, spec in (("gpt_dp", ("dp", "sharding")),

@@ -71,11 +71,17 @@ def test_load_jax_params_refuses_mismatched_names():
 
 
 def test_unported_config_fields_raise():
-    """sequence_parallel and context_parallel wait for slice 9b; MoE
-    (slice 9a) builds."""
-    for kw in ("sequence_parallel", "context_parallel"):
-        with pytest.raises(NotImplementedError, match="slice 9b"):
-            GPT(GPTConfig(**{kw: True}, **GEOM_KW), device="cpu")
+    """No GPTConfig field raises any more: sequence_parallel and
+    context_parallel (slice 9b) build, and with no sp mesh the model
+    computes what the plain one does (the JAX package's flags change no
+    result there either); MoE (slice 9a) builds."""
+    ids = np.random.RandomState(2).randint(0, VOCAB, (2, 9))
+    with torch.no_grad():
+        want = GPT(GPTConfig(**GEOM_KW), device="cpu", seed=1)(ids)
+        for kw in ("sequence_parallel", "context_parallel"):
+            got = GPT(GPTConfig(**{kw: True}, **GEOM_KW), device="cpu",
+                      seed=1)(ids)
+            assert torch.equal(got, want), kw
     assert GPT(GPTConfig(moe_experts=4, **GEOM_KW), device="cpu")
     assert GPTConfig.tiny().geom == (2, 4, 16, 64)
 

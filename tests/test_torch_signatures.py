@@ -105,6 +105,13 @@ PORT_ONLY_TRAILING = {
     # the attention route ("ragged" K3 or "bucketed"): the JAX function
     # picks it from a module-level switch
     "inference.serving.attention.paged_decode_step": ["kernel"],
+    "parallel.pipeline.PipelinedGPT": ["device", "seed"],
+    # the torch Module's train(mode); the JAX containers' take none
+    "parallel.pipeline.PipelineLayer.train": ["mode"],
+    "parallel.pipeline.PipelinedGPT.train": ["mode"],
+    # the card the hot rows live on (the JAX cache places them on the
+    # default device or a mesh)
+    "distributed.ps.device_cache.DeviceEmbeddingCache": ["device"],
 }
 
 # the callables whose order was repaired; the walk must find each
@@ -436,6 +443,9 @@ UNPORTED = {
     "fused_scale_relu_matmul.bm": lambda: _k4(bm=256),
     "define_flag.public": lambda: paddle_tpu_torch.core.flags.define_flag(
         "unported_probe", 1, public=False),
+    "DeviceEmbeddingCache.mesh": lambda: paddle_tpu_torch.distributed.ps.
+    DeviceEmbeddingCache(None, 0, 1, 1, mesh=object(), axis="dp",
+                         device="cpu"),
 }
 
 
@@ -1285,26 +1295,20 @@ def test_slice_9a_module_has_every_reference_name(module):
     assert order == names, (module, order, names)
 
 
-# the names of the JAX packages that wait for slices 9b (pipeline, ring
-# and Ulysses attention) and 9c (the transpiler, the fleet's data
-# generators and metrics), and parallel/compat.py's shard_map shim
+# the names of the JAX packages the port has no counterpart for:
+# parallel/compat.py's shard_map shim (a rank here is a process)
 SLICE_9A_WAITS = {
-    "distributed": {"transpiler", "DistributeTranspiler",
-                    "DistributeTranspilerConfig", "ps"},
-    "distributed.fleet": {"data_generator", "DataGenerator",
-                          "MultiSlotDataGenerator",
-                          "MultiSlotStringDataGenerator", "metrics",
-                          "comm_opt"},
-    "parallel": {"ring_attention", "ulysses_attention", "pipeline",
-                 "compat", "shard_map"},
+    "distributed": set(),
+    "distributed.fleet": set(),
+    "parallel": {"compat", "shard_map"},
 }
 
 
 @pytest.mark.parametrize("package", sorted(SLICE_9A_WAITS))
 def test_slice_9a_packages_export_every_reference_name(package):
     """distributed, distributed.fleet and parallel export every public
-    name of the JAX package but those of slices 9b and 9c, and the top
-    level has paddle.DataParallel and parallel."""
+    name of the JAX package (slices 9a and 9b: all but the shard_map
+    shim), and the top level has paddle.DataParallel and parallel."""
     ref = importlib.import_module(f"paddle_tpu.{package}")
     port = importlib.import_module(f"paddle_tpu_torch.{package}")
     names = {n for n in dir(ref) if not n.startswith("_")} - {
@@ -1316,19 +1320,81 @@ def test_slice_9a_packages_export_every_reference_name(package):
 
 
 def test_slice_9a_waits_raise_naming_their_slice():
-    """What slice 9a leaves raises NotImplementedError naming the slice
-    that holds it: GPTConfig's sequence and context parallelism (9b), the
-    fleet's LocalSGD / DGC / fp16_allreduce and parameter server (9c)."""
-    from paddle_tpu_torch.distributed import fleet
+    """What slice 9a left to later slices no longer raises: GPTConfig's
+    sequence and context parallelism, the fleet's LocalSGD / DGC /
+    fp16_allreduce and parameter server (slice 9b). What is still left
+    raises NotImplementedError naming slice 10: the transpiler (it
+    splits a static Program) and the native datafeed that consumes the
+    data generators' files."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.distributed import (DistributeTranspiler,
+                                              DistributeTranspilerConfig,
+                                              fleet)
     for kw in ("sequence_parallel", "context_parallel"):
-        with pytest.raises(NotImplementedError, match="slice 9b"):
-            GPT(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
-                          num_heads=2, max_seq_len=8, **{kw: True}),
-                device="cpu")
-    for flag in ("localsgd", "dgc", "fp16_allreduce"):
+        GPT(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                      num_heads=2, max_seq_len=8, **{kw: True}),
+            device="cpu")
+    for flag, step in (("localsgd", "LocalSGDStep"), ("dgc", "DGCStep"),
+                       ("fp16_allreduce", "Fp16AllReduceStep")):
         s = fleet.DistributedStrategy()
         setattr(s, flag, True)
-        with pytest.raises(NotImplementedError, match="slice 9c"):
-            fleet.fleet.distributed_train_step(object(), None, None, s)
-    with pytest.raises(NotImplementedError, match="slice 9c"):
-        fleet.init_server()
+        model = tnn.Linear(2, 2)
+        got = fleet.fleet.distributed_train_step(
+            model, lambda m, x: m(x).sum(),
+            paddle_tpu_torch.optimizer.SGD(0.1,
+                                           parameters=model.parameters()),
+            s)
+        assert type(got).__name__ == step
+    srv = fleet.init_server(dense_tables={0: dict(shape=(2,))})
+    fleet.run_server()
+    srv.stop()
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        DistributeTranspiler(DistributeTranspilerConfig())
+    for cls in (io.InMemoryDataset, io.QueueDataset):
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            cls()
+
+
+# ------------------------------------------- slice 9b: every public name
+SLICE_9B = ("parallel.pipeline", "parallel.ring_attention",
+            "distributed.fleet.comm_opt", "distributed.fleet.metrics",
+            "distributed.fleet.data_generator", "distributed.ps.table",
+            "distributed.ps.server", "distributed.ps.client",
+            "distributed.ps.device_cache")
+
+
+@pytest.mark.parametrize("module", SLICE_9B)
+def test_slice_9b_module_has_every_reference_name(module):
+    """Every public function, class and constant of slice 9b's JAX
+    modules (pipeline and ring / Ulysses attention, the fleet's
+    comm-opt steps, metrics and data generators, the parameter server)
+    has a counterpart of the same name in the port's module, defined in
+    the reference's order, and every public method of each class exists
+    with the reference's positional order (port-only trailing
+    parameters in PORT_ONLY_TRAILING)."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    ref_mod = importlib.import_module(f"paddle_tpu.{module}")
+    # JAX's PartitionSpec, imported as P, is no name of the module's own
+    names = [n for n in _reference_order(module) if not (
+        callable(getattr(ref_mod, n)) and getattr(
+            getattr(ref_mod, n), "__module__", "") != ref_mod.__name__)]
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+    for name in names:
+        ref = getattr(ref_mod, name)
+        if not inspect.isclass(ref):
+            continue
+        obj = getattr(port, name)
+        for meth, fn in vars(ref).items():
+            if meth.startswith("_") or not callable(fn):
+                continue
+            assert callable(getattr(obj, meth, None)), (name, meth)
+            case = f"{module}.{name}.{meth}"
+            want = _positional(getattr(ref, meth))
+            got = _positional(getattr(obj, meth))
+            assert got[:len(want)] == want, (case, got, want)
+            assert got[len(want):] == PORT_ONLY_TRAILING.get(case, []), \
+                (case, got, want)
