@@ -28,7 +28,8 @@ toolkit. Phases, each of which fails the run (non-zero exit) on error:
 5. one full-width paged_decode_step through the kernel against the dense
    decode_step, logits within 1e-4 * max|logit|;
 6. the serving engine at the full width of the serving bench (GPT 768
-   hidden, 12 layers, 6 heads of 128, vocab 32768, 1024 positions; 16
+   hidden, 6 heads of 128, vocab 32768, 1024 positions; its 12 layers
+   cut to SERVING_LAYERS in phases 5-6e and 23-27; 16
    greedy requests, prompts 64-256, outputs 64-256, staggered arrivals,
    random weights from --seed): every request finishes, the cache audits
    clean, the kernel launched layers x k x chunks times (chunks: the
@@ -421,7 +422,36 @@ workers have ended and torn down after phase 40:
    PS), for sgd and adagrad: every pulled row, the cached table, and
    after flush() every touched row of the PS (cold rows included)
    bitwise equal to a host-only PS run of the same ids; ids/s, the RPCs
-   saved and the rows they carried printed.
+   saved and the rows they carried printed;
+41. the static graph at f32: bench_gpt's GPT (8 x 1024) eagerly and as a
+   static Program (paddle.static: data, program_guard, the GPT built in
+   static mode, F.cross_entropy, append_backward) whose Scope takes the
+   eager parameters by name: the static loss and every parameter
+   gradient equal to the eager step's (bitwise, else within
+   STATIC_F32_REL), K1 launching 12 forward and 12 backward in the
+   Executor's step (its backward is autograd over the forward it ran:
+   no forward op runs twice);
+42. the slice's main path, the reference's static training loop:
+   bench_gpt's GPT at 32 x 1024 as a static Program under
+   static.amp.decorate(AdamW(1e-4, ClipGradByGlobalNorm(1.0))), the
+   Executor on the card, 2 warm-up and 5 timed steps: losses finite
+   and falling, the loss scale alive, K1 launching 12 + 12 a step on
+   bf16 q/k/v, the first loss within the bf16 limit of phase 41's f32
+   model on the same rows (FLASH_REF_MARGIN x the same program through
+   composed attention, at least 2**-8); tokens/s, step ms, peak memory
+   and a profiled step's idle share printed beside phase 9's TrainStep
+   O2;
+43. the inference artifact: clone(for_test=True) of phase 42's trained
+   program, save_inference_model of its logits (torch.export, K1 a
+   custom op in the graph), load_inference_model and a run on the card:
+   logits equal to the Executor's fetch (bitwise, else within 2**-8 of
+   the largest), K1 launching its forward 12 times and no backward;
+44. the DistributeTranspiler: bench_gpt's widths at 2 layers, 4 x 1024,
+   SGD, two pserver programs serving on host threads and the trainer
+   program stepping on the card for 3 steps, the losses within
+   STATIC_PS_REL of the same program trained locally by the Executor;
+   the RPCs and bytes a step printed. Phases 41-44 print their lap
+   beside SLICE_10A_BUDGET_S.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -441,7 +471,9 @@ entries also carry `eager_launches`, phase 9b's counts, and
 `transformer_launches`, phase 16's, `hapi_launches`, phase 28's
 fit, `recompute_launches`, phase 32's timed steps under "full",
 `elastic_launches`, phase 33's workers', `moe_launches`, phase 34's,
-`pipeline_launches`, phase 37's, `ring_launches`, phase 38's ring
+`pipeline_launches`, phase 37's, `static_launches`, phase 42's
+static steps, `artifact_launches`, phase 43's artifact run,
+`ring_launches`, phase 38's ring
 with its max |err| against K1 whole, its times (`ring_ms`, K1 whole's
 `ring_k1_whole_ms`, SDPA's `ring_library_ms`) and bound
 (`ring_bound_ms`), and phase 32's check and times of K1 at the 1.3B
@@ -5737,6 +5769,380 @@ def run_distributed(device, seed: int, ernie: dict, bert: dict,
         dist.destroy_process_group()
 
 
+# ------------------------------------------------------------ phases 41-44
+# the static graph (slice 10a): phases 41-44 should take at most this
+# many seconds together (printed beside their lap; not gated)
+SLICE_10A_BUDGET_S = 60
+STATIC_CHECK_B = 8          # phase 41's rows, f32
+STATIC_STEPS = (2, 5)       # phase 42's warm-up and timed steps
+# phase 44: the bench widths at 2 layers, B 4 x 1024, SGD, 3 steps over
+# two pservers; transpiled losses against the local program's
+STATIC_PS = dict(layers=2, batch=4, steps=3, lr=0.01)
+STATIC_PS_REL = 1e-5
+# phase 41's gate when the static step is not bitwise the eager one
+STATIC_F32_REL = 1e-6
+
+
+def _static_gpt(cfg, B, seed, optimizer=None, amp=False, backward=False):
+    """The reference's static training loop at `cfg`: ids and labels
+    [B, T] as static.data, the port's GPT built in static mode (its
+    startup program draws the weights from `seed`, as an eager GPT of
+    that seed holds them), F.cross_entropy, then append_backward or
+    optimizer.minimize (under static.amp.decorate with amp). Returns the
+    pieces as a dict."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.gpt import GPT
+    T = cfg.max_seq_len
+    main, startup = static.Program(), static.Program()
+    out = {"main": main, "startup": startup}
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            ids = static.data("ids", [B, T], "int64")
+            lab = static.data("lab", [B, T], "int64")
+            model = GPT(cfg, seed=seed)
+            logits = model(ids)
+            loss = paddle.nn.functional.cross_entropy(
+                logits.reshape([-1, cfg.vocab_size]), lab.reshape([-1, 1]))
+            out.update(ids=ids, lab=lab, model=model, logits=logits,
+                       loss=loss)
+            if backward:
+                out["params_grads"] = static.append_backward(loss)
+            if optimizer is not None:
+                opt = static.amp.decorate(optimizer) if amp else optimizer
+                opt.minimize(loss)
+                out["opt"] = opt
+    finally:
+        paddle.disable_static()
+    return out
+
+
+def _gpt_rows(cfg, B, seed):
+    rng = np.random.RandomState(seed)
+    T = cfg.max_seq_len
+    return {"ids": rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int64),
+            "lab": rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int64)}
+
+
+def _k1_counts(reset: bool = False) -> list:
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    torch.cuda.synchronize()
+    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+    counts = [f.launches for f in fns]
+    if reset:
+        for f in fns:
+            f.launches = 0
+    return counts
+
+
+def check_static_f32(device, seed: int) -> dict:
+    """Phase 41: bench_gpt's GPT at STATIC_CHECK_B x 1024 in f32, once
+    eagerly and once as a static Program whose Scope is filled from the
+    eager model's parameters by name; one step each. The static loss and
+    every parameter gradient must equal the eager ones (bitwise
+    expected: the same ops in the same order; else within
+    STATIC_F32_REL relative), and K1 (f32) launches exactly 12 forward
+    and 12 backward in the static step. Returns the eager model (phase
+    42's f32 reference) and the numbers."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_bench
+    cfg = train_bench.bench_config(6)
+    L, B = cfg.num_layers, STATIC_CHECK_B
+    rows = _gpt_rows(cfg, B, seed + 41)
+    eager = GPT(cfg, device=device, seed=seed)
+    x, y = (torch.from_numpy(rows[k]).to(device) for k in ("ids", "lab"))
+    params = dict(eager.named_parameters())
+    loss_e = eager.loss(x, y)
+    grads_e = torch.autograd.grad(loss_e, list(params.values()))
+    grads_e = dict(zip(params, grads_e))
+    prog = _static_gpt(cfg, B, seed, backward=True)
+    scope = static.Scope()
+    names = {p.name: n for n, p in prog["model"].named_parameters()}
+    for pname, sname in names.items():
+        scope.set(pname, params[sname].detach().clone())
+    exe = static.Executor(paddle.CUDAPlace(0))
+    _k1_counts(reset=True)
+    outs = exe.run(prog["main"], feed=rows, fetch_list=[prog["loss"]] + [
+        g for _, g in prog["params_grads"]], scope=scope, return_numpy=False)
+    counts = _k1_counts()
+    loss_s = outs[0].item()
+    bitwise = loss_s == loss_e.item()
+    worst = 0.0
+    for (p, _), g in zip(prog["params_grads"], outs[1:]):
+        want = grads_e[names[p.name]]
+        g = g.detach()
+        if not torch.equal(g, want):
+            bitwise = False
+            worst = max(worst, ((g - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30)).item())
+    rel = abs(loss_s - loss_e.item()) / abs(loss_e.item())
+    print(f"[static f32] bench_gpt B {B} x {cfg.max_seq_len}, f32: static "
+          f"loss {loss_s!r} vs eager {loss_e.item()!r} (relative "
+          f"{rel:.3e}); {len(outs) - 1} parameter gradients, worst "
+          f"|static - eager| / max|eager| {worst:.3e}; bitwise "
+          f"{bitwise}; K1 fwd/bwd {counts} in the static step (want "
+          f"{[L, L]})")
+    _require(counts == [L, L], f"static f32: K1 launched {counts}")
+    _require(bitwise or (rel <= STATIC_F32_REL and worst <= STATIC_F32_REL),
+             f"static f32: loss {rel:.3e}, gradients {worst:.3e} off the "
+             f"eager step")
+    del prog, scope, outs, grads_e, loss_e
+    torch.cuda.empty_cache()
+    return {"eager": eager, "loss": loss_s, "bitwise": bitwise,
+            "grad_err": worst, "counts": counts}
+
+
+def drive_static_amp(device, seed: int, f32: dict, train6: dict) -> dict:
+    """Phase 42, the slice's main path: bench_gpt's GPT at 32 x 1024 as a
+    static Program under static.amp.decorate(AdamW(1e-4,
+    ClipGradByGlobalNorm(1.0))) through the Executor on the card,
+    STATIC_STEPS warm-up and timed steps. Gates: losses finite and
+    falling, the loss scale finite and positive, K1 (bf16: LAST_DTYPE)
+    launching 12 forward and 12 backward a step, and the first loss
+    within the bf16 limit of phase 41's f32 model's loss on the same
+    rows: FLASH_REF_MARGIN x the same program's loss through composed
+    attention (the plain route) against that f32 loss (at least a bf16
+    unit, 2**-8). Printed beside phase 9's TrainStep O2: tokens/s, step
+    ms, peak memory and a profiled step's idle share."""
+    import math
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import attention as A
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools import train_bench
+    cfg = train_bench.bench_config(6)
+    L, B, T = cfg.num_layers, train_bench.BATCH, cfg.max_seq_len
+    prog = _static_gpt(cfg, B, seed, AdamW(
+        1e-4, grad_clip=ClipGradByGlobalNorm(1.0)), amp=True)
+    test_prog = prog["main"].clone(for_test=True)
+    feed = _gpt_rows(cfg, B, seed + 42)
+    scope = static.Scope()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    exe.run(prog["startup"], scope=scope)
+    loss = prog["loss"]
+    first_k1 = float(exe.run(test_prog, feed=feed, fetch_list=[loss],
+                             scope=scope)[0])
+    flags.set_flags({"FLAGS_use_flash_attention": False})
+    try:
+        first_plain = float(exe.run(test_prog, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0])
+    finally:
+        flags.set_flags({"FLAGS_use_flash_attention": True})
+    with torch.no_grad():
+        f32_loss = f32["eager"].loss(
+            *(torch.from_numpy(feed[k]).to(device) for k in ("ids", "lab"))
+        ).item()
+    reading = abs(first_plain - f32_loss) / abs(f32_loss)
+    limit = FLASH_REF_MARGIN * max(reading, 2.0 ** -8)
+    warm, timed = STATIC_STEPS
+    scale = prog["opt"].get_loss_scaling()
+
+    def step():
+        return exe.run(prog["main"], feed=feed, fetch_list=[loss, scale],
+                       scope=scope)
+
+    torch.cuda.reset_peak_memory_stats()
+    _k1_counts(reset=True)
+    losses, scales, step_s = [], [], []
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        lv, sv = step()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+        scales.append(float(sv))
+    counts = _k1_counts()
+    dtype = A.LAST_DTYPE
+    timed_s = sum(step_s[warm:])
+    tps = B * T * timed / timed_s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    groups = (train_bench._GPT_GROUPS, ("cross_entropy", "optimizer"))
+    prof = train_bench.profile_steps(lambda: step()[0], (), 1, *groups)
+    n = warm + timed
+    # phase 9's TrainStep O2 at the same geometry, one profiled step
+    # after a warm-up one: its idle share beside the static step's
+    model, tstep, x, y = train_bench.build(6, seed, device)
+    tstep(x, y).item()
+    train6 = dict(train6, idle_share=train_bench.profile_steps(
+        tstep, (x, y), 1, *groups)["idle_share"])
+    del model, tstep, x, y
+    rel = abs(losses[0] - f32_loss) / abs(f32_loss)
+    print(f"[static amp] bench_gpt {B} x {T} as a static Program, "
+          f"static.amp bf16 + AdamW + clip: losses "
+          f"{[round(v, 5) for v in losses]}, loss scale {scales[-1]}; "
+          f"first loss {losses[0]:.6f} (the test clone through K1 "
+          f"{first_k1:.6f}, through composed attention {first_plain:.6f})"
+          f" vs phase 41's f32 model on these rows {f32_loss:.6f}: "
+          f"relative {rel:.3e} (limit {limit:.3e} = {FLASH_REF_MARGIN} x "
+          f"max(composed's {reading:.3e}, 2**-8))")
+    print(f"[static amp] K1 fwd/bwd {counts} over {n} steps (want "
+          f"{[L * n, L * n]}), q dtype {dtype}; step ms "
+          f"{[round(t * 1e3, 1) for t in step_s]}; tokens/s {tps:.1f} "
+          f"(TrainStep O2, phase 9: {train6['tokens_per_sec']:.1f}), step "
+          f"ms {timed_s / timed * 1e3:.1f} (TrainStep "
+          f"{B * T / train6['tokens_per_sec'] * 1e3:.1f}), peak memory "
+          f"{peak:.2f} GB (TrainStep {train6['peak_mem_gb']:.2f}), idle "
+          f"share {prof['idle_share']:.4f} (TrainStep "
+          f"{train6['idle_share']:.4f}); one profiled step's groups "
+          f"{prof['groups_s']}")
+    _require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    _require(losses[-1] < losses[0], f"static AMP loss did not fall: "
+                                     f"{losses}")
+    _require(all(math.isfinite(v) and v > 0 for v in scales),
+             f"loss scale {scales}")
+    _require(counts == [L * n, L * n], f"static amp: K1 launched {counts}")
+    _require(dtype == torch.bfloat16, f"static amp: K1 saw {dtype}")
+    _require(rel <= limit, f"static amp: first loss {losses[0]} off the "
+                           f"f32 loss {f32_loss} by {rel:.3e} > {limit:.3e}")
+    return {"prog": prog, "scope": scope, "exe": exe, "feed": feed,
+            "counts": counts, "losses": losses, "tokens_per_sec": tps,
+            "step_ms": timed_s / timed * 1e3, "peak_mem_gb": peak,
+            "idle_share": prof["idle_share"]}
+
+
+def check_static_artifact(device, amp: dict, tmp: str) -> dict:
+    """Phase 43: clone(for_test=True) of phase 42's trained program,
+    save_inference_model of its logits, load_inference_model, and a run
+    of the artifact on the card: its logits equal the Executor's fetch
+    of the same program (bitwise expected: the same kernels in the same
+    order; else within a bf16 unit of the largest logit), and it
+    launches K1's forward once per layer and no backward."""
+    import torch
+    from paddle_tpu_torch import static
+    prog, scope, exe, feed = (amp[k] for k in ("prog", "scope", "exe",
+                                                "feed"))
+    L = prog["model"].cfg.num_layers
+    test_prog = prog["main"].clone(for_test=True)
+    (want,) = exe.run(test_prog, feed=feed, fetch_list=[prog["logits"]],
+                      scope=scope, return_numpy=False)
+    want = want.detach()
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "gpt")
+    with static.scope_guard(scope):
+        static.save_inference_model(path, [prog["ids"]], [prog["logits"]],
+                                    exe, program=test_prog)
+    infer, feeds, fetches = static.load_inference_model(path)
+    saved = time.perf_counter() - t0
+    _k1_counts(reset=True)
+    t1 = time.perf_counter()
+    (got,) = infer(feed["ids"])
+    counts = _k1_counts()
+    ran = time.perf_counter() - t1
+    bitwise = torch.equal(got, want)
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    size = os.path.getsize(path + ".pdmodel")
+    print(f"[static artifact] torch.export of the test clone's logits "
+          f"({feeds} -> {fetches}, {size / 1e6:.1f} MB) saved and loaded "
+          f"in {saved:.1f} s, run in {ran * 1e3:.1f} ms: logits "
+          f"{tuple(got.shape)} {got.dtype}, bitwise the Executor's "
+          f"{bitwise} (max |diff| / max|logit| {err:.3e}, limit 2**-8); "
+          f"K1 fwd/bwd {counts} (want {[L, 0]})")
+    _require(counts == [L, 0], f"artifact: K1 launched {counts}")
+    _require(bitwise or err <= 2.0 ** -8,
+             f"artifact logits off the Executor's by {err:.3e}")
+    return {"counts": counts, "bitwise": bitwise, "err": err}
+
+
+def drive_static_ps(device, seed: int) -> dict:
+    """Phase 44: bench_gpt's widths at STATIC_PS["layers"] layers, B 4 x
+    1024, SGD, as a static Program trained locally by the Executor on
+    the card and, again from the same seed, transpiled: two pserver
+    programs serve its parameters from host threads and the trainer
+    program steps on the card. The transpiled losses must be within
+    STATIC_PS_REL of the local ones; the RPCs and bytes a step are
+    printed."""
+    import dataclasses
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import DistributeTranspiler
+    from paddle_tpu_torch.distributed.parallel import free_port
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.tools import train_bench
+    cfg = dataclasses.replace(train_bench.bench_config(6),
+                              num_layers=STATIC_PS["layers"])
+    B, n, lr = STATIC_PS["batch"], STATIC_PS["steps"], STATIC_PS["lr"]
+    feed = _gpt_rows(cfg, B, seed + 44)
+    runs = {}
+    for mode in ("local", "transpiled"):
+        prog = _static_gpt(cfg, B, seed, SGD(lr))
+        scope = static.Scope()
+        exe = static.Executor(paddle.CUDAPlace(0))
+        exe.run(prog["startup"], scope=scope)
+        if mode == "local":
+            runs[mode] = [float(exe.run(prog["main"], feed=feed,
+                                        fetch_list=[prog["loss"]],
+                                        scope=scope)[0]) for _ in range(n)]
+            continue
+        eps = [f"127.0.0.1:{free_port()}", f"127.0.0.1:{free_port()}"]
+        t = DistributeTranspiler()
+        t.transpile(trainer_id=0, program=prog["main"],
+                    pservers=",".join(eps), trainers=1)
+        servers = [t.get_pserver_program(ep) for ep in eps]
+        for sv in servers:
+            sv.serve(block=False)
+        try:
+            trainer = t.get_trainer_program()
+            t0 = time.perf_counter()
+            runs[mode] = [float(exe.run(trainer, feed=feed,
+                                        fetch_list=[prog["loss"]],
+                                        scope=scope)[0]) for _ in range(n)]
+            took = time.perf_counter() - t0
+        finally:
+            for sv in servers:
+                sv.stop()
+    stats = trainer.rpc_stats
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["transpiled"],
+                                                  runs["local"]))
+    print(f"[static ps] {cfg.num_layers} layers, B {B} x "
+          f"{cfg.max_seq_len}, SGD {lr}, 2 pservers on host threads: "
+          f"transpiled losses {runs['transpiled']} vs local "
+          f"{runs['local']} (worst relative {rel:.3e}, limit "
+          f"{STATIC_PS_REL:g}); a step: {stats['pulls'] // n} pulls and "
+          f"{stats['pushes'] // n} pushes of "
+          f"{len(trainer.param_names)} tables, "
+          f"{stats['bytes'] / n / 1e6:.1f} MB, {took / n:.2f} s")
+    _require(rel <= STATIC_PS_REL, f"transpiled losses off the local run "
+                                   f"by {rel:.3e}")
+    return {"losses": runs, "rel": rel, "rpc": stats}
+
+
+def run_static(device, seed: int, train6: dict, lap) -> dict:
+    """Phases 41-44 (the static graph); returns K1's launches on the
+    static main path (phase 42) and in the artifact (phase 43)."""
+    import torch
+    f32 = check_static_f32(device, seed)
+    amp = drive_static_amp(device, seed, f32, train6)
+    del f32
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    try:
+        art = check_static_artifact(device, amp, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = amp["counts"]
+    del amp
+    torch.cuda.empty_cache()
+    drive_static_ps(device, seed)
+    torch.cuda.empty_cache()
+    lap("static graph, phases 41-44")
+    print(f"[time] phases 41-44: {lap.seconds['static graph, phases 41-44']}"
+          f" s (budget {SLICE_10A_BUDGET_S} s; not gated)")
+    return {"static_launches": counts, "artifact_launches": art["counts"]}
+
+
+# the serving and fleet phases' depth (the serving bench's 12 layers cut
+# to keep the run in its time since phases 41-44 joined it; K3's shapes
+# do not depend on the depth)
+SERVING_LAYERS = 4
+
+
 def run_serving(device, seed: int) -> dict:
     """Phases 3-6e and the fleet phases 23-27; returns K3's kernel entry
     (its launches from phase 6, 6a-6d's in pass_launches, 23-27's in
@@ -5752,9 +6158,9 @@ def run_serving(device, seed: int) -> dict:
     timing = time_k3(device, seed)
     full = time_k3(device, seed, FULL_LENGTHS, "full-context")
 
-    # the serving bench's model and engine (K3_SHAPE), warmed up on two
-    # short requests
-    model, ecfg = serving_setup(device, seed)
+    # the serving bench's model and engine (K3_SHAPE) at SERVING_LAYERS
+    # layers, warmed up on two short requests
+    model, ecfg = serving_setup(device, seed, num_layers=SERVING_LAYERS)
     cfg = model.cfg
     check_logits(model, device, seed)
     specs = bench_traffic(cfg.vocab_size, seed)
@@ -5919,6 +6325,7 @@ def main(argv=None) -> int:
     lap("elastic, phase 33")
     dist = run_distributed(device, args.seed, ernie, bert, resnet, gpt13,
                            lap)
+    static_k1 = run_static(device, args.seed, train[6], lap)
     print(f"[time] seconds by phase group: {lap.seconds}")
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
@@ -5953,6 +6360,8 @@ def main(argv=None) -> int:
                 ring_k1_whole_ms=dist["ring"]["ms"][f"k1_{d}"],
                 ring_library_ms=dist["ring"]["ms"][f"sdpa_{d}"],
                 ring_bound_ms=dist["ring"]["bounds"][d],
+                static_launches=static_k1["static_launches"][i],
+                artifact_launches=static_k1["artifact_launches"][i],
                 gpt13_max_abs_err=k1_big[0][("fwd", "bwd")[i]],
                 **{f"gpt13_{key}": k1_big[1][i][key] for key in (
                     "ms", "plain_ms", "library_ms", "bound_ms",

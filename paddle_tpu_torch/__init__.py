@@ -41,8 +41,11 @@ batch and the fluid-era dataset generators; data, ZeRO, tensor and
 expert parallelism over torch.distributed (parallel.ShardedTrainStep
 and the rank mesh, the collectives, spawn and launch, DataParallel, the
 tensor-parallel layers, MoE, SyncBatchNorm and the fleet's collective
-path). A name of paddle_tpu's top level that is not ported is absent
-here.
+path); pipeline, ring / Ulysses context parallelism and the parameter
+server; and the static graph (paddle.static: Program capture, the
+Executor, append_backward, static.nn / amp / io, enable_static /
+disable_static) with the DistributeTranspiler. A name of paddle_tpu's
+top level that is not ported is absent here.
 """
 from .core import errors
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
@@ -57,7 +60,6 @@ from .core.place import (CPUPlace, CUDAPlace, Place, device_count,
                          set_device)
 from .core.random import get_rng_state, seed
 from .core.tensor import Tensor, to_tensor
-from .core.unported import not_ported as _not_ported
 from .framework_io import load, save
 from .ops import *  # noqa: F401,F403
 from . import ops  # noqa: F401
@@ -84,20 +86,27 @@ _register_aliases()
 bool8 = bool_
 
 
+from . import static, utils  # noqa: E402
+from .static.mode import (  # noqa: E402
+    disable_static, enable_static, in_dynamic_mode)
+from .static.nn import create_global_var  # noqa: E402
+from .static.program import create_parameter, data  # noqa: E402
+
+
 def in_dygraph_mode() -> bool:
-    """The port runs eagerly only: always True."""
-    return True
+    """True unless enable_static() turned static capture on."""
+    return in_dynamic_mode()
 
 
 def enable_dygraph(place=None):
-    """Eager mode is the port's only mode: nothing to enable (place is
-    accepted and ignored, as in the reference)."""
+    """Leave static mode if it was entered (eager is the default; place
+    is accepted and ignored, as in the reference)."""
+    disable_static()
 
 
 def disable_dygraph():
-    """Static graphs are not ported yet."""
-    _not_ported("paddle.disable_dygraph (static graph mode)",
-                "ROADMAP Queue 1 item 8, static/")
+    """Enter static mode (paddle.enable_static)."""
+    enable_static()
 
 
 __version__ = "0.1.0"

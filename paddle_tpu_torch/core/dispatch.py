@@ -42,6 +42,10 @@ class _State:
     depth = 0
     # the AMP hook, fn(op_type, args, kwargs) -> (args, kwargs), or None
     amp = None
+    # static capture (static/program.py, while static mode is on):
+    # fn(op_type, fn, args, kwargs, differentiable) -> the recorded
+    # outputs, or NotImplemented when no argument is a static Variable
+    capture = None
 
 
 def register_amp_hook(fn):
@@ -63,8 +67,12 @@ def has_tensor(args, kwargs) -> bool:
 
 def _plain_arg(a):
     # a parameter passes as itself (an op may write to it, as assign's
-    # output does): under _DIS it acts as a plain tensor
-    return plain(a) if type(a) is Tensor else a
+    # output does): under _DIS it acts as a plain tensor; a static
+    # Variable passes as the plain meta tensor it holds
+    if type(a) is Tensor:
+        return plain(a)
+    return a.__dict__.get("_static_meta", a) if isinstance(a, Tensor) \
+        else a
 
 
 def _unwrap(a):
@@ -105,13 +113,19 @@ def outermost(fn: Callable, *args, **kwargs):
 
 def op(op_type: str, differentiable: bool = True):
     """Declare a functional as op `op_type` (the JAX package's name).
-    differentiable is accepted for the reference's signature: torch
-    decides from the operations the function runs."""
+    differentiable marks the outputs of a statically captured call
+    stop_gradient; eager torch decides from the operations the function
+    runs."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             if _State.amp is not None:
                 args, kwargs = _State.amp(op_type, args, kwargs)
+            if _State.capture is not None:
+                out = _State.capture(op_type, fn, args, kwargs,
+                                     differentiable)
+                if out is not NotImplemented:
+                    return out
             if _State.depth:
                 return fn(*args, **kwargs)
             if has_tensor(args, kwargs):

@@ -69,6 +69,9 @@ DeviceLike = Optional[Union[str, torch.device, Place]]
 
 # set_device's choice; None means the port's default, CUDA
 _default: Optional[torch.device] = None
+# the meta device while static capture is on (static/program.py): a
+# layer built then holds no device memory
+_capture_device: Optional[torch.device] = None
 
 
 def _as_torch(device) -> torch.device:
@@ -89,6 +92,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     -> the CPU; "cuda"/"gpu"/"cuda:N"/"gpu:N" or a Place -> that device.
     Raises ValueError for any other device type and RuntimeError for
     CUDA when no GPU is visible."""
+    if device is None and _capture_device is not None:
+        return _capture_device
     if device is None and _default is not None:
         return _default
     dev = _as_torch("cuda" if device is None else device)

@@ -111,10 +111,20 @@ class _Shape(list):
         return eq if eq is NotImplemented else not eq
 
 
+# static/program.py sets this while static capture is on: fn(plain
+# tensor) -> the static Variable the tensor aliases, or None
+_static_lookup = None
+
+
 def box(out):
     """Plain torch.Tensor results (also inside a list or tuple) as
-    Tensors; anything else unchanged."""
+    Tensors (a static Variable's alias as that Variable); anything else
+    unchanged."""
     if type(out) is torch.Tensor:
+        if _static_lookup is not None:
+            v = _static_lookup(out)
+            if v is not None:
+                return v
         return torch.Tensor.as_subclass(out, Tensor)
     if type(out) in (list, tuple):
         return type(out)(box(o) for o in out)

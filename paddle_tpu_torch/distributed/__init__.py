@@ -1,10 +1,8 @@
 """paddle.distributed (port of paddle_tpu/distributed/__init__.py): the
 collectives over torch.distributed, the parallel environment and
 DataParallel, spawn and launch, the tensor-parallel layers, MoE, the
-fleet and the elastic supervisor.
-
-Waiting for slice 9c: the transpiler (DistributeTranspiler) and the
-parameter server.
+fleet and the elastic supervisor, the parameter server and the
+DistributeTranspiler over it.
 """
 from .collective import (  # noqa: F401
     ReduceOp, Group, new_group, get_group, all_reduce, all_gather,

@@ -1,4 +1,7 @@
-"""TrainStep (port of paddle_tpu/jit/__init__.py `TrainStep`, :379-627).
+"""TrainStep (port of paddle_tpu/jit/__init__.py `TrainStep`, :379-627),
+MultiStepTrainStep and InputSpec (:36, which paddle.static re-exports).
+to_static, save, load, TracedLayer and TranslatedLayer wait for slice
+10b (ROADMAP Queue 1 item 8).
 
 One call runs the forward and the backward (torch autograd over the
 model's trainable parameters), clips the gradients with the optimizer's
@@ -75,9 +78,25 @@ import numpy as np
 import torch
 
 from ..core.anomaly import _leaves, sanitize_tree, tree_not_finite
+from ..core.dtypes import convert_dtype
 from ..core.tensor import box, plain, plain_dispatch
 
-__all__ = ["TrainStep", "MultiStepTrainStep"]
+__all__ = ["InputSpec", "TrainStep", "MultiStepTrainStep"]
+
+
+class InputSpec:
+    """reference: python/paddle/static/input.py InputSpec (the JAX
+    package's, paddle_tpu/jit/__init__.py:36): a feed's shape, dtype
+    and name."""
+
+    def __init__(self, shape=None, dtype="float32", name=None):
+        self.shape = list(shape) if shape is not None else None
+        self.dtype = convert_dtype(dtype)
+        self.name = name
+
+    def __repr__(self):
+        return f"InputSpec(shape={self.shape}, dtype={self.dtype}, " \
+               f"name={self.name})"
 
 
 def _batch_tokens(args) -> int:

@@ -79,6 +79,7 @@ from ..ops.kernels.flash_attention import (flash_attention_bwd,
                                            flash_attention_fwd)
 from ..parallel.api import local_piece
 from ..parallel.ring_attention import merge, ring_attention
+from ..static.program import ParamVariable, set_initial_value
 
 __all__ = ["GPTConfig", "GPT", "GPTAttention", "sliced_qkv", "gpt_loss_fn"]
 
@@ -351,7 +352,8 @@ class GPT(Layer):
         for name, p in self.named_parameters():
             # drawn whole on the CPU whatever device the layers were
             # built on, then cut to this rank's piece (tp / ep)
-            draw = torch.empty(getattr(p, "_whole_shape", p.shape))
+            draw = torch.empty(tuple(getattr(p, "_whole_shape", p.shape)),
+                               device="cpu")
             last = name.rsplit(".", 1)[-1]
             if name == "wte.weight" or last in ("router", "w_up", "w_down"):
                 draw.normal_(0.0, 0.02, generator=g)
@@ -364,6 +366,10 @@ class GPT(Layer):
                 draw.fill_(1.0)
             else:
                 draw.zero_()
+            if isinstance(p, ParamVariable):
+                # built in static mode: the startup program gives it
+                set_initial_value(p, draw)
+                continue
             p.copy_(local_piece(draw, p))
 
     @property
@@ -386,8 +392,8 @@ class GPT(Layer):
         if _sp_size() > 1:
             from ..parallel.mesh import get_global_mesh
             start = get_global_mesh().coord("sp") * T
-        pos = torch.arange(start, start + T, device=self.device)
-        x = self.drop(self.wte(ids) + self.wpe(pos)[None])
+        pos = torch.arange(start, start + T, device=self.device)[None]
+        x = self.drop(self.wte(ids) + self.wpe(pos))
         g = self._remat_group
         if g:
             blocks = list(self.blocks)

@@ -259,6 +259,14 @@ class _Stats:
         self.mean, self.var = mean, var
 
 
+# a pytree node, so the static capture (static/program.py) finds the
+# running statistics inside the holder and the replay passes the
+# Scope's tensors in their place
+torch.utils._pytree.register_pytree_node(
+    _Stats, lambda s: ((s.mean, s.var), None),
+    lambda children, _: _Stats(*children))
+
+
 @op("batch_norm_infer")
 def _bn_infer(x, stats, weight, bias, epsilon, c_axis, add, act):
     out = _apply_scale_shift(x, stats.mean, stats.var, weight, bias,

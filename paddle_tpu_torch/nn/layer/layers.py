@@ -1,12 +1,15 @@
 """Layer, the base of every port module (port of paddle_tpu/nn/layer/
-layers.py), and `load_jax_state`, which loads the JAX package's state
-into a port module.
+layers.py), `load_jax_state`, which loads the JAX package's state
+into a port module, and `load_jax_scope`, which fills a static Scope
+from the JAX package's.
 
 `Layer` is a torch.nn.Module, so torch's module machinery (registration,
 `to`, train/eval, autograd over parameters) does the work, with Paddle's
 surface on top:
 - `create_parameter(shape, attr, dtype, is_bias, default_initializer)`
-  draws the initial value (attr.initializer, else the default: Constant
+  (in static mode: a static parameter Variable with its init op in the
+  startup program, and `register_buffer` a persistable Variable) draws
+  the initial value (attr.initializer, else the default: Constant
   0 for a bias, XavierNormal otherwise) on the CPU from paddle.seed's
   generator, moves it to the default device when set_device chose one,
   and makes an EagerParamBase with Paddle's unique name, trainable,
@@ -46,9 +49,15 @@ from ...core.dtypes import convert_dtype, get_default_dtype
 from ...core.tensor import EagerParamBase, box, plain
 from .base import ParamAttr
 
-__all__ = ["Layer", "HookRemoveHelper", "load_jax_state", "gather_jax_state"]
+__all__ = ["Layer", "HookRemoveHelper", "load_jax_state", "gather_jax_state",
+           "load_jax_scope"]
 
 _layer_name_counters: Dict[str, int] = collections.defaultdict(int)
+
+
+def _static_mode() -> bool:
+    from ...static import mode
+    return mode._static_mode
 
 
 class HookRemoveHelper:
@@ -97,6 +106,16 @@ class Layer(nn.Module):
         attr = _param_attr(attr)
         init = attr.initializer or default_initializer or \
             (I.Constant(0.0) if is_bias else I.XavierNormal())
+        if _static_mode():
+            # a Variable of the main program, its init op in startup
+            # (paddle_tpu/nn/layer/layers.py:69-78)
+            from ...static.program import create_parameter
+            return create_parameter(
+                shape, convert_dtype(dtype) or self._dtype, name=attr.name,
+                initializer=init, trainable=attr.trainable,
+                regularizer=attr.regularizer,
+                learning_rate=attr.learning_rate, need_clip=attr.need_clip,
+                do_model_average=attr.do_model_average)
         value = init([int(s) for s in shape],
                      convert_dtype(dtype) or self._dtype)
         value = value.to(_place.resolve_device(None))
@@ -105,6 +124,21 @@ class Layer(nn.Module):
             trainable=attr.trainable, learning_rate=attr.learning_rate,
             regularizer=attr.regularizer, need_clip=attr.need_clip,
             do_model_average=attr.do_model_average)
+
+    def register_buffer(self, name, tensor, persistable=True, **kwargs):
+        """A buffer (persistable ones enter state_dict). In static mode a
+        persistable buffer becomes a persistable Variable with its value
+        set by the startup program (paddle_tpu/nn/layer/layers.py:96-106).
+        torch's keyword `persistent` is accepted for `persistable`."""
+        persistable = kwargs.pop("persistent", persistable)
+        if _static_mode() and tensor is not None and persistable:
+            from ...static.nn import persistable_buffer
+            from ...static.program import Variable
+            if not isinstance(tensor, Variable):
+                tensor = persistable_buffer(
+                    plain(tensor), prefix=f"{self._full_name}.{name}")
+        super().register_buffer(name, tensor, persistable)
+        return tensor
 
     def add_parameter(self, name, parameter):
         self.register_parameter(name, parameter)
@@ -258,3 +292,17 @@ def gather_jax_state(module: nn.Module) -> Dict[str, np.ndarray]:
             whole = whole.float()
         out[name] = whole.cpu().numpy()
     return out
+
+
+@torch.no_grad()
+def load_jax_scope(scope, state: Dict[str, np.ndarray]):
+    """Fill a static Scope (paddle_tpu_torch.static) from the JAX
+    package's scope values as numpy, {name: array}, by name: a static
+    program of the same model code has the same variable names in both
+    packages (their Program.unique_name counters), so the two run from
+    the same parameters and accumulators. Values land on the CPU in
+    their dtype (bf16 arrives as f32 numpy and stays f32); an Executor
+    moves them to its device on first use. Returns the scope."""
+    for name, arr in state.items():
+        scope.set(name, torch.from_numpy(np.array(arr, copy=True)))
+    return scope

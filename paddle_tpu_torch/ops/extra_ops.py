@@ -1,7 +1,11 @@
-"""gather_tree, hierarchical_sigmoid and sigmoid_focal_loss (port of the
-parts of paddle_tpu/ops/extra_ops.py that nn/decode.py and
-nn.functional's hsigmoid_loss and sigmoid_focal_loss reach), under the
-JAX package's op types.
+"""gather_tree, hierarchical_sigmoid, sigmoid_focal_loss and py_func
+(port of the parts of paddle_tpu/ops/extra_ops.py that nn/decode.py,
+nn.functional's hsigmoid_loss and sigmoid_focal_loss, and paddle.static
+reach), under the JAX package's op types.
+
+py_func runs a Python callable on the inputs' host copies and returns
+its result on their device; in a static program it is one recorded op
+whose output shape and dtype come from out_template.
 
 sigmoid_focal_loss is RetinaNet's element-wise alpha_t * (1 - p_t) **
 gamma * CE(sigmoid(x), label) / normalizer, unreduced, as in the JAX
@@ -23,7 +27,7 @@ import torch
 from ..core.dispatch import _OP_REGISTRY, get_op, op
 
 __all__ = ["gather_tree", "hierarchical_sigmoid", "sigmoid_focal_loss",
-           "register_legacy_aliases"]
+           "register_legacy_aliases", "py_func"]
 
 
 @op("gather_tree", differentiable=False)
@@ -102,6 +106,39 @@ def sigmoid_focal_loss(x, label, normalizer=1.0, alpha=0.25, gamma=2.0,
     nrm = normalizer if torch.is_tensor(normalizer) else float(normalizer)
     return _sigmoid_focal_loss(x, label.to(x.dtype), nrm, float(gamma),
                                float(alpha))
+
+
+def _py_call(func, xs, out_template):
+    """func on host copies of xs, its result on their device (on meta
+    inputs, during a static capture, out_template's shape and dtype)."""
+    if xs and xs[0].device.type == "meta":
+        if out_template is None:
+            raise ValueError("py_func in a static program needs "
+                             "out_template (an example output)")
+        tmpl = out_template if torch.is_tensor(out_template) else \
+            torch.as_tensor(np.asarray(out_template))
+        return torch.empty(tuple(tmpl.shape), dtype=tmpl.dtype,
+                           device="meta")
+    host = []
+    for t in xs:
+        t = t.detach()
+        host.append((t.float() if t.dtype == torch.bfloat16 else t)
+                    .cpu().numpy())
+    out = torch.as_tensor(np.asarray(func(*host)))
+    return out.to(xs[0].device) if xs else out
+
+
+def py_func(func, x, out_template=None, name=None):
+    """reference: operators/py_func_op.cc: an arbitrary Python callable
+    as an op (on host copies of the inputs); on static Variables, one
+    recorded "py_func" op that calls it at every run."""
+    from ..core.tensor import box, plain
+    from ..static.program import _record, _var_of
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if any(_var_of(t) is not None for t in xs):
+        return _record("py_func", _py_call, (func, xs, out_template), {},
+                       differentiable=False)
+    return box(_py_call(func, [plain(t) for t in xs], out_template))
 
 
 # ----------------------------------------------------------------- aliases

@@ -23,7 +23,12 @@ is the backward's, from the o and lse it is given, as the kernel's
 backward takes them. The wrappers run them for tensors on the CPU; for CUDA tensors they launch the kernels or raise, never
 falling back. `flash_attention_fwd.launches` and
 `flash_attention_bwd.launches` count the calls that launched the
-forward and the backward kernels.
+forward and the backward kernels. The kernels are reached through two
+registered custom ops, `paddle_tpu_torch::flash_attention_fwd` and
+`_bwd`, whose meta versions give the outputs' shapes: the static
+capture infers shapes through them, and torch.export keeps the forward
+as one node of an exported graph, which launches K1 when it runs on
+the card.
 
 Scope (`supported`): Tq and Tk multiples of 128, head dim 64 or 128 (the
 kernel's instances; the TPU kernel also took other multiples of 8 >= 32,
@@ -227,19 +232,55 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+# K1's forward and backward as registered custom ops: the CUDA kernels
+# behind them, and meta versions that give the outputs' shapes, so the
+# static capture (static/program.py) infers shapes through K1 and
+# torch.export keeps K1 as one node of an exported graph
+# (static.save_inference_model)
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) -> "
+           "(Tensor, Tensor)")
+def _fwd_op(q, k, v, causal, scale):
+    out = launch_fwd(q, k, v, causal, scale)
+    flash_attention_fwd.launches += 1
+    return out
+
+
+@_fwd_op.register_fake
+def _fwd_meta(q, k, v, causal, scale):
+    return (torch.empty_like(q),
+            q.new_empty(tuple(q.shape[:3]), dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+           "Tensor do, bool causal, float scale) -> (Tensor, Tensor, "
+           "Tensor)")
+def _bwd_op(q, k, v, o, lse, do, causal, scale):
+    out = launch_bwd(q, k, v, o, lse, do, causal, scale)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+@_bwd_op.register_fake
+def _bwd_meta(q, k, v, o, lse, do, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None):
     """Forward over heads-major [B, H, T, D]: (out, lse f32 [B, H, Tq]).
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (meta tensors get the outputs' shapes)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v):
         with torch.no_grad():
             return flash_attention_reference(q, k, v, causal, scale,
                                              return_lse=True)
-    out = launch_fwd(q, k, v, causal, scale)
-    flash_attention_fwd.launches += 1
-    return out
+    return _fwd_op(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
@@ -253,9 +294,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
         with torch.no_grad():
             return flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                  causal, scale)
-    out = launch_bwd(q, k, v, o, lse, do, causal, scale)
-    flash_attention_bwd.launches += 1
-    return out
+    return _bwd_op(q, k, v, o, lse, do, bool(causal), float(scale))
 
 
 flash_attention_fwd.launches = 0
@@ -298,9 +337,13 @@ def flash_attention(q, k, v, causal: bool = False,
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     if _on_cpu(q, k, v):
         out = flash_attention_reference(q, k, v, causal, scale)
-    else:
+    elif torch.is_grad_enabled() and any(t.requires_grad
+                                         for t in (q, k, v)):
         out = _FlashFn.apply(q, k, v, causal, scale, flash_attention_fwd,
                              flash_attention_bwd)
+    else:  # no gradient asked for: the forward alone (an exported graph
+        # holds it as one node)
+        out = flash_attention_fwd(q, k, v, causal, scale)[0]
     return out if heads_major else out.transpose(1, 2)
 
 

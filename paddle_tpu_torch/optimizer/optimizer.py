@@ -200,9 +200,95 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        from ..static.program import Variable
+        if isinstance(loss, Variable):
+            return self._static_minimize(loss, startup_program, parameters,
+                                         no_grad_set)
         params_grads = self.backward(loss)
         self.step()
         return None, params_grads
+
+    def _static_minimize(self, loss, startup_program=None, parameters=None,
+                         no_grad_set=None, params_grads=None,
+                         found_inf=None):
+        """The static graph's minimize (paddle_tpu/optimizer/
+        optimizer.py:189-283): append_backward, then one `optimize.clip`
+        op over the gradients when there is a grad_clip, then one
+        `optimize.update` op per parameter over this optimizer's own
+        `_update` (in place on the parameter and its accumulators, which
+        the startup program creates as `{param}_{key}_acc`), with the
+        parameter's regularizer (else the optimizer's) and learning-rate
+        multiplier, and the learning rate read at every run. Under AMP
+        the update is dropped, on the device, when found_inf is set."""
+        from ..static import backward as _B
+        from ..static.program import OpDesc, default_startup_program
+        prog = loss.block.program
+        blk = prog.global_block
+        startup = startup_program or default_startup_program()
+        if params_grads is None:
+            params_grads = _B.append_backward(loss, parameters, no_grad_set)
+
+        if self._grad_clip is not None:
+            gnames = [g.name for _, g in params_grads]
+            clip = self._grad_clip
+
+            def clip_fn(*gs):
+                return tuple(clip.clip_arrays(list(gs)))
+
+            blk.append_op(OpDesc("op", "optimize.clip", clip_fn, gnames,
+                                 gnames))
+
+        lr_name = prog.add_runtime_scalar("learning_rate", self.get_lr)
+        update_ops = []
+        for p, g in params_grads:
+            with torch._C.DisableTorchFunction():  # stays on meta
+                tmpl = self._init_state(torch.empty(
+                    tuple(p.shape), dtype=p.dtype, device="meta"))
+            skeys = sorted(tmpl)
+            snames = [f"{p.name}_{k}_acc" for k in skeys]
+            for k, sn in zip(skeys, snames):
+                for b in (blk, startup.global_block):
+                    b.create_var(name=sn, shape=tuple(tmpl[k].shape),
+                                 dtype=tmpl[k].dtype, persistable=True)
+
+                def init_fn(device, _k=k, _shape=tuple(p.shape),
+                            _dtype=p.dtype):
+                    return self._init_state(torch.zeros(
+                        _shape, dtype=_dtype, device=device))[_k]
+
+                startup.global_block.append_op(
+                    OpDesc("init", "fill_accumulator", init_fn, [], [sn]))
+            reg = getattr(p, "regularizer", None) or self.regularization
+
+            def upd(pv, gv, lr, *rest, _skeys=tuple(skeys), _reg=reg,
+                    _mult=self._param_lr(p), _param=p,
+                    _gated=found_inf is not None):
+                finf, svals = (rest[0], rest[1:]) if _gated else \
+                    (None, rest)
+                with torch.no_grad():
+                    pv = pv.detach()
+                    state = dict(zip(_skeys, svals))
+                    keep = [pv.clone()] + [s.clone() for s in svals] \
+                        if _gated else None
+                    if _reg is not None:
+                        gv = _reg.apply(pv, gv)
+                    self._current_param = _param
+                    self._current_param_name = _param.name
+                    pv, state = self._update(pv, gv, state, lr * _mult)
+                    outs = (pv,) + tuple(state[k] for k in _skeys)
+                    if _gated:
+                        # AMP: an overflowing step leaves the parameter
+                        # and its state as they were
+                        for o, k in zip(outs, keep):
+                            torch.where(finf, k, o, out=o)
+                return outs
+
+            extra = [found_inf.name] if found_inf is not None else []
+            update_ops.append(blk.append_op(OpDesc(
+                "op", "optimize.update", upd,
+                [p.name, g.name, lr_name] + extra + snames,
+                [p.name] + snames)))
+        return update_ops, params_grads
 
     @torch.no_grad()
     def apply_gradients(self, params_grads):

@@ -41,18 +41,20 @@ K3_SHAPE = (ENGINE_CONFIG["max_num_seqs"], GPT_CONFIG["num_heads"],
             GPT_CONFIG["max_seq_len"] // ENGINE_CONFIG["block_size"])
 
 
-def serving_setup(device, seed: int):
+def serving_setup(device, seed: int, **cfg_overrides):
     """(model, EngineConfig) of the serving bench at full width
-    (GPT_CONFIG, ENGINE_CONFIG), the model in eval mode, and the engine
-    warmed up on two short requests (library init, allocator).
-    chip_smoke.py and profile_serving.py build theirs here too."""
+    (GPT_CONFIG, ENGINE_CONFIG; cfg_overrides replace GPT_CONFIG's
+    entries, as chip_smoke.py cuts the depth), the model in eval mode,
+    and the engine warmed up on two short requests (library init,
+    allocator). chip_smoke.py and profile_serving.py build theirs here
+    too."""
     import torch
     from paddle_tpu_torch.inference.serving import EngineConfig
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.tools.serving_traffic import (bench_traffic,
                                                         drive_engine)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = GPTConfig(**GPT_CONFIG)
+    cfg = GPTConfig(**{**GPT_CONFIG, **cfg_overrides})
     model = GPT(cfg, device=device, seed=seed)
     model.eval()
     ecfg = EngineConfig(**ENGINE_CONFIG)

@@ -57,6 +57,11 @@ PyTorch is installed:
   step each way; a LeNet Adam TrainStep (batch 8) on CUDA against the
   CPU the same way, and MultiStepTrainStep(k=3) on CUDA equal to three
   TrainStep calls there (losses within 1e-5 relative);
+- the static Executor on the card (a 2-layer GPT Program, K1 forward
+  and backward once per layer a step) against the same program on the
+  CPU, in f32 and under static.amp, and the inference artifact of its
+  clone(for_test) (save_inference_model / load_inference_model)
+  launching K1's forward once per layer with the Executor's logits;
 - K4 (ops/kernels/fused_conv) against its plain version at M 1, 97,
   300, 512 and 6272, K 16 to 2048, N 16 to 512, with and without the
   residual: each element within one bf16 ulp of the plain value plus
@@ -1789,3 +1794,87 @@ def test_device_cache_on_card_matches_cpu_cache(cuda):
         finally:
             for srv in servers:
                 srv.stop()
+
+
+def _static_gpt(T, amp=False, for_test=False):
+    """A 2-layer GPT (one head of 128, K1's head dim) as a static
+    Program with AdamW (under static.amp when amp), from seed 0."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=1, max_seq_len=T)
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            ids = static.data("ids", [2, T], "int64")
+            lab = static.data("lab", [2, T], "int64")
+            logits = GPT(cfg, seed=0)(ids)
+            loss = paddle.nn.functional.cross_entropy(
+                logits.reshape([-1, 256]), lab.reshape([-1, 1]))
+            test_prog = main.clone(for_test=True) if for_test else None
+            opt = paddle.optimizer.AdamW(1e-3)
+            (static.amp.decorate(opt) if amp else opt).minimize(loss)
+    finally:
+        paddle.disable_static()
+    rs = np.random.RandomState(0)
+    feed = {"ids": rs.randint(0, 256, (2, T)).astype(np.int64),
+            "lab": rs.randint(0, 256, (2, T)).astype(np.int64)}
+    return main, startup, loss, logits, ids, test_prog, feed
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["f32", "amp_bf16"])
+def test_static_executor_on_card_matches_cpu(cuda, min_seq_128, amp):
+    """The static Executor on the card (K1 forward and backward, once
+    per layer a step: the backward is autograd over the forward it ran)
+    against the same program on the CPU (K1's plain version): 3 AdamW
+    steps within 1e-4 relative in f32; under static.amp (bf16 q/k/v
+    into K1's bf16 kernels on the card, bf16 on the CPU too) within
+    2e-2."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    main, startup, loss, _, _, _, feed = _static_gpt(128, amp)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        scope = static.Scope()
+        place = paddle.CUDAPlace(0) if dev == "cuda" else paddle.CPUPlace()
+        exe = static.Executor(place)
+        exe.run(startup, scope=scope)
+        before = (k1.flash_attention_fwd.launches,
+                  k1.flash_attention_bwd.launches)
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0]) for _ in range(3)]
+        if dev == "cuda":
+            assert (k1.flash_attention_fwd.launches - before[0],
+                    k1.flash_attention_bwd.launches - before[1]) == (6, 6)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                               rtol=2e-2 if amp else 1e-4)
+
+
+def test_static_inference_artifact_launches_k1_on_card(cuda, min_seq_128,
+                                                       tmp_path):
+    """clone(for_test) of a trained static GPT, save_inference_model of
+    its logits and load_inference_model: the artifact on the card gives
+    the Executor's logits (within 1e-5: both launch the same kernels in
+    the same order) and launches K1's forward once per layer."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    main, startup, loss, logits, ids, test_prog, feed = _static_gpt(
+        128, for_test=True)
+    scope = static.Scope()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    (want,) = exe.run(test_prog, feed=feed, fetch_list=[logits.name],
+                      scope=scope)
+    with static.scope_guard(scope):
+        static.save_inference_model(str(tmp_path / "gpt"), [ids], [logits],
+                                    exe, program=test_prog)
+    prog, feeds, fetches = static.load_inference_model(str(tmp_path / "gpt"))
+    before = k1.flash_attention_fwd.launches
+    (got,) = prog(feed["ids"])
+    torch.cuda.synchronize()
+    assert k1.flash_attention_fwd.launches - before == 2
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=1e-5,
+                               atol=1e-5)

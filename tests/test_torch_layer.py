@@ -311,8 +311,12 @@ def test_set_device_and_places():
         with pytest.raises(RuntimeError):
             p.to_tensor([1.0], place=p.CUDAPlace(0))
     assert p.get_device() == "cpu"
-    with pytest.raises(NotImplementedError):
-        p.disable_dygraph()
+    p.disable_dygraph()   # static mode (slice 10a), left again below
+    try:
+        assert not p.in_dygraph_mode()
+    finally:
+        p.enable_dygraph()
+    assert p.in_dygraph_mode()
 
 
 def test_layers_follow_the_default_device():

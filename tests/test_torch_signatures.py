@@ -1325,7 +1325,8 @@ def test_slice_9a_waits_raise_naming_their_slice():
     fp16_allreduce and parameter server (slice 9b). What is still left
     raises NotImplementedError naming slice 10: the transpiler (it
     splits a static Program) and the native datafeed that consumes the
-    data generators' files."""
+    data generators' files (the transpiler came with the static graph,
+    slice 10a)."""
     from paddle_tpu_torch import io
     from paddle_tpu_torch.distributed import (DistributeTranspiler,
                                               DistributeTranspilerConfig,
@@ -1348,8 +1349,13 @@ def test_slice_9a_waits_raise_naming_their_slice():
     srv = fleet.init_server(dense_tables={0: dict(shape=(2,))})
     fleet.run_server()
     srv.stop()
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        DistributeTranspiler(DistributeTranspilerConfig())
+    # slice 10a ported the transpiler: it refuses only a program with no
+    # backward op
+    from paddle_tpu_torch import static
+    main = static.Program()
+    with pytest.raises(ValueError, match="no backward op"):
+        DistributeTranspiler(DistributeTranspilerConfig()).transpile(
+            0, program=main, pservers="127.0.0.1:1")
     for cls in (io.InMemoryDataset, io.QueueDataset):
         with pytest.raises(NotImplementedError, match="slice 10"):
             cls()
@@ -1398,3 +1404,57 @@ def test_slice_9b_module_has_every_reference_name(module):
             assert got[:len(want)] == want, (case, got, want)
             assert got[len(want):] == PORT_ONLY_TRAILING.get(case, []), \
                 (case, got, want)
+
+
+# ------------------------------------------ slice 10a: every public name
+SLICE_10A = ("static.mode", "static.program", "static.executor",
+             "static.backward", "static.nn", "static.amp", "static.io",
+             "static.proto_io", "static.compat", "static.debug_ops",
+             "static.rnn_shims", "distributed.transpiler")
+
+
+@pytest.mark.parametrize("module", SLICE_10A)
+def test_slice_10a_module_has_every_reference_name(module):
+    """Every public function, class and constant of the JAX package's
+    static modules and transpiler has a counterpart of the same name in
+    the port's module, defined in the reference's order, and every
+    public method of each class exists with the reference's positional
+    order."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    ref_mod = importlib.import_module(f"paddle_tpu.{module}")
+    names = _reference_order(module)
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+    for name in names:
+        ref = getattr(ref_mod, name)
+        if not inspect.isclass(ref):
+            continue
+        obj = getattr(port, name)
+        for meth, fn in vars(ref).items():
+            if meth.startswith("_") or not callable(fn):
+                continue
+            assert callable(getattr(obj, meth, None)), (name, meth)
+            want = _positional(getattr(ref, meth))
+            assert _positional(getattr(obj, meth))[:len(want)] == want, \
+                (module, name, meth)
+
+
+def test_slice_10a_packages_export_every_reference_name():
+    """paddle.static exports every public name of the JAX package's but
+    auc (the port has no batch-AUC op; paddle.metric.Auc streams it);
+    the top level has the mode switches, data, create_parameter and
+    create_global_var; jit has InputSpec; utils has unique_name."""
+    ref = importlib.import_module("paddle_tpu.static")
+    port = importlib.import_module("paddle_tpu_torch.static")
+    names = {n for n in dir(ref) if not n.startswith("_")}
+    assert sorted(names - {"auc"} - set(dir(port))) == []
+    for name in ("enable_static", "disable_static", "in_dynamic_mode",
+                 "in_dygraph_mode", "enable_dygraph", "disable_dygraph",
+                 "data", "create_parameter", "create_global_var", "static",
+                 "utils"):
+        assert hasattr(paddle_tpu_torch, name), name
+    assert hasattr(paddle_tpu_torch.jit, "InputSpec")
+    assert hasattr(paddle_tpu_torch.utils, "unique_name")
