@@ -451,7 +451,29 @@ workers have ended and torn down after phase 40:
    program stepping on the card for 3 steps, the losses within
    STATIC_PS_REL of the same program trained locally by the Executor;
    the RPCs and bytes a step printed. Phases 41-44 print their lap
-   beside SLICE_10A_BUDGET_S.
+   beside SLICE_10A_BUDGET_S;
+45. phase 41 at 12 heads of 64: the static f32 step through K2 (its
+   forward and backward registered custom ops with fake versions) equal
+   to the eager step (bitwise, else within STATIC_F32_REL), K2
+   launching 12 forward and 12 backward in it;
+46. paddle.jit.to_static(GPT) at bench_gpt's 6-head widths, 8 x 1024,
+   f32: logits bitwise the undecorated GPT's of the same seed, three
+   eager AdamW steps through loss.backward() with losses bitwise the
+   undecorated run's, K1 launching 12 + 12 a step; a converted function
+   with a data-dependent if and while equal to its eager run on card
+   tensors;
+47. paddle.jit.save of phase 46's model and of phase 45's 12-head model
+   with InputSpec([None, 1024], "int64"), jit.load's TranslatedLayer
+   and inference.create_predictor at batch 1 and 4 from one export:
+   logits bitwise the eager model's (else within 2**-8 of the largest),
+   K1 (K2) launching 12 forward and 0 backward a run; the artifact's MB
+   and save / load seconds printed; phase 43's static artifact also run
+   once through the Predictor (bitwise the loaded program, K1 12 / 0);
+48. models.generation.export_decoder of the serving GPT (12 layers)
+   and DecoderPredictor.generate of 4 prompts of the exported prefill
+   length, 16 new tokens: equal to generate() except where its top-2
+   margin is under 1e-3; the export seconds printed. Phases 45-48 print
+   their lap beside SLICE_10B_BUDGET_S.
 In each of 23-27 (and in the A/B and rebalance fleets of 24) the router
 failed over exactly the faults the pass injected (none outside 23), no
 replica ended FAILED, no migration or peer fetch aborted or rolled back,
@@ -473,11 +495,16 @@ fit, `recompute_launches`, phase 32's timed steps under "full",
 `elastic_launches`, phase 33's workers', `moe_launches`, phase 34's,
 `pipeline_launches`, phase 37's, `static_launches`, phase 42's
 static steps, `artifact_launches`, phase 43's artifact run,
+`static_predictor_launches`, phase 43's artifact through the Predictor,
+`to_static_launches`, phase 46's three steps, `jit_save_launches` and
+`predictor_launches`, phase 47's batch-4 runs;
 `ring_launches`, phase 38's ring
 with its max |err| against K1 whole, its times (`ring_ms`, K1 whole's
 `ring_k1_whole_ms`, SDPA's `ring_library_ms`) and bound
 (`ring_bound_ms`), and phase 32's check and times of K1 at the 1.3B
 shape (`gpt13_*`);
+K2's causal entries carry `static_launches`, phase 45's, and
+`jit_save_launches` and `predictor_launches`, phase 47's batch-4 runs;
 K2 non-causal's entries carry `fleet_launches`, phase 35's; K3's carries `pass_launches`,
 6a-6d's, and `fleet_launches`, 23-27's),
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -5825,11 +5852,15 @@ def _gpt_rows(cfg, B, seed):
             "lab": rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int64)}
 
 
-def _k1_counts(reset: bool = False) -> list:
+def _flash_counts(kernel: str, reset: bool = False) -> list:
+    """[forward, backward] launches of K1 ("k1") or K2 ("k2"), read after
+    a synchronize; reset sets them to 0 after the read."""
     import torch
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels import packed_flash as k2
     torch.cuda.synchronize()
-    fns = (k1.flash_attention_fwd, k1.flash_attention_bwd)
+    fns = {"k1": (k1.flash_attention_fwd, k1.flash_attention_bwd),
+           "k2": (k2.packed_flash_fwd, k2.packed_flash_bwd)}[kernel]
     counts = [f.launches for f in fns]
     if reset:
         for f in fns:
@@ -5837,23 +5868,25 @@ def _k1_counts(reset: bool = False) -> list:
     return counts
 
 
-def check_static_f32(device, seed: int) -> dict:
-    """Phase 41: bench_gpt's GPT at STATIC_CHECK_B x 1024 in f32, once
-    eagerly and once as a static Program whose Scope is filled from the
-    eager model's parameters by name; one step each. The static loss and
-    every parameter gradient must equal the eager ones (bitwise
-    expected: the same ops in the same order; else within
-    STATIC_F32_REL relative), and K1 (f32) launches exactly 12 forward
-    and 12 backward in the static step. Returns the eager model (phase
-    42's f32 reference) and the numbers."""
+def check_static_f32(device, seed: int, heads: int = 6) -> dict:
+    """Phase 41 (heads 6, K1) and phase 45 (heads 12, K2): bench_gpt's
+    GPT at STATIC_CHECK_B x 1024 in f32, once eagerly and once as a
+    static Program whose Scope is filled from the eager model's
+    parameters by name; one step each. The static loss and every
+    parameter gradient must equal the eager ones (bitwise expected: the
+    same ops in the same order; else within STATIC_F32_REL relative),
+    and the heads' kernel (f32) launches exactly 12 forward and 12
+    backward in the static step. Returns the eager model (phase 42's
+    f32 reference, phase 47's 12-head model) and the numbers."""
     import torch
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import static
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.tools import train_bench
-    cfg = train_bench.bench_config(6)
+    cfg = train_bench.bench_config(heads)
     L, B = cfg.num_layers, STATIC_CHECK_B
-    rows = _gpt_rows(cfg, B, seed + 41)
+    kernel = "k1" if heads == 6 else "k2"
+    rows = _gpt_rows(cfg, B, seed + (41 if heads == 6 else 45))
     eager = GPT(cfg, device=device, seed=seed)
     x, y = (torch.from_numpy(rows[k]).to(device) for k in ("ids", "lab"))
     params = dict(eager.named_parameters())
@@ -5866,10 +5899,10 @@ def check_static_f32(device, seed: int) -> dict:
     for pname, sname in names.items():
         scope.set(pname, params[sname].detach().clone())
     exe = static.Executor(paddle.CUDAPlace(0))
-    _k1_counts(reset=True)
+    _flash_counts(kernel, reset=True)
     outs = exe.run(prog["main"], feed=rows, fetch_list=[prog["loss"]] + [
         g for _, g in prog["params_grads"]], scope=scope, return_numpy=False)
-    counts = _k1_counts()
+    counts = _flash_counts(kernel)
     loss_s = outs[0].item()
     bitwise = loss_s == loss_e.item()
     worst = 0.0
@@ -5881,13 +5914,15 @@ def check_static_f32(device, seed: int) -> dict:
             worst = max(worst, ((g - want).abs().max()
                                 / want.abs().max().clamp_min(1e-30)).item())
     rel = abs(loss_s - loss_e.item()) / abs(loss_e.item())
-    print(f"[static f32] bench_gpt B {B} x {cfg.max_seq_len}, f32: static "
+    label = "K1" if kernel == "k1" else "K2"
+    print(f"[static f32] bench_gpt {heads} heads, B {B} x "
+          f"{cfg.max_seq_len}, f32: static "
           f"loss {loss_s!r} vs eager {loss_e.item()!r} (relative "
           f"{rel:.3e}); {len(outs) - 1} parameter gradients, worst "
           f"|static - eager| / max|eager| {worst:.3e}; bitwise "
-          f"{bitwise}; K1 fwd/bwd {counts} in the static step (want "
+          f"{bitwise}; {label} fwd/bwd {counts} in the static step (want "
           f"{[L, L]})")
-    _require(counts == [L, L], f"static f32: K1 launched {counts}")
+    _require(counts == [L, L], f"static f32: {label} launched {counts}")
     _require(bitwise or (rel <= STATIC_F32_REL and worst <= STATIC_F32_REL),
              f"static f32: loss {rel:.3e}, gradients {worst:.3e} off the "
              f"eager step")
@@ -5950,7 +5985,7 @@ def drive_static_amp(device, seed: int, f32: dict, train6: dict) -> dict:
                        scope=scope)
 
     torch.cuda.reset_peak_memory_stats()
-    _k1_counts(reset=True)
+    _flash_counts("k1", reset=True)
     losses, scales, step_s = [], [], []
     for i in range(warm + timed):
         t0 = time.perf_counter()
@@ -5958,7 +5993,7 @@ def drive_static_amp(device, seed: int, f32: dict, train6: dict) -> dict:
         step_s.append(time.perf_counter() - t0)
         losses.append(float(lv))
         scales.append(float(sv))
-    counts = _k1_counts()
+    counts = _flash_counts("k1")
     dtype = A.LAST_DTYPE
     timed_s = sum(step_s[warm:])
     tps = B * T * timed / timed_s
@@ -6030,10 +6065,10 @@ def check_static_artifact(device, amp: dict, tmp: str) -> dict:
                                     exe, program=test_prog)
     infer, feeds, fetches = static.load_inference_model(path)
     saved = time.perf_counter() - t0
-    _k1_counts(reset=True)
+    _flash_counts("k1", reset=True)
     t1 = time.perf_counter()
     (got,) = infer(feed["ids"])
-    counts = _k1_counts()
+    counts = _flash_counts("k1")
     ran = time.perf_counter() - t1
     bitwise = torch.equal(got, want)
     err = ((got.float() - want.float()).abs().max()
@@ -6048,7 +6083,19 @@ def check_static_artifact(device, amp: dict, tmp: str) -> dict:
     _require(counts == [L, 0], f"artifact: K1 launched {counts}")
     _require(bitwise or err <= 2.0 ** -8,
              f"artifact logits off the Executor's by {err:.3e}")
-    return {"counts": counts, "bitwise": bitwise, "err": err}
+    # (phase 47) the same artifact through inference.create_predictor
+    import numpy as np
+    pred_out, pred_counts = _predictor_run(path, feed["ids"], device, "k1")
+    pred_bitwise = np.array_equal(pred_out, _host(got))
+    print(f"[static artifact] through inference.create_predictor: logits "
+          f"bitwise the loaded program's {pred_bitwise}; K1 fwd/bwd "
+          f"{pred_counts} (want {[L, 0]})")
+    _require(pred_counts == [L, 0],
+             f"artifact Predictor: K1 launched {pred_counts}")
+    _require(pred_bitwise, "artifact Predictor logits off the loaded "
+                           "program's")
+    return {"counts": counts, "bitwise": bitwise, "err": err,
+            "predictor_counts": pred_counts}
 
 
 def drive_static_ps(device, seed: int) -> dict:
@@ -6134,7 +6181,260 @@ def run_static(device, seed: int, train6: dict, lap) -> dict:
     lap("static graph, phases 41-44")
     print(f"[time] phases 41-44: {lap.seconds['static graph, phases 41-44']}"
           f" s (budget {SLICE_10A_BUDGET_S} s; not gated)")
-    return {"static_launches": counts, "artifact_launches": art["counts"]}
+    return {"static_launches": counts, "artifact_launches": art["counts"],
+            "predictor_launches": art["predictor_counts"]}
+
+
+# ------------------------------------------------------------ phases 45-48
+# slice 10b: phases 45-48 should take at most this many seconds together
+# (printed beside their lap; not gated)
+SLICE_10B_BUDGET_S = 120
+TO_STATIC = dict(batch=8, steps=3, lr=1e-4)   # phase 46, f32
+ARTIFACT_BATCHES = (1, 4)                     # phase 47's two runs
+DECODER = dict(prompts=4, new=16)             # phase 48
+
+
+def _host(t):
+    """A device tensor as a numpy array (bfloat16 widened to float32)."""
+    import torch
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _predictor_run(path, ids, device, kernel):
+    """inference.create_predictor(Config(path + ".pdmodel")) on `device`,
+    one list-style run on ids; (its first output, the kernel's
+    [forward, backward] launches in that run)."""
+    from paddle_tpu_torch import inference
+    config = inference.Config(path + ".pdmodel")
+    if device.type == "cpu":
+        config.disable_gpu()
+    pred = inference.create_predictor(config)
+    _flash_counts(kernel, reset=True)
+    out = pred.run([ids])[0]
+    return out, _flash_counts(kernel)
+
+
+def _dy2static_probe(x):
+    """Phase 46's converted function: a data-dependent if and while."""
+    if x.mean() > 0:
+        y = x * 2.0
+    else:
+        y = x - 1.0
+    i = x.sum() * 0.0
+    while i < 3:
+        y = y + x * i
+        i = i + 1
+    return y.sum()
+
+
+def drive_to_static(device, seed: int) -> dict:
+    """Phase 46: paddle.jit.to_static(GPT(cfg)) at bench_gpt's 6-head
+    widths, TO_STATIC["batch"] x 1024 in f32, beside the same GPT
+    undecorated from the same seed: the logits bitwise equal, then
+    TO_STATIC["steps"] eager AdamW steps each (loss.backward(),
+    opt.step(), opt.clear_grad()) whose losses are bitwise equal, K1
+    launching 12 forward and 12 backward a step in the decorated run;
+    and on card tensors _dy2static_probe (a data-dependent if and while)
+    converted equals its eager run. Returns the trained decorated model
+    (phase 47's) and the counts."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_bench
+    cfg = train_bench.bench_config(6)
+    L, B, n = cfg.num_layers, TO_STATIC["batch"], TO_STATIC["steps"]
+    rows = _gpt_rows(cfg, B, seed + 46)
+    x, y = (torch.from_numpy(rows[k]).to(device) for k in ("ids", "lab"))
+    runs = {}
+    for mode in ("eager", "to_static"):
+        model = GPT(cfg, device=device, seed=seed)
+        if mode == "to_static":
+            model = paddle.jit.to_static(model)
+        opt = paddle.optimizer.AdamW(TO_STATIC["lr"],
+                                     parameters=model.parameters())
+        with torch.no_grad():
+            logits = model(x)
+        _flash_counts("k1", reset=True)
+        losses = []
+        for _ in range(n):
+            loss = model.loss(x, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        runs[mode] = {"model": model, "logits": logits, "losses": losses,
+                      "counts": _flash_counts("k1")}
+        del opt
+    same_logits = torch.equal(runs["eager"]["logits"],
+                              runs["to_static"]["logits"])
+    counts = runs["to_static"]["counts"]
+    probe = paddle.jit.to_static(_dy2static_probe)
+    probes = []
+    for sign in (1.0, -1.0):
+        t = sign * torch.rand(64, 64, device=device, generator=torch.Generator(
+            device).manual_seed(seed + 46)) + 0.01 * sign
+        probes.append(torch.equal(probe(t), _dy2static_probe(t)))
+    print(f"[to_static] bench_gpt 6 heads, B {B} x {cfg.max_seq_len}, f32: "
+          f"logits bitwise the undecorated GPT's {same_logits}; AdamW "
+          f"losses {runs['to_static']['losses']} vs undecorated "
+          f"{runs['eager']['losses']}; K1 fwd/bwd {counts} over {n} steps "
+          f"(want {[L * n, L * n]}); converted if/while on card tensors "
+          f"equal to eager (mean > 0, mean < 0): {probes}")
+    _require(same_logits, "to_static logits differ from the undecorated "
+                          "GPT's")
+    _require(runs["to_static"]["losses"] == runs["eager"]["losses"],
+             "to_static losses differ from the undecorated GPT's")
+    _require(counts == [L * n, L * n], f"to_static: K1 launched {counts}")
+    _require(all(probes), "a converted if/while differs from its eager run")
+    model = runs["to_static"]["model"]
+    del runs
+    torch.cuda.empty_cache()
+    return {"model": model, "counts": counts}
+
+
+def check_jit_artifacts(device, seed: int, models: dict, tmp: str) -> dict:
+    """Phase 47: each model of `models` ({"k1": phase 46's decorated
+    6-head GPT, "k2": phase 45's 12-head GPT}) through paddle.jit.save
+    with InputSpec([None, 1024], "int64"), then jit.load's
+    TranslatedLayer and inference.create_predictor(Config(prefix +
+    ".pdmodel")) at batch 1 and 4 from the one export: logits bitwise
+    the eager model's (else within 2**-8 of the largest), and the
+    model's kernel launching 12 forward and 0 backward a run. The
+    artifact's MB and the save and load seconds printed."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    out = {}
+    for kernel, model in models.items():
+        cfg = model.cfg
+        L, T = cfg.num_layers, cfg.max_seq_len
+        model.eval()
+        prefix = os.path.join(tmp, f"gpt_{kernel}")
+        t0 = time.perf_counter()
+        paddle.jit.save(model, prefix, input_spec=[
+            paddle.jit.InputSpec([None, T], "int64")])
+        saved = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        layer = paddle.jit.load(prefix)
+        config = inference.Config(prefix + ".pdmodel")
+        if device.type == "cpu":
+            config.disable_gpu()
+        pred = inference.create_predictor(config)
+        loaded = time.perf_counter() - t0
+        mb = sum(os.path.getsize(prefix + ext)
+                 for ext in (".pdmodel", ".pdiparams")) / 1e6
+        ids = _gpt_rows(cfg, max(ARTIFACT_BATCHES), seed + 47)["ids"]
+        rows = []
+        for b in ARTIFACT_BATCHES:
+            x = torch.from_numpy(ids[:b]).to(device)
+            with torch.no_grad():
+                want = _host(model(x))
+            _flash_counts(kernel, reset=True)
+            got = _host(layer(x))
+            c_layer = _flash_counts(kernel, reset=True)
+            got_p = pred.run([ids[:b]])[0]
+            c_pred = _flash_counts(kernel)
+            scale = np.abs(want).max()
+            err = max(np.abs(got - want).max(), np.abs(got_p - want).max()) \
+                / scale
+            bitwise = np.array_equal(got, want) and np.array_equal(got_p,
+                                                                   want)
+            rows.append({"batch": b, "bitwise": bitwise, "err": float(err),
+                         "layer_counts": c_layer, "predictor_counts": c_pred})
+            _require(c_layer == [L, 0] and c_pred == [L, 0],
+                     f"jit.save artifact ({kernel}) at batch {b}: launched "
+                     f"{c_layer} (TranslatedLayer), {c_pred} (Predictor)")
+            _require(bitwise or err <= 2.0 ** -8,
+                     f"jit.save artifact ({kernel}) at batch {b}: logits off "
+                     f"the eager model's by {err:.3e}")
+        label = "K1" if kernel == "k1" else "K2"
+        print(f"[jit.save] {cfg.num_heads} heads: {mb:.1f} MB saved in "
+              f"{saved:.1f} s, loaded (TranslatedLayer + Predictor) in "
+              f"{loaded:.1f} s; " + "; ".join(
+                  f"batch {r['batch']}: bitwise {r['bitwise']} (max |diff| "
+                  f"/ max|logit| {r['err']:.3e}), {label} fwd/bwd "
+                  f"{r['layer_counts']} (TranslatedLayer) "
+                  f"{r['predictor_counts']} (Predictor)" for r in rows)
+              + f" (want {[L, 0]} each)")
+        out[kernel] = {"mb": mb, "save_s": saved, "load_s": loaded,
+                       "rows": rows}
+        del layer, pred
+    return out
+
+
+def check_export_decoder(device, seed: int, tmp: str) -> dict:
+    """Phase 48: the serving GPT (engine_bench.GPT_CONFIG, 12 layers)
+    through models.generation.export_decoder, then DecoderPredictor.
+    generate of DECODER["prompts"] prompts of the exported prefill
+    length, DECODER["new"] new tokens: tokens equal to generate() on the
+    card except where generate()'s top-2 margin is under 1e-3 (phase
+    6's rule). The export seconds printed."""
+    import numpy as np
+    from paddle_tpu_torch.models.generation import (DecoderPredictor,
+                                                    export_decoder, generate)
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.tools.engine_bench import GPT_CONFIG
+    cfg = GPTConfig(**GPT_CONFIG)
+    model = GPT(cfg, device=device, seed=seed)
+    model.eval()
+    prefix = os.path.join(tmp, "decoder")
+    t0 = time.perf_counter()
+    export_decoder(model, prefix)
+    exported = time.perf_counter() - t0
+    pred = DecoderPredictor(prefix)
+    Tp, n = pred.prefill_len, DECODER["new"]
+    ids = np.random.RandomState(seed + 48).randint(
+        0, cfg.vocab_size, (DECODER["prompts"], Tp))
+    t0 = time.perf_counter()
+    got = pred.generate(ids, n)
+    served = time.perf_counter() - t0
+    ref = generate(model, ids, n)
+    parted = 0
+    for r in range(len(ids)):
+        t = _first_difference(got[r, Tp:], ref[r, Tp:])
+        if t is None:
+            continue
+        margin = top2_margin(model, ids[r], ref[r, Tp:Tp + t])
+        print(f"[decoder] prompt {r} parts from generate() at token {t} "
+              f"(top-2 margin {margin:.3e})")
+        _require(margin < 1e-3, f"decoder prompt {r} parted at a clear "
+                                f"margin")
+        parted += 1
+    print(f"[decoder] serving GPT ({cfg.num_layers} layers), export_decoder "
+          f"in {exported:.1f} s; DecoderPredictor.generate of "
+          f"{len(ids)} prompts x {Tp} tokens, {n} new, in {served:.2f} s: "
+          f"{parted} of {len(ids)} parted from generate()")
+    del model, pred
+    return {"export_s": exported, "parted": parted}
+
+
+def run_slice_10b(device, seed: int, lap) -> dict:
+    """Phases 45-48 (slice 10b): phase 45 is check_static_f32 at 12 heads
+    (K2 in the static step; its eager model is phase 47's 12-head
+    model). Returns the kernels' launches on each path."""
+    import torch
+    static12 = check_static_f32(device, seed, heads=12)
+    to_static = drive_to_static(device, seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jit_")
+    try:
+        arts = check_jit_artifacts(device, seed, {
+            "k1": to_static["model"], "k2": static12["eager"]}, tmp)
+        del to_static["model"]
+        torch.cuda.empty_cache()
+        check_export_decoder(device, seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    lap("slice 10b, phases 45-48")
+    print(f"[time] phases 45-48: {lap.seconds['slice 10b, phases 45-48']} s "
+          f"(budget {SLICE_10B_BUDGET_S} s; not gated)")
+    last = {k: a["rows"][-1] for k, a in arts.items()}
+    return {"k2_static": static12["counts"], "to_static": to_static["counts"],
+            **{f"{k}_jit_save": r["layer_counts"] for k, r in last.items()},
+            **{f"{k}_predictor": r["predictor_counts"]
+               for k, r in last.items()}}
 
 
 # the serving and fleet phases' depth (the serving bench's 12 layers cut
@@ -6326,6 +6626,7 @@ def main(argv=None) -> int:
     dist = run_distributed(device, args.seed, ernie, bert, resnet, gpt13,
                            lap)
     static_k1 = run_static(device, args.seed, train[6], lap)
+    slice10b = run_slice_10b(device, args.seed, lap)
     print(f"[time] seconds by phase group: {lap.seconds}")
     counts = {"k1": train[6]["counts"][:2], "k2": train[12]["counts"][2:],
               "k2_nc": ernie["counts"][2:],
@@ -6362,10 +6663,21 @@ def main(argv=None) -> int:
                 ring_bound_ms=dist["ring"]["bounds"][d],
                 static_launches=static_k1["static_launches"][i],
                 artifact_launches=static_k1["artifact_launches"][i],
+                static_predictor_launches=static_k1[
+                    "predictor_launches"][i],
+                to_static_launches=slice10b["to_static"][i],
+                jit_save_launches=slice10b["k1_jit_save"][i],
+                predictor_launches=slice10b["k1_predictor"][i],
                 gpt13_max_abs_err=k1_big[0][("fwd", "bwd")[i]],
                 **{f"gpt13_{key}": k1_big[1][i][key] for key in (
                     "ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")})
+        if kernel == "k2":
+            # phase 45's static step, phase 47's artifact runs at batch 4
+            kernels[-1].update(
+                static_launches=slice10b["k2_static"][i],
+                jit_save_launches=slice10b["k2_jit_save"][i],
+                predictor_launches=slice10b["k2_predictor"][i])
         if kernel == "k2_nc":
             kernels[-1]["fleet_launches"] = dist["fleet"]["counts"][2 + i]
     total = {key: sum(r[key] for r in k4)

@@ -69,7 +69,7 @@ from .ops.extra_ops import gather_tree
 from .core import anomaly, monitor
 from . import (amp, distributed, incubate, inference, io, jit, metric,
                models, nn, obs, optimizer, regularizer, vision)
-from . import text  # noqa: F401
+from . import onnx, text  # noqa: F401
 from .batch import batch  # noqa: F401
 from . import reader  # noqa: F401
 from . import dataset  # noqa: F401

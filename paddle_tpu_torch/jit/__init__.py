@@ -1,9 +1,47 @@
-"""TrainStep (port of paddle_tpu/jit/__init__.py `TrainStep`, :379-627),
-MultiStepTrainStep and InputSpec (:36, which paddle.static re-exports).
-to_static, save, load, TracedLayer and TranslatedLayer wait for slice
-10b (ROADMAP Queue 1 item 8).
+"""paddle.jit (port of paddle_tpu/jit/__init__.py): to_static,
+save / load, TracedLayer, TrainStep, MultiStepTrainStep and InputSpec
+(:36, which paddle.static re-exports).
 
-One call runs the forward and the backward (torch autograd over the
+to_static (function or Layer; a Layer gets its `forward` replaced by
+the StaticFunction and `_static_function` set, :210-227). The JAX
+package's to_static exists to compile: jax.jit with a cache per input
+signature. PyTorch runs eagerly, so a StaticFunction call runs the
+dy2static-converted function (jit/dy2static.py) eagerly on the tensors'
+device: its outputs keep autograd (`loss.backward()` and
+`paddle.grad(create_graph=True)` inside work, and gradients reach the
+layer's parameters, where the JAX StaticFunction calls its compiled
+function outside the eager tape and leaves `weight.grad` None), and
+buffers update in place. A graph is captured where a graph is the
+product: `concrete_program(*args)` captures a static Program
+(static/program.py) with the Layer's parameters and buffers bound as
+persistable Variables over their live tensors, in place of the JAX
+package's HLO text; and a to_static function called under
+static.program_guard records into that program. There the converters
+lower a Variable predicate to the "conditional_block" / "while" ops.
+ProgramTranslator().enable(False) (enable_to_static(False)) runs the
+raw function.
+
+save / load / TranslatedLayer (:230-333): the forward exported with
+torch.export, with the state as inputs (torch.func.functional_call),
+as the JAX artifact calls `exported.call(state, *arrays)`. A dim of the
+input spec given as -1 / None is a torch.export.Dim, shared by position
+across the inputs ("b" for dim 0, "d<j>" beyond) and exported at
+example size 2 (torch.export specialises a dim whose example is 0 or
+1); if that export fails, the dims are pinned to 1 with the JAX code's
+warning. The layer is exported in eval() and put back in its mode.
+`<path>.pdmodel` is the exported graph (without its example inputs)
+and `<path>.pdiparams` the pickled {"params", "buffers"} of numpy
+arrays (bfloat16 as float32, with each entry's dtype under "dtypes")
+and the "device" it was exported on; load runs it there. The port's
+kernels reach the graph as registered custom ops (K1, K2), each one
+node. The port reads its own artifacts only. TranslatedLayer runs the
+artifact under no_grad (an inference artifact).
+
+TracedLayer (:694-726): trace(layer, inputs) returns (outputs, traced);
+its save_inference_model goes through save, warning when feed / fetch
+are given, as the JAX code does.
+
+One TrainStep call runs the forward and the backward (torch autograd over the
 model's trainable parameters), clips the gradients with the optimizer's
 grad_clip (over the gradients in sorted-name order, as the JAX step
 does), applies the optimizer's update in place (clip and update inside
@@ -68,20 +106,36 @@ Usage:
                         # whose first element is the loss)
     multi = MultiStepTrainStep(model, loss_fn, optimizer, steps=K)
     losses = multi(xs, ys)   # xs, ys stacked [K, ...] -> [K] losses
+
+Left out: to_static's per-signature compile cache and Python-scalar
+specialisation (nothing is compiled), the jaxplan hooks of TrainStep,
+gradients through a TranslatedLayer (it runs under no_grad), and an
+export of a data-dependent `if` / `while` (torch.export needs
+torch.cond; the JAX export likewise needs lax control flow).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import inspect
+import os
+import pickle
 import time
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core.anomaly import _leaves, sanitize_tree, tree_not_finite
 from ..core.dtypes import convert_dtype
 from ..core.tensor import box, plain, plain_dispatch
+from ..nn.layer.layers import Layer
 
-__all__ = ["InputSpec", "TrainStep", "MultiStepTrainStep"]
+__all__ = ["InputSpec", "StaticFunction", "to_static", "TranslatedLayer",
+           "save", "load", "not_to_static", "ProgramTranslator",
+           "enable_to_static", "TrainStep", "MultiStepTrainStep",
+           "TracedLayer", "set_code_level", "set_verbosity"]
 
 
 class InputSpec:
@@ -97,6 +151,329 @@ class InputSpec:
     def __repr__(self):
         return f"InputSpec(shape={self.shape}, dtype={self.dtype}, " \
                f"name={self.name})"
+
+
+def _check_defined(out):
+    """Raise as dygraph would where a name that only an untaken branch
+    assigned (dy2static's _UNDEF) is returned."""
+    from .dy2static import _UNDEF
+    for leaf in pytree.tree_leaves(out):
+        if leaf is _UNDEF:
+            raise UnboundLocalError(
+                "to_static: a variable assigned only in an untaken branch "
+                "is returned (dygraph would raise UnboundLocalError)")
+
+
+def _arg_names(fn, n: int):
+    """Names for n positional inputs: fn's parameter names, else x<i>."""
+    try:
+        params = [p.name for p in inspect.signature(fn).parameters.values()
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    except (TypeError, ValueError):
+        params = []
+    return [params[i] if i < len(params) else f"x{i}" for i in range(n)]
+
+
+@contextlib.contextmanager
+def _state_as_variables(layer, main, startup):
+    """Bind the layer's parameters and buffers as persistable Variables
+    of `main` (named as the parameters, the buffers by their path),
+    each with an init op in `startup` that reads the live tensor, for
+    the length of the block; the tensors come back after it."""
+    from ..static.program import OpDesc, ParamVariable
+    if layer is None:
+        yield
+        return
+    swapped = []
+    made = {}
+    blk = main.global_block
+    for mod_name, mod in layer.named_modules():
+        for slot, store, kind in (
+                [(k, mod._parameters, "p") for k in mod._parameters]
+                + [(k, mod._buffers, "b") for k in mod._buffers]):
+            t = store[slot]
+            if t is None:
+                continue
+            v = made.get(id(t))
+            if v is None:
+                full = f"{mod_name}.{slot}" if mod_name else slot
+                name = getattr(t, "name", None) if kind == "p" else None
+                name = name or full
+                if kind == "p":
+                    v = ParamVariable(t.shape, t.dtype, name, blk,
+                                      stop_gradient=not t.requires_grad)
+                    v.trainable = getattr(t, "trainable", True)
+                    blk.vars[name] = v
+                else:
+                    v = blk.create_var(name=name, shape=tuple(t.shape),
+                                       dtype=t.dtype, persistable=True)
+                startup.global_block.create_var(
+                    name=name, shape=tuple(t.shape), dtype=t.dtype,
+                    persistable=True)
+                startup.global_block.append_op(OpDesc(
+                    "init", "fill_parameter" if kind == "p" else
+                    "fill_buffer",
+                    lambda device, _t=t: plain(_t).detach().to(device),
+                    [], [name]))
+                made[id(t)] = v
+            swapped.append((store, slot, t))
+            store[slot] = v
+    try:
+        yield
+    finally:
+        for store, slot, t in swapped:
+            store[slot] = t
+
+
+class StaticFunction:
+    """The to_static wrapper (reference: program_translator.StaticFunction;
+    paddle_tpu/jit/__init__.py:141-207): the dy2static-converted
+    function run eagerly (module docstring)."""
+
+    def __init__(self, fn, layer=None, input_spec=None):
+        from .dy2static import convert_to_static
+        self._converted = convert_to_static(fn)
+        self._input_spec = input_spec
+        self._raw_fn = fn
+        self._layer = layer
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args, **kwargs):
+        if not ProgramTranslator.get_instance().enabled:
+            return self._raw_fn(*args, **kwargs)  # dygraph fallback
+        out = self._converted(*args, **kwargs)
+        _check_defined(out)
+        return out
+
+    @property
+    def forward_fn(self):
+        return self._raw_fn
+
+    def concrete_program(self, *args):
+        """The function captured as a static Program over its inputs (the
+        JAX package returns the lowered HLO text): a Tensor or an
+        InputSpec argument becomes a `static.data` Variable named as the
+        function's parameter (the spec's name if it has one), anything
+        else is passed as it is. The Layer's parameters and buffers are
+        persistable Variables; the program's `startup_program` fills them
+        from the live tensors, `inputs` holds the data Variables and
+        `outputs` the function's result."""
+        from ..static import mode, program as P
+        main, startup = P.Program(), P.Program()
+        names = _arg_names(self._raw_fn, len(args))
+        was_static = mode.in_static_mode()
+        with P.program_guard(main, startup):
+            mode.enable_static()
+            try:
+                inputs = []
+                for name, a in zip(names, args):
+                    if isinstance(a, InputSpec):
+                        a = P.data(a.name or name, a.shape, a.dtype)
+                    elif torch.is_tensor(a):
+                        a = P.data(name, list(a.shape), a.dtype)
+                    inputs.append(a)
+                with _state_as_variables(self._layer, main, startup):
+                    out = self._converted(*inputs)
+            finally:
+                if not was_static:
+                    mode.disable_static()
+        _check_defined(out)
+        main.startup_program = startup
+        main.inputs = [a for a in inputs if isinstance(a, P.Variable)]
+        main.outputs = out
+        return main
+
+
+def to_static(function=None, input_spec=None, build_strategy=None,
+              backend=None, **kwargs):
+    """paddle.jit.to_static, as a decorator or a call, on a function or a
+    Layer (module docstring; paddle_tpu/jit/__init__.py:210-227)."""
+    def decorate(fn):
+        if isinstance(fn, Layer):
+            layer = fn
+            static = StaticFunction(layer.forward, layer, input_spec)
+            layer.forward = static
+            layer._static_function = static
+            return layer
+        # plain function (may still close over layers)
+        return StaticFunction(fn, None, input_spec)
+    if function is not None:
+        return decorate(function)
+    return decorate
+
+
+class TranslatedLayer(Layer):
+    """A loaded jit.save artifact (reference: fluid/dygraph/io.py
+    TranslatedLayer): its exported program and state, on the device it
+    was exported on."""
+
+    def __init__(self, exported, state):
+        super().__init__()
+        self._exported = exported
+        self._module = exported.module()
+        self._state = state
+        self._device = next(iter(state["params"].values())).device \
+            if state["params"] else None
+
+    def forward(self, *args):
+        arrs = []
+        for a in args:
+            t = plain(a) if torch.is_tensor(a) else \
+                torch.from_numpy(np.array(np.asarray(a), copy=True))
+            arrs.append(t if self._device is None else t.to(self._device))
+        with torch.no_grad():
+            return self._module(self._state["params"],
+                                self._state["buffers"], *arrs)
+
+
+class _StateCall(torch.nn.Module):
+    """The layer's forward over (params, buffers, *inputs): what save
+    exports. The layer is no submodule of it, so its tensors enter the
+    graph as inputs and not as the program's own state."""
+
+    def __init__(self, layer):
+        super().__init__()
+        self.__dict__["_layer"] = layer
+
+    def forward(self, params, buffers, *args):
+        return torch.func.functional_call(self._layer, (params, buffers),
+                                          args)
+
+
+def _spec_dims(input_spec):
+    """Per input, {dim: torch.export.Dim} for its -1 / None dims, one Dim
+    per position across the inputs ("b" for dim 0, "d<j>" beyond)."""
+    dims, out = {}, []
+    for sp in input_spec:
+        d = {}
+        for j, n in enumerate(sp.shape):
+            if n in (-1, None):
+                name = "b" if j == 0 else f"d{j}"
+                if name not in dims:
+                    dims[name] = torch.export.Dim(name, min=1)
+                d[j] = dims[name]
+        out.append(d or None)
+    return out
+
+
+def _host_state(tensors):
+    arrays, dtypes = {}, {}
+    for k, t in tensors.items():
+        t = plain(t).detach()
+        dtypes[k] = str(t.dtype).replace("torch.", "")
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arrays[k] = t.cpu().numpy()
+    return arrays, dtypes
+
+
+def save(layer, path, input_spec=None, **configs):
+    """paddle.jit.save (reference: fluid/dygraph/jit.py:507; the JAX
+    package's :247-323): the artifact of the module docstring."""
+    if input_spec is None:
+        raise ValueError("paddle.jit.save requires input_spec")
+    params = {k: plain(p).detach() for k, p in layer.named_parameters()}
+    buffers = {k: plain(b).detach() for k, b in layer.named_buffers()
+               if b is not None}
+    device = next(iter(params.values())).device if params else \
+        torch.device("cpu")
+    dynamic = _spec_dims(input_spec)
+    examples = tuple(torch.zeros([2 if n in (-1, None) else n
+                                  for n in sp.shape], dtype=sp.dtype,
+                                 device=device) for sp in input_spec)
+    fn = layer.__dict__.get("forward")
+    was_training = layer.training
+    layer.eval()
+    if isinstance(fn, StaticFunction):
+        del layer.forward  # the raw forward, as the JAX save reads it
+    module = _StateCall(layer)
+    state_spec = ({k: None for k in params}, {k: None for k in buffers})
+    try:
+        with torch.no_grad():
+            try:
+                ep = torch.export.export(
+                    module, (params, buffers, *examples),
+                    dynamic_shapes=(*state_spec, tuple(dynamic)),
+                    strict=False)
+            except torch._dynamo.exc.UserError:
+                if not any(dynamic):
+                    raise
+                import warnings
+                warnings.warn(
+                    "jit.save: symbolic-batch export failed (a shape-"
+                    "dependent op in the model); re-exporting with dynamic "
+                    "dims pinned to 1 — the artifact will only serve that "
+                    "batch size", stacklevel=2)
+                examples = tuple(torch.zeros(
+                    [1 if n in (-1, None) else n for n in sp.shape],
+                    dtype=sp.dtype, device=device) for sp in input_spec)
+                ep = torch.export.export(module, (params, buffers,
+                                                  *examples), strict=False)
+    finally:
+        if isinstance(fn, StaticFunction):
+            layer.forward = fn
+        if was_training:
+            layer.train()
+    ep.example_inputs = None  # the weights go to .pdiparams once
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path + ".pdmodel", "wb") as f:
+        torch.export.save(ep, f)
+    p_arrays, p_dtypes = _host_state(params)
+    b_arrays, b_dtypes = _host_state(buffers)
+    with open(path + ".pdiparams", "wb") as f:
+        pickle.dump({"params": p_arrays, "buffers": b_arrays,
+                     "dtypes": {**p_dtypes, **b_dtypes},
+                     "device": str(device)}, f)
+
+
+def _load_artifact(path, blob=None):
+    """(exported program, {"params", "buffers"} tensors on the device it
+    was exported on) of a save artifact; `blob` is its .pdiparams when
+    the caller has read it already."""
+    from ..core import place as _place
+    # the kernels' custom ops, which the graph names
+    from ..ops.kernels import flash_attention, packed_flash  # noqa: F401
+    with open(path + ".pdmodel", "rb") as f:
+        exported = torch.export.load(f)
+    if blob is None:
+        with open(path + ".pdiparams", "rb") as f:
+            blob = pickle.load(f)
+    device = _place.resolve_device(blob["device"])
+    state = {group: {k: torch.from_numpy(np.array(a, copy=True)).to(
+        device=device, dtype=getattr(torch, blob["dtypes"][k]))
+        for k, a in blob[group].items()} for group in ("params", "buffers")}
+    return exported, state
+
+
+def load(path, **configs):
+    """paddle.jit.load (reference: fluid/dygraph/jit.py:787): a
+    TranslatedLayer over a save artifact."""
+    return TranslatedLayer(*_load_artifact(path))
+
+
+def not_to_static(fn):
+    fn._not_to_static = True
+    return fn
+
+
+class ProgramTranslator:
+    """The reference's switch (program_translator.py:756): disabled,
+    StaticFunction runs the raw function."""
+    _instance = None
+    enabled = True
+
+    @classmethod
+    def get_instance(cls):
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+    def enable(self, enable_to_static):
+        self.enabled = enable_to_static
+
+
+def enable_to_static(flag=True):
+    ProgramTranslator.get_instance().enable(flag)
 
 
 def _batch_tokens(args) -> int:
@@ -292,3 +669,55 @@ class MultiStepTrainStep(TrainStep):
                   for i in range(self.steps)]
         self._record_call(self.steps, stacked)
         return box(torch.stack(losses))
+
+
+class TracedLayer:
+    """reference fluid/dygraph/jit.py:1047 TracedLayer: trace a dygraph
+    layer with example inputs; `trace` returns (outputs, traced), the
+    traced object calls the layer and saves it as a jit.save artifact
+    (paddle_tpu/jit/__init__.py:694-726)."""
+
+    def __init__(self, layer, input_spec):
+        self._layer = layer
+        self._input_spec = input_spec
+
+    @classmethod
+    def trace(cls, layer, inputs):
+        inputs = list(inputs)
+        out = layer(*inputs)
+        spec = [InputSpec(shape=list(i.shape), dtype=i.dtype)
+                for i in inputs]
+        return out, cls(layer, spec)
+
+    def __call__(self, *args):
+        return self._layer(*args)
+
+    def save_inference_model(self, path, feed=None, fetch=None, **cfg):
+        if feed is not None or fetch is not None:
+            import warnings
+            warnings.warn(
+                "TracedLayer.save_inference_model: feed/fetch slicing of "
+                "the traced program is not supported on the exported "
+                "artifact — the FULL traced signature is exported "
+                "(reference jit.py:1047 slices the ProgramDesc by these "
+                "indices). Wrap the layer to expose the wanted subset "
+                "instead.", stacklevel=2)
+        save(self._layer, path, input_spec=self._input_spec, **cfg)
+
+
+def set_code_level(level=100):
+    """reference jit/dy2static logging knob: print transformed code at or
+    below `level` (stored on dy2static for its transformer)."""
+    from . import dy2static
+    dy2static.CODE_LEVEL = int(level)
+
+
+def set_verbosity(level=0, also_to_stdout=False):
+    """reference jit logging verbosity (python logging for the
+    paddle_tpu_torch.jit logger)."""
+    import logging
+    logging.getLogger("paddle_tpu_torch.jit").setLevel(
+        logging.DEBUG if level > 0 else logging.WARNING)
+
+
+from . import dy2static  # noqa: F401,E402

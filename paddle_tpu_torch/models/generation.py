@@ -9,7 +9,8 @@ eagerly. Matrix products stay `torch.matmul`, as XLA owned them in JAX.
 
 Differences from the JAX package, all deliberate:
 - the dense cache is updated IN PLACE (`_cache_write` writes the new
-  token's K/V into the [B, H, S, D] buffers; JAX returned new buffers);
+  token's K/V into the [B, H, S, D] buffers at a 0-d position tensor
+  with index_copy_; JAX returned new buffers);
 - `geom` is the same static (num_layers, num_heads, head_dim,
   max_seq_len) tuple, and every tensor lives on the parameters' device.
 
@@ -21,7 +22,18 @@ Differences from the JAX package, all deliberate:
   (`_sample_filter`); the serving chunk samples through the same
   `_sample_rows`.
 
-Left out (later slices): `export_decoder` and `DecoderPredictor`.
+export_decoder writes the decode pair as torch.export programs
+(`<prefix>.prefill.pdmodel` at prompt length S // 2, batch symbolic;
+`<prefix>.decode.pdmodel`, decode_step over the dense f32 cache
+[b, H, S, D], a token [b] and a 0-d position, its in-place cache write
+recorded as an input mutation), the parameters once in
+`<prefix>.pdiparams` (torch.save, read back with weights_only) and the
+geometry in `<prefix>.pdmeta` (JSON), where the JAX package bakes the
+parameters into both StableHLO programs. DecoderPredictor serves them
+without the model class: greedy tokens stay on the device (argmax fed
+to the next decode) and are fetched once at the end.
+
+Left out: nothing of the JAX module.
 """
 from __future__ import annotations
 
@@ -34,7 +46,7 @@ import torch
 from ..core.tensor import plain
 
 __all__ = ["extract_params", "prefill", "decode_step", "generate",
-           "beam_search_generate"]
+           "beam_search_generate", "export_decoder", "DecoderPredictor"]
 
 NEG_INF = -1e30
 
@@ -141,11 +153,13 @@ def _decode_qkv(params: Params, i: int, x, geom):
     return _qkv_proj(params, i, x, geom)
 
 
-def _cache_write(kc, vc, k_new, v_new, pos: int) -> None:
-    """Write the new token's K/V [B, H, 1, D] at position pos of the
-    dense [B, H, S, D] cache, in place."""
-    kc[:, :, pos] = k_new[:, :, 0]
-    vc[:, :, pos] = v_new[:, :, 0]
+def _cache_write(kc, vc, k_new, v_new, pos) -> None:
+    """Write the new token's K/V [B, H, 1, D] at position pos (a 0-d
+    int64 tensor on the cache's device) of the dense [B, H, S, D] cache,
+    in place (no host read of pos: an exported decode records it as an
+    input mutation)."""
+    kc.index_copy_(2, pos.reshape(1), k_new)
+    vc.index_copy_(2, pos.reshape(1), v_new)
 
 
 def _decode_attn(params: Params, i: int, x, q, kc, vc, positions, geom):
@@ -163,13 +177,16 @@ def _decode_head(params: Params, x):
 
 
 @torch.no_grad()
-def decode_step(params: Params, cache: Cache, token, pos: int, geom):
-    """One cached decode step: token [B] at scalar position pos. Updates
-    `cache` in place and returns (logits [B, V], cache)."""
+def decode_step(params: Params, cache: Cache, token, pos, geom):
+    """One cached decode step: token [B] at scalar position pos (an int
+    or a 0-d tensor). Updates `cache` in place and returns (logits
+    [B, V], cache)."""
     dev = params["wte.weight"].device
     token = torch.as_tensor(token, device=dev).long()
-    pos = int(pos)
-    positions = torch.full_like(token, pos)
+    if not torch.is_tensor(pos):   # a fill on the device, no host copy
+        pos = torch.full((), int(pos), dtype=torch.long, device=dev)
+    pos = pos.to(device=dev, dtype=torch.long)
+    positions = pos.expand(token.shape)
     x = _token_embed(params, token, positions)
     for i, (kc, vc) in enumerate(cache):
         qkv = _decode_qkv(params, i, x, geom)
@@ -374,6 +391,136 @@ def beam_search_generate(model, input_ids, beam_size: int,
             k = parents[s, b, k]
     return (np.concatenate([ids.astype(np.int64), out], axis=1),
             scores[np.arange(B), best])
+
+
+class _PrefillCall(torch.nn.Module):
+    """prefill over (params, ids): what export_decoder exports."""
+
+    def __init__(self, geom):
+        super().__init__()
+        self.geom = geom
+
+    def forward(self, params, ids):
+        return prefill(params, ids, self.geom)
+
+
+class _DecodeCall(torch.nn.Module):
+    """decode_step over (params, cache, token, pos) -> logits, the cache
+    written in place."""
+
+    def __init__(self, geom):
+        super().__init__()
+        self.geom = geom
+
+    def forward(self, params, cache, token, pos):
+        return decode_step(params, cache, token, pos, self.geom)[0]
+
+
+def export_decoder(model, path_prefix: str):
+    """Serialize the decode pair (module docstring) so a server can run
+    greedy generation without the model class: the analogue of
+    save_inference_model for LLM serving (paddle_tpu/models/
+    generation.py:409-460). Writes <prefix>.prefill.pdmodel,
+    <prefix>.decode.pdmodel, <prefix>.pdiparams and <prefix>.pdmeta."""
+    import json
+    import os
+    cfg = model.cfg
+    geom = (cfg.num_layers, cfg.num_heads,
+            cfg.hidden_size // cfg.num_heads, cfg.max_seq_len)
+    L, H, D, S = geom
+    params = extract_params(model)
+    dev = params["wte.weight"].device
+    # symbolic batch, one prompt length (S // 2 by convention) for the
+    # prefill; the decode does not depend on the length. Example batch 2:
+    # torch.export specialises a dim whose example is 0 or 1
+    Tp = S // 2
+    b = torch.export.Dim("b", min=1)
+    pspec = {k: None for k in params}
+    ids = torch.zeros(2, Tp, dtype=torch.int32, device=dev)
+    cache = [tuple(torch.zeros(2, H, S, D, device=dev) for _ in range(2))
+             for _ in range(L)]
+    tok = torch.zeros(2, dtype=torch.int32, device=dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        ex_prefill = torch.export.export(
+            _PrefillCall(geom), (params, ids),
+            dynamic_shapes=(pspec, {0: b}), strict=False)
+        ex_decode = torch.export.export(
+            _DecodeCall(geom), (params, cache, tok, pos),
+            dynamic_shapes=(pspec, [({0: b}, {0: b})] * L, {0: b}, None),
+            strict=False)
+    d = os.path.dirname(path_prefix)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    for ex, name in ((ex_prefill, "prefill"), (ex_decode, "decode")):
+        ex.example_inputs = None  # the weights go to .pdiparams once
+        with open(f"{path_prefix}.{name}.pdmodel", "wb") as f:
+            torch.export.save(ex, f)
+    torch.save({k: v.cpu() for k, v in params.items()},
+               path_prefix + ".pdiparams")
+    with open(path_prefix + ".pdmeta", "w") as f:
+        # JSON, not pickle: serving artifacts may come from third parties
+        # and must not be able to execute code at load
+        json.dump({"geom": list(geom), "prefill_len": Tp,
+                   "vocab_size": cfg.vocab_size, "device": str(dev)}, f)
+
+
+class DecoderPredictor:
+    """Serves an export_decoder artifact: greedy generation from the
+    exported programs only (no model class), on the device they were
+    exported on. Each step's argmax stays on the device and feeds the
+    next decode; the tokens are fetched once at the end
+    (paddle_tpu/models/generation.py:463-532)."""
+
+    def __init__(self, path_prefix: str):
+        import json
+        from ..core import place as _place
+        with open(path_prefix + ".prefill.pdmodel", "rb") as f:
+            self._prefill = torch.export.load(f).module()
+        with open(path_prefix + ".decode.pdmodel", "rb") as f:
+            self._decode = torch.export.load(f).module()
+        with open(path_prefix + ".pdmeta") as f:
+            meta = json.load(f)  # JSON: no code execution at load
+        self.geom = tuple(meta["geom"])
+        self.prefill_len = int(meta["prefill_len"])
+        self.vocab_size = int(meta["vocab_size"])
+        self.device = _place.resolve_device(meta["device"])
+        self._params = torch.load(path_prefix + ".pdiparams",
+                                  map_location=self.device,
+                                  weights_only=True)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int):
+        """Greedy decode. Prompts must be EXACTLY the exported prefill
+        length: the fixed-shape prefill has no pad masking, so a shorter
+        prompt would attend pad tokens at shifted positions and diverge
+        from generate() (serve several lengths with an artifact each)."""
+        ids = np.asarray(input_ids)
+        B, T = ids.shape
+        Tp = self.prefill_len
+        if T != Tp:
+            raise ValueError(
+                f"prompt length {T} != exported prefill length {Tp}; the "
+                "fixed-shape prefill has no pad masking — export an "
+                "artifact per prompt-length bucket")
+        S = self.geom[3]
+        if Tp + max_new_tokens > S:
+            raise ValueError("generation exceeds max_seq_len")
+        logits, cache = self._prefill(self._params, torch.as_tensor(
+            ids, dtype=torch.int32).to(self.device))
+        pos = torch.full((), Tp, dtype=torch.int32, device=self.device)
+        toks = []
+        for step in range(max_new_tokens):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+            if step + 1 < max_new_tokens:
+                logits = self._decode(self._params, cache, tok, pos)
+                pos = pos + 1
+        new = torch.stack(toks, dim=1).cpu().numpy() if toks \
+            else np.zeros((B, 0), np.int64)
+        # one fetch for the whole generation
+        return np.concatenate([ids.astype(np.int64), new.astype(np.int64)],
+                              axis=1)
 
 
 def _top_k(x, k: int):

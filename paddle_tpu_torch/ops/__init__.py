@@ -47,7 +47,7 @@ from .array_ops import *  # noqa: F401,F403
 from .random_ops import *  # noqa: F401,F403
 
 from . import (creation, math, logic, manipulation, linalg, search,  # noqa: F401,E501
-               array_ops, random_ops, extra_ops, vision_ops)
+               array_ops, random_ops, control_flow, extra_ops, vision_ops)
 
 # re-bind names that collide with builtins for explicit use
 from .math import sum, max, min, abs, all, any, round, pow  # noqa: F401,A004

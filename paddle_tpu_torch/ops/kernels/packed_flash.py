@@ -20,6 +20,14 @@ backward for T <= 1024 computes the same function).
 version, repack. The wrappers run it for CPU tensors; for CUDA tensors
 they launch the kernels or raise. `packed_flash_fwd.launches` and
 `packed_flash_bwd.launches` count the calls that launched them.
+
+The kernels sit behind two registered custom ops,
+`paddle_tpu_torch::packed_flash_fwd` and `_bwd`, as K1's do
+(flash_attention.py): their fake versions give the outputs' shapes on
+meta tensors, so the static capture (static/program.py) infers shapes
+through K2, and torch.export keeps K2's forward as one node of an
+exported graph (jit.save, static.save_inference_model). A call with no
+gradient asked for goes straight to the forward op.
 """
 from __future__ import annotations
 
@@ -87,19 +95,52 @@ def packed_flash_reference(q, k, v, causal: bool = True,
     return _repack(out), lse.reshape(B, Hp, 2, T)
 
 
+@torch.library.custom_op(
+    "paddle_tpu_torch::packed_flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) -> "
+           "(Tensor, Tensor)")
+def _fwd_op(q, k, v, causal, scale):
+    o, lse = _fa.launch_fwd(q, k, v, causal, scale, hsplit=2)
+    packed_flash_fwd.launches += 1
+    B, Hp, T = q.shape[0], q.shape[1], q.shape[2]
+    return o, lse.view(B, Hp, 2, T)
+
+
+@_fwd_op.register_fake
+def _fwd_meta(q, k, v, causal, scale):
+    B, Hp, T = q.shape[0], q.shape[1], q.shape[2]
+    return (torch.empty_like(q),
+            q.new_empty((B, Hp, 2, T), dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::packed_flash_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+           "Tensor do, bool causal, float scale) -> (Tensor, Tensor, "
+           "Tensor)")
+def _bwd_op(q, k, v, o, lse, do, causal, scale):
+    out = _fa.launch_bwd(q, k, v, o, lse, do, causal, scale, hsplit=2)
+    packed_flash_bwd.launches += 1
+    return out
+
+
+@_bwd_op.register_fake
+def _bwd_meta(q, k, v, o, lse, do, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def packed_flash_fwd(q, k, v, causal: bool = True,
                      scale: Optional[float] = None):
-    """Forward: (out, lse [B, H/2, 2, T] f32)."""
+    """Forward: (out, lse [B, H/2, 2, T] f32). CPU tensors run the plain
+    version; CUDA tensors launch the kernel (meta tensors get the
+    outputs' shapes)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1] // 2)
     if _fa._on_cpu(q, k, v):
         with torch.no_grad():
             return packed_flash_reference(q, k, v, causal, scale,
                                           return_lse=True)
-    o, lse = _fa.launch_fwd(q, k, v, causal, scale, hsplit=2)
-    packed_flash_fwd.launches += 1
-    B, Hp, T = q.shape[0], q.shape[1], q.shape[2]
-    return o, lse.view(B, Hp, 2, T)
+    return _fwd_op(q, k, v, bool(causal), float(scale))
 
 
 def packed_flash_bwd(q, k, v, o, lse, do, causal: bool = True,
@@ -110,9 +151,7 @@ def packed_flash_bwd(q, k, v, o, lse, do, causal: bool = True,
     if _fa._on_cpu(q, k, v, o, lse, do):
         return _fa._reference_bwd(q, k, v, do, causal, scale,
                                   packed_flash_reference)
-    out = _fa.launch_bwd(q, k, v, o, lse, do, causal, scale, hsplit=2)
-    packed_flash_bwd.launches += 1
-    return out
+    return _bwd_op(q, k, v, o, lse, do, bool(causal), float(scale))
 
 
 packed_flash_fwd.launches = 0
@@ -123,8 +162,11 @@ def packed_flash_attention(q, k, v, causal: bool, scale: float):
     """Differentiable packed-pair attention: q/k/v [B, H/2, T, 128],
     `scale` the true per-head scale. Returns the packed output. CPU
     tensors run the plain version with autograd; CUDA tensors launch the
-    kernels."""
+    kernels, the forward alone when no gradient is asked for (an exported
+    graph holds it as one node)."""
     if _fa._on_cpu(q, k, v):
         return packed_flash_reference(q, k, v, causal, scale)
-    return _fa._FlashFn.apply(q, k, v, causal, scale, packed_flash_fwd,
-                              packed_flash_bwd)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _fa._FlashFn.apply(q, k, v, causal, scale, packed_flash_fwd,
+                                  packed_flash_bwd)
+    return packed_flash_fwd(q, k, v, causal, scale)[0]

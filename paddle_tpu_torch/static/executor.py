@@ -87,9 +87,12 @@ def _as_tensor(value, device) -> torch.Tensor:
 
 
 def _interpret(ops: List[OpDesc], env: Dict[str, object], device,
-               stop=()):
+               stop=(), grad=None):
     """Run the op list over the environment (module docstring): the ops
-    before the last backward op with autograd on, the rest without."""
+    before the last backward op with autograd on, the rest without; or,
+    with `grad` given (a control-flow op's sub-program, static/nn.py),
+    every op in that grad mode, so the outer program's backward reaches
+    through it."""
     last_bw = max((i for i, od in enumerate(ops) if od.kind == "backward"),
                   default=-1)
     wrt = set()
@@ -108,7 +111,7 @@ def _interpret(ops: List[OpDesc], env: Dict[str, object], device,
         if torch.is_tensor(env.get(n)):
             env[n] = env[n].detach()
     for i, od in enumerate(ops):
-        with torch.set_grad_enabled(i < last_bw):
+        with torch.set_grad_enabled(i < last_bw if grad is None else grad):
             if od.kind == "init":
                 env[od.output_names[0]] = od.fn(device)
             elif od.kind == "backward":

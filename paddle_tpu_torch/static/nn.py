@@ -223,7 +223,7 @@ def _run_sub(ops, consts, free, freevals, extra=()):
     env = {k: v.to(device) for k, v in consts.items()}
     env.update(zip(free, freevals))
     env.update(extra)
-    return _interpret(ops, env, device)
+    return _interpret(ops, env, device, grad=torch.is_grad_enabled())
 
 
 def _outputs(blk, prog, prefix, like, op_type, fn, in_names, tree=None):

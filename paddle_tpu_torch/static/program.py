@@ -32,8 +32,8 @@ the Program as a constant (`const_N`) where an op uses it.
 Variables are Tensors over meta tensors: shapes and dtypes flow, no
 memory is held. Shape inference runs each recorded function on the
 inputs' meta tensors (the port's kernels register meta versions:
-ops/kernels/flash_attention.py's custom ops), the analogue of the JAX
-package's jax.eval_shape. A Variable is found again from any plain
+the custom ops of ops/kernels/flash_attention.py and packed_flash.py),
+the analogue of the JAX package's jax.eval_shape. A Variable is found again from any plain
 alias of its meta tensor (module bodies see aliases) through its
 storage. Dims declared None / -1 are 1 in the meta tensor, as in the
 JAX package's shape inference; a module body that reads such a dim
@@ -44,10 +44,8 @@ Layers built in static mode take parameters that are Variables
 them) with an init op in the startup program, and their persistable
 buffers become persistable Variables (nn/layer/layers.py).
 
-Left out: K2 (packed_flash) has no meta version, so a GPT at head dim
-64 that routes to it (T >= flash_attention_min_seq) cannot be captured;
-install_capture_hook is enable_static (the port has no dispatcher hook
-to install).
+Left out: install_capture_hook is enable_static (the port has no
+dispatcher hook to install).
 """
 from __future__ import annotations
 

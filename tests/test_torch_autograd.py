@@ -4,9 +4,9 @@ CPU.
 Each case runs its body on `paddle_tpu` and on `paddle_tpu_torch` (the
 same numpy inputs) and holds the port to the JAX package's results
 (float32, 1e-6 unless a case says otherwise) as well as to the
-original's assertions. `test_double_grad_under_jit` is not twinned: it
-compiles with `paddle.jit.to_static`, which waits for its slice
-(ROADMAP Queue 1 item 4a').
+original's assertions. `test_double_grad_under_jit` wraps the gradient
+penalty in `paddle.jit.to_static`: the JAX package compiles it, the
+port runs it eagerly (jit/__init__.py), with the same results.
 
 One case differs by design: after an in-place `set_value` on a tensor a
 graph saved, the JAX package differentiates with the forward-time
@@ -332,6 +332,40 @@ def test_double_grad_allow_unused_and_no_grad_vars():
     gx, gx2 = _twin(body)
     np.testing.assert_allclose(gx, [3.0])
     np.testing.assert_allclose(gx2, [4.0])
+
+
+def test_double_grad_under_jit():
+    """Gradient penalty under paddle.jit.to_static: paddle.enable_grad()
+    inside opts the tape back in, so paddle.grad(create_graph=True)
+    composes; jit and eager agree in each package (1e-5 / 1e-4, the
+    original's limits) and the packages agree (1e-5), from the same
+    critic weights."""
+    rng = np.random.RandomState(0)
+    wn, bn = rng.randn(5, 1).astype("float32"), rng.randn(1).astype(
+        "float32")
+    xn = rng.randn(8, 5).astype("float32")
+
+    def body(paddle):
+        critic = paddle.nn.Linear(5, 1)
+        critic.weight.set_value(wn)
+        critic.bias.set_value(bn)
+
+        def gp_fn(x):
+            x.stop_gradient = False
+            with paddle.enable_grad():
+                score = critic(x).sum()
+                (gx,) = paddle.grad(score, [x], create_graph=True)
+                gp = ((((gx ** 2).sum(axis=1)) ** 0.5 - 1.0) ** 2).mean()
+                (gw,) = paddle.grad(gp, [critic.weight])
+            return gp, gw
+
+        eager_gp, eager_gw = gp_fn(paddle.to_tensor(xn))
+        jit_gp, jit_gw = paddle.jit.to_static(gp_fn)(paddle.to_tensor(xn))
+        np.testing.assert_allclose(_np(jit_gp), _np(eager_gp), rtol=1e-5)
+        np.testing.assert_allclose(_np(jit_gw), _np(eager_gw), rtol=1e-4,
+                                   atol=1e-6)
+        return [_np(jit_gp), _np(jit_gw)]
+    _twin(body, rtol=1e-5, atol=1e-6)
 
 
 def test_double_grad_uses_forward_time_values():

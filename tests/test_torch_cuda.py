@@ -62,6 +62,13 @@ PyTorch is installed:
   CPU, in f32 and under static.amp, and the inference artifact of its
   clone(for_test) (save_inference_model / load_inference_model)
   launching K1's forward once per layer with the Executor's logits;
+- slice 10b: K2's custom ops (fake versions on meta tensors, the card
+  against the plain version), a head-dim-64 GPT as a static Program on
+  the card through K2 against the CPU, jit.save artifacts holding K1 or
+  K2 as a graph node and serving two batch sizes through jit.load and
+  the Predictor, to_static on card tensors equal to eager (control flow
+  and a GPT's AdamW steps), and export_decoder / DecoderPredictor
+  against generate();
 - K4 (ops/kernels/fused_conv) against its plain version at M 1, 97,
   300, 512 and 6272, K 16 to 2048, N 16 to 512, with and without the
   residual: each element within one bf16 ulp of the plain value plus
@@ -1878,3 +1885,178 @@ def test_static_inference_artifact_launches_k1_on_card(cuda, min_seq_128,
     assert k1.flash_attention_fwd.launches - before == 2
     np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------------------ slice 10b
+def test_k2_custom_ops_fake_and_card(cuda):
+    """K2's registered custom ops: on meta tensors the fake versions give
+    the kernels' output shapes and dtypes and launch nothing; on the card
+    the ops hold to the plain version (f32, within 1e-4 of each tensor's
+    largest entry), each call counted once."""
+    q, k, v, do = _flash_inputs("k2", cuda, 256, torch.float32)
+    ops = torch.ops.paddle_tpu_torch
+    before = (k2.packed_flash_fwd.launches, k2.packed_flash_bwd.launches)
+    meta = [t.to("meta") for t in (q, k, v, do)]
+    o, lse = ops.packed_flash_fwd(*meta[:3], True, 0.125)
+    grads = ops.packed_flash_bwd(*meta[:3], o, lse, meta[3], True, 0.125)
+    assert o.device.type == "meta" and o.shape == q.shape
+    assert lse.shape == (2, 2, 2, 256) and lse.dtype == torch.float32
+    assert [g.shape for g in grads] == [q.shape] * 3
+    assert (k2.packed_flash_fwd.launches,
+            k2.packed_flash_bwd.launches) == before
+    got = ops.packed_flash_fwd(q, k, v, True, 0.125)
+    got_g = ops.packed_flash_bwd(q, k, v, *got, do, True, 0.125)
+    torch.cuda.synchronize()
+    assert (k2.packed_flash_fwd.launches,
+            k2.packed_flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ro, rlse = k2.packed_flash_reference(qr, kr, vr, True, 0.125,
+                                         return_lse=True)
+    rg = torch.autograd.grad(ro, (qr, kr, vr), do)
+    _assert_flash_close((*got, *got_g), (ro, rlse, *rg), 1e-4)
+
+
+def _k2_static_losses(place, device):
+    """Three SGD steps of a 2-layer GPT with 2 heads of 64 (K2's route at
+    T 128) as a static Program; (losses, K2 [forward, backward]
+    launches)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            ids = static.data("ids", [2, 128], "int64")
+            lab = static.data("lab", [2, 128], "int64")
+            loss = paddle.nn.functional.cross_entropy(
+                GPT(cfg, seed=0)(ids).reshape([-1, 256]), lab.reshape([-1, 1]))
+            paddle.optimizer.SGD(0.1).minimize(loss)
+    finally:
+        paddle.disable_static()
+    rs = np.random.RandomState(0)
+    feed = {n: rs.randint(0, 256, (2, 128)).astype(np.int64)
+            for n in ("ids", "lab")}
+    scope = static.Scope()
+    exe = static.Executor(place)
+    exe.run(startup, scope=scope)
+    before = (k2.packed_flash_fwd.launches, k2.packed_flash_bwd.launches)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(3)]
+    return losses, [k2.packed_flash_fwd.launches - before[0],
+                    k2.packed_flash_bwd.launches - before[1]]
+
+
+def test_k2_static_program_on_card_matches_cpu(cuda, min_seq_128):
+    """A head-dim-64 GPT captured as a static Program (K2's fake versions
+    give the shapes) and run by the Executor on the card: K2 forward and
+    backward once per layer a step, losses within 1e-4 relative of the
+    same program on the CPU (K2's plain version), in f32."""
+    import paddle_tpu_torch as paddle
+    card, counts = _k2_static_losses(paddle.CUDAPlace(0), cuda)
+    cpu, _ = _k2_static_losses(paddle.CPUPlace(), "cpu")
+    assert counts == [6, 6]
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+@pytest.mark.parametrize("heads,kernel", [(1, "k1"), (2, "k2")])
+def test_jit_save_artifact_holds_the_kernel_on_card(cuda, min_seq_128,
+                                                    tmp_path, heads, kernel):
+    """paddle.jit.save of a 2-layer GPT on the card with a [None, 128]
+    spec: the exported graph holds the heads' kernel (K1 at one head of
+    128, K2 at two of 64) as one forward node a layer; jit.load and the
+    Predictor serve batch 1 and 3 from it with the eager model's logits
+    (within 1e-5: the same kernels in the same order), launching that
+    forward once a layer a run and no backward."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=heads, max_seq_len=128)
+    model = GPT(cfg, device=cuda, seed=0)
+    prefix = str(tmp_path / "gpt")
+    paddle.jit.save(model, prefix,
+                    input_spec=[paddle.jit.InputSpec([None, 128], "int64")])
+    op = {"k1": "flash_attention_fwd", "k2": "packed_flash_fwd"}[kernel]
+    layer = paddle.jit.load(prefix)
+    nodes = [n for n in layer._exported.graph.nodes
+             if f"paddle_tpu_torch.{op}" in str(n.target)]
+    assert len(nodes) == 2
+    pred = inference.create_predictor(inference.Config(prefix + ".pdmodel"))
+    fwd, bwd = ((k1.flash_attention_fwd, k1.flash_attention_bwd)
+                if kernel == "k1" else
+                (k2.packed_flash_fwd, k2.packed_flash_bwd))
+    ids = np.random.RandomState(1).randint(0, 256, (3, 128))
+    for b in (1, 3):
+        x = torch.from_numpy(ids[:b]).to(cuda)
+        with torch.no_grad():
+            want = model(x).cpu().numpy()
+        before = (fwd.launches, bwd.launches)
+        got = layer(x).cpu().numpy()
+        torch.cuda.synchronize()
+        assert (fwd.launches - before[0], bwd.launches - before[1]) == (2, 0)
+        got_p = pred.run([ids[:b]])[0]
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got_p, want, rtol=1e-5, atol=1e-5)
+
+
+def _branchy(x):
+    if x.mean() > 0:
+        y = x * 2.0
+    else:
+        y = x - 1.0
+    i = x.sum() * 0.0
+    while i < 3:
+        y = y + x * i
+        i = i + 1
+    return y.sum()
+
+
+def test_to_static_on_card_equals_eager(cuda, min_seq_128):
+    """jit.to_static on card tensors: a converted data-dependent if and
+    while equal to the eager function, and a to_static GPT (one head of
+    128, K1) with the undecorated GPT's logits and three AdamW losses
+    bitwise, its gradients reaching the parameters."""
+    import paddle_tpu_torch as paddle
+    fn = paddle.jit.to_static(_branchy)
+    for sign in (1.0, -1.0):
+        x = sign * torch.rand(8, 8, device=cuda) + 0.01 * sign
+        assert torch.equal(fn(x), _branchy(x))
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=1, max_seq_len=128)
+    rs = np.random.RandomState(0)
+    x, y = (torch.from_numpy(rs.randint(0, 256, (2, 128))).to(cuda)
+            for _ in range(2))
+    runs = []
+    for decorate in (False, True):
+        model = GPT(cfg, device=cuda, seed=0)
+        if decorate:
+            model = paddle.jit.to_static(model)
+        opt = paddle.optimizer.AdamW(1e-3, parameters=model.parameters())
+        with torch.no_grad():
+            logits = model(x)
+        losses = []
+        for _ in range(3):
+            loss = model.loss(x, y)
+            loss.backward()
+            assert model.wte.weight.grad is not None
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        runs.append((logits, losses))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+
+
+def test_export_decoder_on_card(cuda, tmp_path):
+    """export_decoder of a tiny GPT on the card and DecoderPredictor:
+    greedy tokens equal to generate() on the card."""
+    cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2,
+                    num_heads=4, max_seq_len=32)
+    model = GPT(cfg, device=cuda, seed=0)
+    model.eval()
+    gen.export_decoder(model, str(tmp_path / "dec"))
+    pred = gen.DecoderPredictor(str(tmp_path / "dec"))
+    ids = np.random.RandomState(6).randint(1, 97, (3, pred.prefill_len))
+    np.testing.assert_array_equal(pred.generate(ids, 5),
+                                  gen.generate(model, ids, 5))

@@ -5,13 +5,10 @@ Every `paddle.*` attribute chain (and every `from paddle_tpu.X import
 examples/bert_pretrain.py, examples/resnet_train.py and
 examples/mnist_lenet.py reaches must resolve on paddle_tpu_torch; the
 multi-chip branches (`if args.dp ...`) wait for the distributed slice.
-Then gpt_pretrain.py's and mnist_lenet.py's own bodies run on the port
-with `import paddle_tpu as paddle` read as `import paddle_tpu_torch as
-paddle` (gpt_pretrain's JAX platform lines dropped), on the CPU at a
-small size.
-
-Not covered yet: examples/gpt_generate.py needs export_decoder (Queue 1
-item 8).
+Then gpt_pretrain.py's, mnist_lenet.py's and gpt_generate.py's own
+bodies run on the port with `import paddle_tpu as paddle` read as
+`import paddle_tpu_torch as paddle` (gpt_pretrain's JAX platform lines
+dropped), on the CPU at a small size.
 """
 import ast
 import importlib
@@ -171,3 +168,40 @@ def test_mnist_lenet_body_runs_on_the_port(monkeypatch):
     acc = [float(m) for m in re.findall(r"test accuracy: ([\d.]+)", text)]
     assert len(loss) == 1 and math.isfinite(loss[0]), text
     assert len(acc) == 1 and 0.0 <= acc[0] <= 1.0, text
+
+
+def test_gpt_generate_body_runs_on_the_port():
+    """examples/gpt_generate.py on the port at the example's own sizes:
+    400 TrainStep steps teach the tiny GPT (t + 1) % 128, then greedy,
+    sampled and beam decoding, and export_decoder served by
+    DecoderPredictor without the model class; the greedy and served
+    tokens continue the prompt's count."""
+    src = (EXAMPLES / "gpt_generate.py").read_text()
+    src = src.replace("import paddle_tpu as paddle",
+                      "import paddle_tpu_torch as paddle")
+    src = src.replace("import paddle_tpu.optimizer as opt",
+                      "import paddle_tpu_torch.optimizer as opt")
+    src = src.replace("from paddle_tpu.models.", "from paddle_tpu_torch.models.")
+    assert "paddle_tpu." not in src.replace("paddle_tpu_torch", "")
+    assert "jax" not in src
+    ns = {"__name__": "gpt_generate_on_port",
+          "__file__": str(EXAMPLES / "gpt_generate.py")}
+    exec(compile(src, "gpt_generate.py", "exec"), ns)
+    prev, threads = _place._default, torch.get_num_threads()
+    paddle_tpu_torch.set_device("cpu")
+    torch.set_num_threads(2)
+    out = io.StringIO()
+    try:
+        with redirect_stdout(out):
+            ns["main"]()
+    finally:
+        _place._default = prev
+        torch.set_num_threads(threads)
+    text = out.getvalue()
+    loss = float(re.search(r"final train loss: ([-\d.]+)", text).group(1))
+    greedy = eval(re.search(r"greedy: +(\[[^\]]*\])", text).group(1))
+    served = eval(re.search(r"served: +(\[[^\]]*\])", text).group(1))
+    assert loss < 0.5, text
+    assert greedy == [10, 11, 12, 13, 14, 15], text
+    assert served == [16, 17, 18, 19], text
+    assert "beam-4:" in text and "sampled:" in text

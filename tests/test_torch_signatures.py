@@ -1458,3 +1458,58 @@ def test_slice_10a_packages_export_every_reference_name():
         assert hasattr(paddle_tpu_torch, name), name
     assert hasattr(paddle_tpu_torch.jit, "InputSpec")
     assert hasattr(paddle_tpu_torch.utils, "unique_name")
+
+
+SLICE_10B = ("jit", "jit.dy2static", "ops.control_flow", "inference",
+             "onnx.export", "models.generation")
+
+
+@pytest.mark.parametrize("module", SLICE_10B)
+def test_slice_10b_module_has_every_reference_name(module):
+    """Every public function, class and constant of the JAX modules of
+    slice 10b (to_static and dy2static, control flow, the artifact
+    Predictor, onnx, export_decoder) has a counterpart of the same name
+    in the port's module, defined in the reference's order, and every
+    public method of each class exists with the reference's positional
+    order."""
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    ref_mod = importlib.import_module(f"paddle_tpu.{module}")
+    names = _reference_order(module)
+    assert names, module
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (module, missing)
+    order = [n for n in vars(port) if n in set(names)]
+    assert order == names, (module, order, names)
+    for name in names:
+        ref = getattr(ref_mod, name)
+        if not inspect.isclass(ref):
+            continue
+        obj = getattr(port, name)
+        for meth, fn in vars(ref).items():
+            if meth.startswith("_") or not callable(fn):
+                continue
+            assert callable(getattr(obj, meth, None)), (name, meth)
+            want = _positional(getattr(ref, meth))
+            assert _positional(getattr(obj, meth))[:len(want)] == want, \
+                (module, name, meth)
+
+
+def test_slice_10b_packages_export_every_reference_name():
+    """jit exports every public name of the JAX package's jit but its
+    imports (jax, numpy, typing ...); inference every name of the JAX
+    inference's; the top level has onnx and ops.control_flow."""
+    ref = importlib.import_module("paddle_tpu.jit")
+    port = importlib.import_module("paddle_tpu_torch.jit")
+    leaked = {"annotations", "jax", "jnp", "np", "os", "pickle", "time",
+              "functools", "jaxplan", "Callable", "Dict", "Optional",
+              "Tensor", "Layer", "convert_dtype", "no_grad"}
+    names = {n for n in dir(ref) if not n.startswith("_")} - leaked
+    assert sorted(names - set(dir(port))) == []
+    ref = importlib.import_module("paddle_tpu.inference")
+    port = importlib.import_module("paddle_tpu_torch.inference")
+    names = {n for n in dir(ref) if not n.startswith("_")} - {
+        "annotations", "jax", "jnp", "np", "os", "pickle", "Dict", "List",
+        "Optional", "serving"}
+    assert sorted(names - set(dir(port))) == []
+    assert hasattr(paddle_tpu_torch, "onnx")
+    assert hasattr(paddle_tpu_torch.ops, "control_flow")

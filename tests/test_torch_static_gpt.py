@@ -209,7 +209,8 @@ def test_static_step_equals_the_eager_step():
 def test_chip_smoke_static_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's phases 41-44 at a tiny size on the CPU (K1's plain
     version at T 128 stands in for the kernel, so only the launch gates,
-    which need the card, are left out): every other gate holds."""
+    which need the card, are left out): every other gate holds, phase
+    43's artifact through the Predictor (phase 47's part) included."""
     import chip_smoke as cs
     from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.tools import train_bench
@@ -236,5 +237,6 @@ def test_chip_smoke_static_phases_rehearse_on_cpu(monkeypatch):
             "idle_share": 0.0}, cs.Laps())
     finally:
         flags.set_flags({"FLAGS_flash_attention_min_seq": prev})
-    assert out == {"static_launches": [0, 0], "artifact_launches": [0, 0]}
+    assert out == {"static_launches": [0, 0], "artifact_launches": [0, 0],
+                   "predictor_launches": [0, 0]}
     assert failed and all("launched" in f for f in failed), failed
